@@ -1,0 +1,203 @@
+"""The user-facing API: the reference's Python extension, on torch.
+
+``horizonator(lat, lon, width, height, ...)`` + ``.render(az_deg0,
+az_deg1, ...)`` keep the constructor/render signature and return shapes of
+the reference's CPython module (horizonator-pywrap.c:49-125, 158-279):
+the constructor loads the DEM window and puts it on ``device``; render()
+is the repeatable path with a movable camera. This port covers the
+untextured window-sampler path; texture, hillshade, region sharding and
+long-clip LOD renders raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+
+import numpy as np
+import torch
+
+from . import geometry
+from .dem import load_mosaic, RADIUS_CELLS_DEFAULT_PY
+from .render import make_params, render_panorama
+from .render.crossing import k_cross_for
+
+ZNEAR_DEFAULT = 100.0     # horizonator.h:9
+ZFAR_DEFAULT = 40000.0    # horizonator.h:10
+# the JAX package swaps renders needing more crossing steps than this to its
+# LOD march (api.py:648), which is not ported
+LOD_SWAP_NSTEPS = 1536
+
+
+class horizonator:
+    """Offscreen SRTM terrain renderer (reference-compatible signature plus
+    keyword-only quality knobs). ``device``: where the DEM lives and the
+    render runs (default "cuda")."""
+
+    def __init__(self, lat, lon, width, height,
+                 render_texture=False, SRTM1=False,
+                 dir_dems=None, dir_tiles=None,
+                 tiles_name=None, tiles_url_fmt=None,
+                 allow_downloads=True,
+                 render_radius_cells=-1, render_radius_m=-1.0,
+                 *,
+                 nsteps=None, surface="bilinear", refine=True,
+                 sampler="auto", device="cuda", curvature="none",
+                 allow_dem_downloads=False, dem_url_fmt=None,
+                 hillshade=False, strict_coverage=False, region_mesh=None):
+        if render_radius_cells < 0 and render_radius_m < 0:
+            render_radius_cells = RADIUS_CELLS_DEFAULT_PY
+        elif render_radius_cells > 0 and render_radius_m > 0:
+            raise ValueError(
+                "both render_radius_cells,render_radius_m cannot be >0")
+        if render_texture:
+            raise NotImplementedError("render_texture is not ported")
+        if hillshade:
+            raise NotImplementedError("hillshade is not ported")
+        if region_mesh is not None:
+            raise NotImplementedError("region_mesh is not ported")
+        if allow_dem_downloads:
+            raise NotImplementedError("DEM downloads are not ported")
+        if sampler not in ("auto", "window"):
+            raise NotImplementedError(f"sampler={sampler!r} is not ported; "
+                                      "only 'window' is")
+        if surface != "bilinear":
+            raise NotImplementedError(
+                f"surface={surface!r} needs the uniform-step sampler, which "
+                "is not ported")
+
+        self.width = int(width)
+        self.height = int(height)
+        self.curvature = curvature
+        self._curv = geometry.curvature_coeff(curvature)
+        self.surface = surface
+        self.refine = bool(refine)
+        self._nsteps_fixed = nsteps
+        self.device = torch.device(device)
+        self.mosaic = load_mosaic(
+            lat, lon,
+            render_radius_cells=render_radius_cells,
+            render_radius_m=render_radius_m,
+            datadir=dir_dems, srtm1=SRTM1, dem_url_fmt=dem_url_fmt)
+        self._dem = torch.from_numpy(
+            self.mosaic.grid.astype(np.float32)).to(self.device)
+        self.viewer_lat = float(lat)
+        self.viewer_lon = float(lon)
+        self.viewer_z = self.mosaic.auto_viewer_z(lat, lon)
+        self.strict_coverage = bool(strict_coverage)
+
+    # -- coverage guard -----------------------------------------------------
+
+    def _check_dropped(self, guard):
+        """Warn (raise under strict_coverage) when the march reports
+        ``dropped`` near-band samples outside the static patch or
+        ``truncated`` columns whose march stopped short of zfar/the grid
+        edge (a manual nsteps= below k_cross_for's budget)."""
+        n_drop, n_trunc = guard.tolist()
+        if not (n_drop or n_trunc):
+            return
+        parts = []
+        if n_drop:
+            parts.append(
+                f"{n_drop} march samples exceeded the static window/patch "
+                f"and were masked (undersized lat_hint_deg/znear_hint_m "
+                f"for this scene)")
+        if n_trunc:
+            parts.append(
+                f"{n_trunc} image columns stopped marching short of zfar/"
+                f"the grid edge, so their far samples were masked (manual "
+                f"nsteps= below k_cross_for's latitude-scaled budget -- "
+                f"raise nsteps or drop the override)")
+        msg = ("render(): " + "; ".join(parts)
+               + " -- horizons may be silently low.")
+        if self.strict_coverage:
+            raise RuntimeError(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+    # -- static hints ---------------------------------------------------------
+
+    def _lat_hint(self):
+        # 10-degree buckets, as the JAX package's static hint
+        return round(self.viewer_lat / 10.0) * 10.0
+
+    @staticmethod
+    def _znear_hint(znear):
+        """znear rounded UP to a power of two (floor 128): sizes the static
+        near patch; a larger hint only grows it."""
+        return float(max(128.0, 2.0 ** math.ceil(math.log2(max(znear, 1.0)))))
+
+    def _auto_nsteps(self, znear, zfar):
+        if self._nsteps_fixed is not None:
+            return int(self._nsteps_fixed)
+        return k_cross_for(zfar, self.mosaic.cells_per_deg, self.viewer_lat,
+                           n=self.mosaic.grid.shape[0])
+
+    # -- the main entry point -------------------------------------------------
+
+    def render(self, az_deg0, az_deg1, lat=None, lon=None,
+               return_image=True, return_range=True,
+               az_extents_use_pixel_centers=False,
+               znear=ZNEAR_DEFAULT, zfar=ZFAR_DEFAULT,
+               znear_color=-1.0, zfar_color=-1.0,
+               *, ele_m=None):
+        """Render; same contract as the reference render()
+        (horizonator-pywrap.c:158-279). Returns (image, ranges) as numpy
+        arrays, or one of them, or () if neither is asked for. image:
+        (H, W, 3) uint8 BGR top-row-first; ranges: (H, W) float32 slant
+        meters, invisible = -1."""
+        if znear_color < 0.0:
+            znear_color = znear
+        if zfar_color < 0.0:
+            zfar_color = zfar
+        if not return_image and not return_range:
+            return ()
+
+        az_deg0 = float(az_deg0)
+        az_deg1 = float(az_deg1)
+        if az_extents_use_pixel_centers:
+            az_per_pixel = (az_deg1 - az_deg0) / (self.width - 1)
+            az_deg0 -= az_per_pixel / 2.0
+            az_deg1 += az_per_pixel / 2.0
+
+        if lat is not None and lat > -1000.0:
+            if lon is None:
+                raise ValueError("lat given without lon")
+            self.viewer_lat = float(lat)
+            self.viewer_lon = float(lon)
+            self.viewer_z = (float(ele_m) if ele_m is not None
+                             else self.mosaic.auto_viewer_z(lat, lon))
+        elif ele_m is not None:
+            self.viewer_z = float(ele_m)
+
+        nsteps = self._auto_nsteps(znear, zfar)
+        if nsteps > LOD_SWAP_NSTEPS:
+            raise NotImplementedError(
+                f"this render needs {nsteps} crossing steps; the JAX package "
+                f"renders it with the LOD march, which is not ported "
+                f"(shorten zfar or pass nsteps<={LOD_SWAP_NSTEPS})")
+        ci, cj = self.mosaic.viewer_cell(self.viewer_lat, self.viewer_lon)
+        params = make_params(
+            device=self.device,
+            viewer_cell_i=ci, viewer_cell_j=cj, viewer_z=self.viewer_z,
+            cos_viewer_lat=math.cos(math.radians(self.viewer_lat)),
+            az_rad0=math.radians(az_deg0), az_rad1=math.radians(az_deg1),
+            znear=znear, zfar=zfar, znear_color=znear_color,
+            zfar_color=zfar_color, curv=self._curv)
+        image, ranges, guard = render_panorama(
+            self._dem, params, width=self.width, height=self.height,
+            nsteps=nsteps, cells_per_deg=self.mosaic.cells_per_deg,
+            surface=self.surface, refine=self.refine,
+            lat_hint_deg=self._lat_hint(),
+            znear_hint_m=self._znear_hint(znear), with_dropped=True)
+        out = []
+        if return_image:
+            out.append(image.cpu().numpy())
+        if return_range:
+            out.append(ranges.cpu().numpy())
+        self._check_dropped(guard)
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def __str__(self):
+        return f"Looking out from {self.viewer_lat:.4f},{self.viewer_lon:.4f}"
+
+    __repr__ = __str__

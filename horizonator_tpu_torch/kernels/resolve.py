@@ -1,0 +1,94 @@
+"""Resolve: first-crossing sample per pixel row, CUDA kernel + plain version.
+
+``resolve`` launches ``csrc/resolve.cu`` for CUDA tensors and takes
+``resolve_plain`` only for CPU tensors. Input: raw horizon rows y (W, K)
+float32 (each march sample's elevation as a continuous pixel row, top =
+0). Output per (column, pixel row h), each (W, H):
+
+    idx   int32: the first sample whose running horizon reaches row h (an
+          exactly equal 1/256-px key counts), K if none;
+    alpha float32: the refine fraction between samples idx-1 and idx,
+          quantized to multiples of 1/amax;
+    ok    bool: idx in (0, K), i.e. both refine brackets exist.
+
+This is the contract of horizonator_tpu/render/resolve_window.py's fused
+kernel, bit for bit; see csrc/resolve.cu for the algorithm and for
+``int_first``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from ..geometry import recip
+
+BIG = 1 << 30
+MAX_K = (227 * 1024) // 4 - 128    # keys that fit one block's shared memory
+
+
+def quantize_rows(y: torch.Tensor) -> torch.Tensor:
+    """Rows -> int32 keys at 1/256 px, clipped so that <<1 cannot overflow
+    (resolve_window.py:128-130)."""
+    yq = torch.clamp(torch.round(y * 256.0), -2.0 ** 30, 2.0 ** 30)
+    return torch.clamp(yq.to(torch.int32), -(BIG - 1), BIG - 1)
+
+
+def resolve_plain(y: torch.Tensor, height: int, amax: float,
+                  int_first: bool):
+    """(idx, alpha, ok): cummin + searchsorted form of the kernel."""
+    w, k = y.shape
+    keys = torch.cummin(quantize_rows(y), dim=1).values   # non-increasing
+    thr = (torch.arange(height, dtype=torch.int32, device=y.device)
+           << 8)[None, :].expand(w, height)
+    # count of keys > thr == count of -keys < -thr on the ascending -keys
+    idx = torch.searchsorted((-keys).contiguous(), (-thr).contiguous(),
+                             out_int32=True)
+    has_cur = idx < k
+    has_prev = idx > 0
+    y_cur = torch.where(
+        has_cur, torch.gather(keys, 1, idx.clamp(max=k - 1).long()), -BIG)
+    y_prev = torch.where(
+        has_prev, torch.gather(keys, 1, (idx - 1).clamp(min=0).long()), BIG)
+    denom = (y_prev - y_cur).to(torch.float32)
+    ok = (y_cur > -BIG) & (y_prev < BIG) & (denom > 0)
+    if int_first:
+        num = (y_prev - thr).to(torch.float32)
+    else:
+        num = y_prev.to(torch.float32) - thr.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=y.device)
+    alpha = torch.clamp(num / torch.where(denom > 0, denom, one), 0.0, 1.0)
+    # the decode's `/ amax` is a product with the float32 reciprocal in XLA
+    alpha = torch.round(alpha * amax) * recip(amax)
+    return idx, alpha, ok
+
+
+def resolve(y: torch.Tensor, height: int, amax: float, int_first: bool):
+    """(idx int32, alpha float32, ok bool), each (W, height), from raw rows
+    y (W, K) float32; ``amax``: the alpha quantum's denominator."""
+    if y.device.type == "cpu":
+        return resolve_plain(y, height, amax, int_first)
+    if y.device.type != "cuda":
+        raise ValueError(f"resolve: unsupported device {y.device}")
+    if y.dtype != torch.float32 or y.dim() != 2 or not y.is_contiguous():
+        raise ValueError(f"resolve: y must be a contiguous 2-D float32 "
+                         f"tensor, got {y.dtype} {tuple(y.shape)}")
+    w, k = y.shape
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"resolve: K={k} outside (0, {MAX_K}]")
+    if not 0 < height < (1 << 22):
+        raise ValueError(f"resolve: height {height} out of range")
+    idx = torch.empty((w, height), dtype=torch.int32, device=y.device)
+    alpha = torch.empty((w, height), dtype=torch.float32, device=y.device)
+    ok = torch.empty((w, height), dtype=torch.bool, device=y.device)
+    rc = build.library().hz_resolve(
+        y.data_ptr(), w, k, height, amax, recip(amax), int(bool(int_first)),
+        idx.data_ptr(), alpha.data_ptr(), ok.data_ptr(),
+        torch.cuda.current_stream(y.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"resolve launch failed: CUDA error {rc}")
+    resolve.launches += 1
+    return idx, alpha, ok
+
+
+resolve.launches = 0

@@ -1,0 +1,154 @@
+"""Column ray-march panorama renderer on torch tensors.
+
+Counterpart of horizonator_tpu.render.raymarch for the window sampler. In
+an equirectangular panorama every image column is one azimuth, so
+visibility is a 1D horizon scan per column: march the ray, and fill pixel
+row y with the FIRST sample whose running-max elevation reaches row y.
+The output is the reference's contract (horizonator.h:155-169): an
+(H, W, 3) uint8 BGR image, top row first, shaded by the distance-red ramp
+(vertex.glsl:159-162), and an (H, W) float32 slant-range image with -1 for
+sky.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import geometry
+from ..geometry import const, recip
+
+_ROWQ = 256.0         # pixel-row quantization of the resolve keys (1/256 px)
+_ROWQ_BITS = 8        # log2(_ROWQ)
+
+
+class RenderParams(NamedTuple):
+    """Per-render scene/camera state: 0-d float32 tensors on the render
+    device (horizonator.h:23-35)."""
+    viewer_cell_i: torch.Tensor   # fractional grid coords of the viewer
+    viewer_cell_j: torch.Tensor
+    viewer_z: torch.Tensor        # viewer elevation, meters
+    cos_viewer_lat: torch.Tensor
+    az_rad0: torch.Tensor         # azimuth of the LEFT viewport edge
+    az_rad1: torch.Tensor         # azimuth of the RIGHT viewport edge
+    znear: torch.Tensor           # clip distances, meters
+    zfar: torch.Tensor
+    znear_color: torch.Tensor     # shading ramp extents, meters
+    zfar_color: torch.Tensor
+    curv: torch.Tensor            # earth curvature 1/(2 R_eff), 0 = flat
+
+
+def _params_on(values, device) -> RenderParams:
+    """One host-to-device copy of all fields, then 0-d views of it."""
+    host = torch.from_numpy(np.asarray(values, dtype=np.float32))
+    return RenderParams(*host.to(device).unbind())
+
+
+def make_params(*, device, curv=0.0, **fields) -> RenderParams:
+    """RenderParams from Python numbers, each rounded to float32 once (as
+    ``jnp.float32(x)`` does)."""
+    fields["curv"] = curv
+    return _params_on([fields[k] for k in RenderParams._fields], device)
+
+
+def params_from_jax(p, device) -> RenderParams:
+    """The port's RenderParams from the JAX package's: every field taken as
+    a numpy float32 scalar (``np.asarray`` of a JAX array works) and moved
+    to ``device``."""
+    return _params_on([np.float32(np.asarray(getattr(p, k)))
+                       for k in RenderParams._fields], device)
+
+
+def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
+                    height: int, nsteps: int, cells_per_deg: int,
+                    surface: str = "bilinear", refine: bool = True,
+                    textured: bool = False, sampler: str = "window",
+                    lat_hint_deg: float = 45.0, znear_hint_m=100.0,
+                    with_dropped: bool = False, plain: bool = False):
+    """Render one panorama from a square (n, n) float32 DEM tensor
+    (dem[j, i], row 0 = SOUTH edge) on its device.
+
+    ``nsteps``: the crossing budget (crossing.k_cross_for). ``surface`` is
+    accepted for signature parity: crossings sample grid lines, where the
+    bilinear and triangulated surfaces agree. ``plain`` runs the kernels'
+    plain PyTorch versions on any device.
+
+    Returns (image (H, W, 3) uint8 BGR, ranges (H, W) float32), plus the
+    (2,) int32 guard [dropped, truncated] under ``with_dropped``."""
+    if sampler != "window":
+        raise NotImplementedError(f"sampler={sampler!r} is not ported; "
+                                  "only 'window' is")
+    if textured:
+        raise NotImplementedError("textured renders are not ported")
+    if surface not in ("bilinear", "triangulated"):
+        raise ValueError(f"unknown surface mode {surface!r}")
+    from .window import march_from_geometry
+    from .crossing import crossing_geometry
+    geo = crossing_geometry(params, width=width, cells_per_deg=cells_per_deg)
+    tanel, dists = march_from_geometry(
+        dem, params, geo, k_cross=nsteps, cells_per_deg=cells_per_deg,
+        lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m, plain=plain)
+    out = resolve_to_image(tanel, dists.d_of, geo.az, params, width=width,
+                           height=height, refine=refine, plain=plain)
+    if with_dropped:
+        return out + (torch.stack([dists.dropped, dists.truncated]),)
+    return out
+
+
+def horizon_rows(tanel: torch.Tensor, params: RenderParams, *, width: int,
+                 height: int) -> torch.Tensor:
+    """(W, K) continuous pixel rows of the march tangents (top = 0): the
+    exact inverse of the pixel-row elevation grid (raymarch.py:964-984)."""
+    _, _, az_ndc_per_rad = geometry.az_window_rad(params.az_rad0,
+                                                  params.az_rad1)
+    el_k = torch.atan(tanel)
+    return ((1.0 - el_k * (az_ndc_per_rad * (width / height)))
+            * (height * 0.5) - 0.5)
+
+
+def resolve_to_image(tanel: torch.Tensor, d_of, az: torch.Tensor,
+                     params: RenderParams, *, width: int, height: int,
+                     refine: bool = True, textured: bool = False,
+                     plain: bool = False):
+    """The render tail (raymarch.py:944-1061, untextured): first-crossing
+    resolve in pixel-row space, refined ranges, image assembly.
+
+    Takes the RAW march tangents ``tanel`` (W, K): the resolve takes the
+    running max itself (in row space, where it commutes with the monotone
+    row map bit for bit), so no run_max is needed."""
+    if textured:
+        raise NotImplementedError("textured resolve is not ported")
+    from .resolve_window import resolve_window
+    p = params
+    ktotal = tanel.shape[1]
+    _, _, az_ndc_per_rad = geometry.az_window_rad(p.az_rad0, p.az_rad1)
+    aspect = width / height
+    y = torch.arange(height, dtype=torch.float32, device=tanel.device)
+    el_ndc = 1.0 - (2.0 * y + 1.0) * recip(height)
+    el = el_ndc / az_ndc_per_rad * recip(aspect)                 # (H,)
+
+    y_k = horizon_rows(tanel, p, width=width, height=height)
+    idx, alpha, ok = resolve_window(y_k, height, plain=plain)    # (W, H)
+    sky = idx >= ktotal
+    idxc = torch.clamp(idx, max=ktotal - 1)
+
+    d_hit = d_of(idxc)
+    if refine:
+        okr = ok & (idxc > 0) & ~sky
+        d_prev = d_of(torch.clamp(idxc - 1, min=0))
+        d_hit = torch.where(okr, d_prev + alpha * (d_hit - d_prev), d_hit)
+    d_hit = torch.clamp(d_hit, p.znear, p.zfar)
+
+    ranges_wh = d_hit / torch.cos(el)[None, :]
+    ranges_wh = torch.where(sky, const(-1.0, ranges_wh), ranges_wh)
+
+    red = torch.clamp((d_hit - p.znear_color) / (p.zfar_color - p.znear_color),
+                      0.0, 1.0)
+    r8 = torch.round(red * 255.0).to(torch.uint8)
+    zero = torch.zeros_like(r8)
+    b = sky.to(torch.uint8) * 255
+    r = torch.where(sky, zero, r8)
+    image = torch.stack([b, zero, r], dim=-1).transpose(0, 1)    # (H, W, 3)
+    return image.contiguous(), ranges_wh.transpose(0, 1).contiguous()
