@@ -20,7 +20,23 @@ Phases, in order; any failure raises and exits nonzero:
     (CUDA events) with kernels and with plain versions, and each step's
     time;
  6. the API: horizonator(lat, lon, 4096, 1024, dir_dems=<3x3 synthetic
-    SRTM3 tiles>).render(-180, 180) at the default radius and zfar.
+    SRTM3 tiles>).render(-180, 180) at the default radius and zfar;
+ 7. textured window march vs its plain version on phase 2's scene, with
+    seeded (3, 6800, 6800) half-cell colors packed on the card, then with
+    seeded packed cell planes: tangents bitwise equal to phase 2's, colors
+    bitwise equal to the plain version's, no dropped or truncated samples;
+ 8. textured resolve vs its plain version on those rows at H 1024: idx,
+    alpha, ok and tex bitwise equal; the occluded-plateau case routes the
+    crest's color to every row it covers;
+ 9. the textured main path, render_panorama(textured=True) with half-cell
+    planes, a seeded 2048^2 z12 atlas around the viewer and the hybrid
+    near field (exact_near_m 1200) at 4096x1024: both textured kernels
+    launched, image and ranges bitwise equal to the plain versions'
+    render, ranges bitwise equal to phase 5's, near colors replaced by the
+    atlas; median ms/viewpoint over 20 renders with kernels (5 with plain
+    versions), each textured kernel's time and each step's;
+10. the API with hillshade=True on phase 6's tiles: both textured kernels
+    launched, terrain gray-shaded.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -39,10 +55,13 @@ import torch
 
 W, H = 4096, 1024
 LAT = 34.3
+LON = -117.6          # where the bench grid's centre is placed for the atlas
 ZFAR = 40000.0
 CPD = 1200
 N = 3400
 RENDERS = 20
+PLAIN_TEX_RENDERS = 5
+EXACT_NEAR_M = 1200.0
 
 
 def fail(msg):
@@ -109,6 +128,12 @@ def max_abs(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def max_chan(a, b):
+    """Largest per-channel difference of two packed 0x00RRGGBB tensors."""
+    return max((((a >> sh) & 0xff) - ((b >> sh) & 0xff)).abs().max().item()
+               if a.numel() else 0 for sh in (0, 8, 16))
+
+
 def write_tiles(d, lat0, lon0):
     """3x3 synthetic SRTM3 tiles around (lat0, lon0): ridges and peaks."""
     from horizonator_tpu_torch.dem import hgt
@@ -123,6 +148,257 @@ def write_tiles(d, lat0, lon0):
                                      + (lo - lon0 - 0.35) ** 2) / 0.004))
             hgt.write_hgt(os.path.join(d, hgt.hgt_filename(tl, tn)),
                           np.round(np.maximum(z, 0.0)).astype(np.int16))
+
+
+def profile_renders(fn, n, card, out_path, title):
+    """torch.profiler over n calls of fn(i), its table written to out_path;
+    returns the device's busy ms per call."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=100)
+    busy = sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        f.write(f"{card}\n{title}\n{table}\n")
+    return busy
+
+
+def textured_phases(c, tiles, profile_dir=None):
+    """Phases 7-10 on phase 2's scene (``c``) and phase 6's tiles; returns
+    the textured kernels' JSON entries."""
+    from horizonator_tpu_torch import horizonator
+    from horizonator_tpu_torch.kernels.resolve import (resolve,
+                                                       resolve_plain,
+                                                       resolve_textured)
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_plain,
+                                                            march_textured)
+    from horizonator_tpu_torch.render import render_panorama
+    from horizonator_tpu_torch.render.crossing import crossing_geometry
+    from horizonator_tpu_torch.render.raymarch import (horizon_rows,
+                                                       resolve_to_image)
+    from horizonator_tpu_torch.render.resolve_window import (alpha_quantum,
+                                                             resolve_window)
+    from horizonator_tpu_torch.render.texture import (AtlasParams,
+                                                      pack_cell_colors,
+                                                      prepare_color_planes,
+                                                      tile_xy_from_latlon)
+    from horizonator_tpu_torch.render.window import march_from_geometry
+    dev, dem, p, geo = c["dev"], c["dem"], c["p"], c["geo"]
+    mkw, rkw, tan_k, y_k = c["mkw"], c["rkw"], c["tan_k"], c["y_k"]
+    n = dem.shape[0]
+
+    def count_reset():
+        march.launches = resolve.launches = 0
+        march_textured.launches = resolve_textured.launches = 0
+
+    # -- 7. textured march: kernel vs plain ----------------------------------
+    rng3 = np.random.default_rng(3)
+    cp2 = prepare_color_planes(torch.from_numpy(rng3.integers(
+        0, 256, (3, 2 * n, 2 * n), dtype=np.uint8)).to(dev).float())
+    cp1 = pack_cell_colors(torch.from_numpy(rng3.integers(
+        0, 256, (3, n, n), dtype=np.uint8)).to(dev).float())
+    valid = tan_k > -1e30
+    for name, planes in (("half-cell", cp2), ("cell", cp1)):
+        tt_k, d_k, tx = march_from_geometry(dem, p, geo, color_planes=planes,
+                                            **mkw)
+        tt_p, d_p, tx_p = march_from_geometry(dem, p, geo, plain=True,
+                                              color_planes=planes, **mkw)
+        torch.cuda.synchronize()
+        guards = [int(d.dropped) + int(d.truncated) for d in (d_k, d_p)]
+        if guards != [0, 0]:
+            fail(f"textured march ({name}) guards {guards}")
+        if not (torch.equal(tt_k, tan_k) and torch.equal(tt_p, tan_k)):
+            fail(f"textured march ({name}) tangents != untextured")
+        if not torch.equal(tx, tx_p):
+            fail(f"textured march ({name}) tex != plain: "
+                 f"{int((tx != tx_p).sum())} samples differ")
+        if (tx[~valid] != 0).any() or float(
+                (tx[valid] != 0).float().mean()) < 0.99:
+            fail(f"textured march ({name}): colors do not ride the samples")
+        if name == "half-cell":
+            tx_k, march_err = tx, float(max_chan(tx, tx_p))
+        log(f"[7] textured march ({name} planes): tanel == phase 2 bitwise, "
+            f"tex == plain bitwise; dropped=truncated=0")
+    del tx, tx_p, tt_k, tt_p
+
+    # -- 8. textured resolve: kernel vs plain --------------------------------
+    out_k = resolve_window(y_k, H, tex=tx_k)
+    out_p = resolve_window(y_k, H, tex=tx_k, plain=True)
+    torch.cuda.synchronize()
+    for name, a, b, u in zip(("idx", "alpha", "ok", "tex"), out_k, out_p,
+                             (*c["res_k"], None)):
+        if not torch.equal(a, b):
+            fail(f"textured resolve {name} != plain: "
+                 f"{int((a != b).sum())} differ")
+        if u is not None and not torch.equal(a, u):
+            fail(f"textured resolve {name} != untextured resolve")
+    resolve_err = max(max_abs(out_k[0], out_p[0]), max_abs(out_k[1], out_p[1]),
+                      float(max_chan(out_k[3], out_p[3])))
+    k_tot = y_k.shape[1]
+    if (out_k[3][out_k[0] >= k_tot] != 0).any():
+        fail("textured resolve: sky rows carry a color")
+    for h in (256, 4096):       # the JAX package's fused and fallback regime
+        yp = torch.full((4, 256), 240.0, device=dev)
+        yp[:, 10] = 50.0                            # the visible crest
+        yp[:, 11:48] = 120.0                        # occluded behind it
+        tp = (torch.arange(256, dtype=torch.int32, device=dev) + 1).expand(
+            4, 256).contiguous()
+        idx_p, _, _, tex_p = resolve_window(yp, h, tex=tp)
+        cov = slice(50, 240)
+        if not ((idx_p[:, cov] == 10).all() and (tex_p[:, cov] == 11).all()):
+            fail(f"textured resolve plateau case at H {h}")
+    log(f"[8] textured resolve {tuple(y_k.shape)} -> H={H}: kernel == plain "
+        f"bitwise (idx, alpha, ok, tex), idx/alpha/ok == phase 3; plateau "
+        f"case routes the crest's color at H 256 and 4096")
+
+    # -- 9. the textured main path -------------------------------------------
+    # the viewer placed at (LAT, LON); an 8x8-tile z12 atlas around its tile
+    o_lon = LON - float(p.viewer_cell_i) / CPD
+    o_lat = LAT - float(p.viewer_cell_j) / CPD
+    tx0, ty0 = tile_xy_from_latlon(LAT, LON, 12)
+    ap = AtlasParams(o_lon, o_lat, tx0 - 4, ty0 - 4, 8, 8)
+    atlas = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 1 << 24, (2048, 2048), dtype=np.int32)).to(dev)
+    tkw = dict(textured=True, color_planes=cp2, atlas=atlas, atlas_params=ap,
+               exact_near_m=EXACT_NEAR_M, **rkw)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    count_reset()
+    img, rng, guard = render_panorama(dem, p, with_dropped=True, **tkw)
+    torch.cuda.synchronize()
+    launches = {"window_march_textured": march_textured.launches,
+                "resolve_textured": resolve_textured.launches}
+    peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 1e6
+    if min(launches.values()) < 1:
+        fail(f"textured main path skipped a kernel: {launches}")
+    if guard.tolist() != [0, 0] or img.shape != (H, W, 3):
+        fail(f"bad textured render {img.shape} {guard.tolist()}")
+    img_p, rng_p = render_panorama(dem, p, plain=True, **tkw)
+    if not (torch.equal(img, img_p) and torch.equal(rng, rng_p)):
+        fail("textured kernel render != plain render")
+    if not torch.equal(rng, c["rng"]):
+        fail("textured ranges != untextured ranges")
+    terr = rng > 0
+    if int(img[..., 1][terr].to(torch.int64).sum()) == 0:
+        fail("textured terrain carries no green: the colors did not arrive")
+    if not (img[~terr] == torch.tensor([255, 0, 0], dtype=torch.uint8,
+                                       device=dev)).all():
+        fail("textured sky is not (255, 0, 0)")
+    _, _, tx_h = march_from_geometry(dem, p, geo, color_planes=cp2,
+                                     atlas=atlas, atlas_params=ap,
+                                     exact_near_m=EXACT_NEAR_M, **mkw)
+    replaced = int((tx_h != tx_k).sum())
+    if replaced < 1:
+        fail("the hybrid near field replaced no color")
+    log(f"[9] textured render {W}x{H}: visible {float(terr.float().mean()):.4f},"
+        f" launches {launches}, image and ranges == plain-version render "
+        f"bitwise, ranges == phase 5 bitwise; hybrid near field replaced "
+        f"{replaced} sample colors; peak extra device memory {peak_mb:.1f} MB")
+    mem = {"dem": dem.nbytes, "half-cell plane": cp2.full_packed.nbytes,
+           "cell plane": cp1.nbytes, "atlas": atlas.nbytes}
+    log("[9] device memory held by the textured scene: " + ", ".join(
+        f"{k} {v / 1e6:.1f} MB" for k, v in mem.items()))
+
+    params = c["params"]
+    ms_kernel = cuda_ms(lambda i: render_panorama(dem, params[i], **tkw),
+                        RENDERS)
+    ms_plain = cuda_ms(lambda i: render_panorama(dem, params[i], plain=True,
+                                                 **tkw), PLAIN_TEX_RENDERS,
+                       warmup=1)
+    run_kernel = cuda_ms_run(
+        lambda i: render_panorama(dem, params[i], **tkw), RENDERS)
+    log(f"[9] textured ms/viewpoint (median, CUDA events): kernels "
+        f"{ms_kernel:.3f} over {RENDERS}, plain versions {ms_plain:.3f} over "
+        f"{PLAIN_TEX_RENDERS}; back-to-back run of {RENDERS} with kernels: "
+        f"{run_kernel:.3f} ms each")
+
+    pcol, fscal, k_lim = c["pcol"], c["fscal"], c["k_lim"]
+    plane = cp2.full_packed
+    amax, int_first = alpha_quantum(k_tot, H)
+    t_march = cuda_ms_run(lambda i: march_textured(dem, pcol, fscal, k_lim,
+                                                   plane, 2), 200)
+    t_march_p = cuda_ms_run(lambda i: march_plain(dem, pcol, fscal, k_lim,
+                                                  plane, 2), 20)
+    t_res = cuda_ms_run(lambda i: resolve_textured(y_k, tx_k, H, amax,
+                                                   int_first), 200)
+    t_res_p = cuda_ms_run(lambda i: resolve_plain(y_k, H, amax, int_first,
+                                                  tex=tx_k), 50)
+    log(f"[9] textured window march kernel {t_march:.4f} ms vs plain "
+        f"{t_march_p:.4f}; textured resolve kernel {t_res:.4f} ms vs plain "
+        f"{t_res_p:.4f} (mean over back-to-back runs)")
+    dists = c["dists"]
+    steps = {
+        "geometry": lambda i: crossing_geometry(p, width=W, cells_per_deg=CPD),
+        "textured march (kernel + near band + hybrid + guards)":
+            lambda i: march_from_geometry(
+                dem, p, geo, color_planes=cp2, atlas=atlas, atlas_params=ap,
+                exact_near_m=EXACT_NEAR_M, **mkw),
+        "row map (atan)":
+            lambda i: horizon_rows(tan_k, p, width=W, height=H),
+        "textured resolve + tail (resolve_to_image)":
+            lambda i: resolve_to_image(tan_k, dists.d_of, geo.az, p,
+                                       width=W, height=H, textured=True,
+                                       tex_samples=tx_h),
+    }
+    for name, fn in steps.items():
+        log(f"[9] step {name}: {cuda_ms(fn, 20):.4f} ms")
+    if profile_dir:
+        out = os.path.join(profile_dir, "profile_render_textured.txt")
+        busy = profile_renders(
+            lambda i: render_panorama(dem, params[i], **tkw), 5, c["card"],
+            out, f"5 textured renders {W}x{H}")
+        log(f"[9] profile: device busy {busy:.3f} ms per textured render of "
+            f"{ms_kernel:.3f} ms ({100 * busy / ms_kernel:.1f}%); table in "
+            f"{out}")
+    del cp1, img_p, rng_p
+
+    # -- 10. the API with hillshade -------------------------------------------
+    h = horizonator(34.4, -117.6, W, H, dir_dems=tiles, hillshade=True,
+                    device=dev)
+    count_reset()
+    img10, rng10 = h.render(-180, 180)
+    api_launches = {"window_march_textured": march_textured.launches,
+                    "resolve_textured": resolve_textured.launches}
+    if min(api_launches.values()) < 1:
+        fail(f"hillshade API render skipped a kernel: {api_launches}")
+    if img10.shape != (H, W, 3) or rng10.shape != (H, W):
+        fail(f"bad hillshade output {img10.shape} {rng10.shape}")
+    vis10 = float((rng10 > 0).mean())
+    if not 0.05 < vis10 < 0.95:
+        fail(f"degenerate hillshade visible fraction {vis10}")
+    b, g, r = (img10[rng10 > 0][:, ch].astype(np.int64) for ch in range(3))
+    if not ((b == g).all() and (r >= g).all() and g.mean() > 20.0
+            and g.std() > 0.5):
+        fail(f"hillshade terrain is not gray-shaded: B==G "
+             f"{bool((b == g).all())}, G mean {g.mean():.2f} std "
+             f"{g.std():.2f}")
+    ms_api = cuda_ms(lambda i: h.render(-180 + i, 180 + i), 5, warmup=1)
+    log(f"[10] hillshade API render {W}x{H} of {h.mosaic.grid.shape} grid: "
+        f"visible {vis10:.4f}, launches {api_launches}, gray G mean "
+        f"{g.mean():.2f} std {g.std():.2f}; {ms_api:.3f} ms per render "
+        f"(median of 5, outputs copied to the host)")
+
+    return [
+        {"name": "window_march_textured", "route": "cuda",
+         "source": "horizonator_tpu_torch/kernels/csrc/window_march.cu",
+         "replaces": "horizonator_tpu/render/window.py:452",
+         "launches": launches["window_march_textured"],
+         "max_abs_err": march_err,
+         "ms": t_march, "plain_ms": t_march_p},
+        {"name": "resolve_textured", "route": "cuda",
+         "source": "horizonator_tpu_torch/kernels/csrc/resolve.cu",
+         "replaces": "horizonator_tpu/render/resolve_window.py:132",
+         "launches": launches["resolve_textured"],
+         "max_abs_err": resolve_err,
+         "ms": t_res, "plain_ms": t_res_p},
+    ]
 
 
 def main(profile_dir=None):
@@ -298,33 +574,22 @@ def main(profile_dir=None):
         log(f"[5] step {name}: {cuda_ms(fn, 20):.4f} ms")
 
     if profile_dir:
-        from torch.profiler import ProfilerActivity, profile as tprof
-        with tprof(activities=[ProfilerActivity.CPU,
-                               ProfilerActivity.CUDA]) as prof:
-            for i in range(5):
-                render_panorama(dem, params[i], **rkw)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        table = events.table(sort_by="self_cuda_time_total", row_limit=100)
-        busy = sum(e.self_device_time_total for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   ) / 1e3 / 5
-        os.makedirs(profile_dir, exist_ok=True)
         out = os.path.join(profile_dir, "profile_render.txt")
-        with open(out, "w") as f:
-            f.write(f"{card}\n5 renders {W}x{H}\n{table}\n")
+        busy = profile_renders(lambda i: render_panorama(dem, params[i], **rkw),
+                               5, card, out, f"5 renders {W}x{H}")
         log(f"[5] profile: device busy {busy:.3f} ms per render of "
             f"{ms_kernel:.3f} ms ({100 * busy / ms_kernel:.1f}%); table in "
             f"{out}")
 
     # -- 6. the API -------------------------------------------------------
-    with tempfile.TemporaryDirectory() as tiles:
-        write_tiles(tiles, 34, -118)
-        h = horizonator(34.4, -117.6, W, H, dir_dems=tiles)
-        march.launches = resolve.launches = 0
-        img6, rng6 = h.render(-180, 180)
-        api_launches = {"window_march": march.launches,
-                        "resolve": resolve.launches}
+    tiles_dir = tempfile.TemporaryDirectory()     # phases 6 and 10
+    tiles = tiles_dir.name
+    write_tiles(tiles, 34, -118)
+    h = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device=dev)
+    march.launches = resolve.launches = 0
+    img6, rng6 = h.render(-180, 180)
+    api_launches = {"window_march": march.launches,
+                    "resolve": resolve.launches}
     if min(api_launches.values()) < 1:
         fail(f"API render skipped a kernel: {api_launches}")
     if img6.shape != (H, W, 3) or img6.dtype != np.uint8 \
@@ -335,6 +600,13 @@ def main(profile_dir=None):
         fail(f"degenerate API visible fraction {vis6}")
     log(f"[6] API render {W}x{H} of {h.mosaic.grid.shape} grid: visible "
         f"{vis6:.4f}, launches {api_launches}")
+    del h
+
+    ctx = dict(dev=dev, dem=dem, p=p, geo=geo, params=params, mkw=mkw,
+               rkw=rkw, tan_k=tan_k, y_k=y_k, res_k=out_k, rng=rng,
+               dists=dists, pcol=pcol, fscal=fscal, k_lim=k_lim, card=card)
+    tex_kernels = textured_phases(ctx, tiles, profile_dir)
+    tiles_dir.cleanup()
 
     kernels = [
         {"name": "window_march", "route": "cuda",
@@ -347,6 +619,7 @@ def main(profile_dir=None):
          "replaces": "horizonator_tpu/render/resolve_window.py:117",
          "launches": launches["resolve"], "max_abs_err": resolve_err,
          "ms": t_res, "plain_ms": t_res_p},
+        *tex_kernels,
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

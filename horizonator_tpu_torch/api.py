@@ -3,10 +3,12 @@
 ``horizonator(lat, lon, width, height, ...)`` + ``.render(az_deg0,
 az_deg1, ...)`` keep the constructor/render signature and return shapes of
 the reference's CPython module (horizonator-pywrap.c:49-125, 158-279):
-the constructor loads the DEM window and puts it on ``device``; render()
-is the repeatable path with a movable camera. This port covers the
-untextured window-sampler path; texture, hillshade, region sharding and
-long-clip LOD renders raise NotImplementedError.
+the constructor loads the DEM window (and, for textured renders, the tile
+atlas and its color planes) and puts it on ``device``; render() is the
+repeatable path with a movable camera. This port covers the window
+sampler, untextured, textured (``render_texture``) and hillshaded; cast
+shadows, debug fill modes, region sharding and long-clip LOD renders raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from . import geometry
 from .dem import load_mosaic, RADIUS_CELLS_DEFAULT_PY
 from .render import make_params, render_panorama
 from .render.crossing import k_cross_for
+from .render import texture
 
 ZNEAR_DEFAULT = 100.0     # horizonator.h:9
 ZFAR_DEFAULT = 40000.0    # horizonator.h:10
@@ -42,18 +45,28 @@ class horizonator:
                  render_radius_cells=-1, render_radius_m=-1.0,
                  *,
                  nsteps=None, surface="bilinear", refine=True,
-                 sampler="auto", device="cuda", curvature="none",
+                 sampler="auto", device="cuda",
+                 texture_on_error="raise", texture_quality="hybrid",
+                 exact_near_m=1200.0, curvature="none",
                  allow_dem_downloads=False, dem_url_fmt=None,
-                 hillshade=False, strict_coverage=False, region_mesh=None):
+                 hillshade=False, sun_az_deg=315.0, sun_alt_deg=45.0,
+                 sun_time=None, shadows=False, strict_coverage=False,
+                 region_mesh=None):
         if render_radius_cells < 0 and render_radius_m < 0:
             render_radius_cells = RADIUS_CELLS_DEFAULT_PY
         elif render_radius_cells > 0 and render_radius_m > 0:
             raise ValueError(
                 "both render_radius_cells,render_radius_m cannot be >0")
-        if render_texture:
-            raise NotImplementedError("render_texture is not ported")
-        if hillshade:
-            raise NotImplementedError("hillshade is not ported")
+        if hillshade and render_texture:
+            raise ValueError(
+                "hillshade and render_texture are mutually exclusive")
+        if shadows and not hillshade:
+            raise ValueError("shadows=True requires hillshade=True")
+        if shadows:
+            raise NotImplementedError("shadows need ops/shadows, which is "
+                                      "not ported")
+        if texture_quality not in ("grid", "grid2x", "hybrid", "exact"):
+            raise ValueError(f"unknown texture_quality {texture_quality!r}")
         if region_mesh is not None:
             raise NotImplementedError("region_mesh is not ported")
         if allow_dem_downloads:
@@ -81,10 +94,65 @@ class horizonator:
             datadir=dir_dems, srtm1=SRTM1, dem_url_fmt=dem_url_fmt)
         self._dem = torch.from_numpy(
             self.mosaic.grid.astype(np.float32)).to(self.device)
+        n = self.mosaic.grid.shape[0]
+        cpd = self.mosaic.cells_per_deg
+
+        self.render_texture = bool(render_texture)
+        self._atlas = None
+        self._atlas_params = None
+        self._color_planes = None
+        if render_texture:
+            from .tiles import build_atlas
+            atlas, ap = build_atlas(
+                lat, lon, self.mosaic.radius_cells, cpd,
+                self.mosaic.origin_cell_lon_deg,
+                self.mosaic.origin_cell_lat_deg,
+                dir_tiles=dir_tiles, tiles_name=tiles_name,
+                tiles_url_fmt=tiles_url_fmt, allow_downloads=allow_downloads,
+                on_error=texture_on_error)
+            # one int32 per texel, packed once per scene
+            self._atlas = texture.pack_atlas(
+                torch.from_numpy(atlas).to(self.device))
+            self._atlas_params = ap
+            if texture_quality != "exact":
+                # colors resampled onto the DEM grid once and sampled in
+                # the march: "grid" at cell resolution, "grid2x" and
+                # "hybrid" at half-cell; "hybrid" also swaps in atlas-true
+                # z12 texels nearer than exact_near_m. "exact" gathers the
+                # atlas per pixel instead.
+                scale = 1 if texture_quality == "grid" else 2
+                self._put_color_planes(texture.atlas_to_grid_colors(
+                    self._atlas, ap, n, cpd, scale=scale), scale)
+        self._exact_near_m = (float(exact_near_m)
+                              if render_texture and exact_near_m
+                              and texture_quality == "hybrid" else None)
+
+        self.hillshade = bool(hillshade)
+        if hillshade:
+            # Lambertian sun shading from the DEM itself, through the same
+            # textured path (the gray planes stand in for map colors)
+            if sun_time is not None:
+                sun_az_deg, sun_alt_deg = geometry.sun_position(
+                    lat, lon, sun_time)
+            self.sun_az_deg, self.sun_alt_deg = sun_az_deg, sun_alt_deg
+            scale = 2 if texture_quality == "grid2x" else 1
+            self._put_color_planes(texture.hillshade_planes(
+                self._dem, cpd, lat, sun_az_deg=sun_az_deg,
+                sun_alt_deg=sun_alt_deg, scale=scale), scale)
+            self.render_texture = True   # drives the textured render path
+
         self.viewer_lat = float(lat)
         self.viewer_lon = float(lon)
         self.viewer_z = self.mosaic.auto_viewer_z(lat, lon)
         self.strict_coverage = bool(strict_coverage)
+
+    def _put_color_planes(self, planes, scale):
+        """Half-cell planes are packed once per scene (ColorPlanes2x);
+        cell-resolution float planes stay as they are (the march packs them
+        for the kernel and samples them unpacked in the near band, as the
+        JAX package does)."""
+        self._color_planes = (texture.prepare_color_planes(planes)
+                              if scale == 2 else planes)
 
     # -- coverage guard -----------------------------------------------------
 
@@ -139,12 +207,15 @@ class horizonator:
                az_extents_use_pixel_centers=False,
                znear=ZNEAR_DEFAULT, zfar=ZFAR_DEFAULT,
                znear_color=-1.0, zfar_color=-1.0,
-               *, ele_m=None):
+               *, ele_m=None, debug_fill=None):
         """Render; same contract as the reference render()
         (horizonator-pywrap.c:158-279). Returns (image, ranges) as numpy
         arrays, or one of them, or () if neither is asked for. image:
         (H, W, 3) uint8 BGR top-row-first; ranges: (H, W) float32 slant
-        meters, invisible = -1."""
+        meters, invisible = -1. ``debug_fill`` (the lattice debug views) is
+        not ported."""
+        if debug_fill is not None:
+            raise NotImplementedError("debug_fill is not ported")
         if znear_color < 0.0:
             znear_color = znear
         if zfar_color < 0.0:
@@ -187,8 +258,12 @@ class horizonator:
             self._dem, params, width=self.width, height=self.height,
             nsteps=nsteps, cells_per_deg=self.mosaic.cells_per_deg,
             surface=self.surface, refine=self.refine,
+            textured=self.render_texture, atlas=self._atlas,
+            atlas_params=self._atlas_params,
             lat_hint_deg=self._lat_hint(),
-            znear_hint_m=self._znear_hint(znear), with_dropped=True)
+            color_planes=self._color_planes,
+            znear_hint_m=self._znear_hint(znear), with_dropped=True,
+            exact_near_m=self._exact_near_m)
         out = []
         if return_image:
             out.append(image.cpu().numpy())

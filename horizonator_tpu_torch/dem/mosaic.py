@@ -59,6 +59,18 @@ class DemMosaic:
     def n(self) -> int:
         return 2 * self.radius_cells
 
+    @property
+    def origin_cell_lon_deg(self) -> float:
+        """Longitude of grid cell i=0 (horizonator-lib.c:579-581)."""
+        return (self.origin_dem_lon_lat[0]
+                + self.origin_dem_cellij[0] / self.cells_per_deg)
+
+    @property
+    def origin_cell_lat_deg(self) -> float:
+        """Latitude of grid cell j=0 (horizonator-lib.c:582-584)."""
+        return (self.origin_dem_lon_lat[1]
+                + self.origin_dem_cellij[1] / self.cells_per_deg)
+
     def viewer_cell(self, viewer_lat: float,
                     viewer_lon: float) -> tuple[float, float]:
         """Fractional grid coordinates of a lat/lon

@@ -70,6 +70,44 @@ def x_from_az(az_rad, az_rad0, az_rad1, width: int):
     return x, az_ndc, az_ndc_per_rad
 
 
+def sun_position(lat_deg: float, lon_deg: float, when) -> tuple[float, float]:
+    """Solar (azimuth_deg cw from north, altitude_deg) at a UTC time, for
+    hillshade's ``sun_time=`` (host side): the low-precision NOAA/Meeus
+    formulas, good to a few hundredths of a degree over +-2 centuries of
+    J2000. ``when``: a datetime (naive = UTC, aware = converted) or an
+    ISO-8601 string."""
+    from datetime import datetime, timezone
+
+    if isinstance(when, str):
+        when = datetime.fromisoformat(when)
+    if when.tzinfo is not None:
+        when = when.astimezone(timezone.utc).replace(tzinfo=None)
+    epoch = datetime(2000, 1, 1, 12, 0, 0)              # J2000.0 (TT~UTC)
+    n = (when - epoch).total_seconds() / 86400.0
+
+    L = math.radians((280.460 + 0.9856474 * n) % 360.0)    # mean longitude
+    g = math.radians((357.528 + 0.9856003 * n) % 360.0)    # mean anomaly
+    lam = (L + math.radians(1.915) * math.sin(g)
+           + math.radians(0.020) * math.sin(2 * g))
+    eps = math.radians(23.439 - 4.0e-7 * n)                # obliquity
+    ra = math.atan2(math.cos(eps) * math.sin(lam), math.cos(lam))
+    dec = math.asin(math.sin(eps) * math.sin(lam))
+
+    ut_h = when.hour + when.minute / 60.0 + when.second / 3600.0
+    gmst_h = (6.697375 + 0.0657098242 * (n - ut_h / 24.0)
+              + 1.00273790935 * ut_h) % 24.0
+    lst = math.radians((gmst_h * 15.0 + lon_deg) % 360.0)  # local sidereal
+    hour = lst - ra
+
+    lat = math.radians(lat_deg)
+    alt = math.asin(math.sin(dec) * math.sin(lat)
+                    + math.cos(dec) * math.cos(lat) * math.cos(hour))
+    az = math.atan2(-math.sin(hour),
+                    math.tan(dec) * math.cos(lat)
+                    - math.sin(lat) * math.cos(hour))
+    return (math.degrees(az) % 360.0, math.degrees(alt))
+
+
 def curvature_coeff(mode) -> float:
     """Apparent-elevation drop rate 1/(2 R_effective) in 1/m.
 

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels (nvcc by hand + ctypes).
 
 All ``csrc/*.cu`` files compile into ONE shared library with a plain C
-interface, on first use, into ``horizonator_tpu_torch/_build/``. The file
-name carries a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads the library already built. The compile writes a
-temporary file and renames it into place, so a crashed or concurrent build
+interface, on first use, into ``horizonator_tpu_torch/_build/``: one nvcc
+per source, all started together, then one link. The file name carries a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the library already built. The build writes temporary
+files and renames the library into place, so a crashed or concurrent build
 never leaves a half-written library behind.
 """
 
@@ -21,9 +22,9 @@ from pathlib import Path
 
 _CSRC = Path(__file__).parent / "csrc"
 _BUILD = Path(__file__).parent.parent / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -55,16 +56,32 @@ def build() -> tuple[Path, float, str]:
     if out.exists():
         return out, 0.0, ""
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [_BUILD / f".{tag}.{src.stem}.o" for src in sources()]
+    tmp = out.with_name(f".{tag}.so.tmp")
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, out)
-    return out, secs, r.stdout + r.stderr
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [lg for p, lg in zip(procs, logs) if p.returncode]
+        if not failed:
+            r = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                *map(str, objs)], capture_output=True,
+                               text=True)
+            logs.append(r.stdout + r.stderr)
+            if r.returncode:
+                failed.append(logs[-1])
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return out, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,7 +92,13 @@ def library() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hz_window_march.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp]
     lib.hz_window_march.restype = ci
+    lib.hz_window_march_tex.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, vp,
+                                        vp, vp]
+    lib.hz_window_march_tex.restype = ci
     lib.hz_resolve.argtypes = [vp, ci, ci, ci, cf, cf, ci, vp, vp, vp, vp]
     lib.hz_resolve.restype = ci
+    lib.hz_resolve_tex.argtypes = [vp, vp, ci, ci, ci, cf, cf, ci, vp, vp,
+                                   vp, vp, vp]
+    lib.hz_resolve_tex.restype = ci
     return lib
 

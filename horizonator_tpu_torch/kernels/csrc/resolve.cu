@@ -1,7 +1,8 @@
 // Resolve: the first march sample that covers each pixel row of a column.
 //
-// Replaces horizonator_tpu/render/resolve_window.py::_resolve_kernel
-// (untextured). Same (idx, alpha, ok) contract, decoded as at
+// Replaces horizonator_tpu/render/resolve_window.py::_resolve_kernel,
+// both its untextured and its textured branch. Same (idx, alpha, ok)
+// contract, decoded as at
 // resolve_window.py:381-387; the TPU's bitonic valley merge and butterfly
 // router existed to avoid gathers and sorts on the TPU, and are replaced by
 // a search:
@@ -21,10 +22,21 @@
 // both operands first (raymarch._resolve_rows, the path the JAX package
 // takes where the fused kernel does not fit).
 //
+// Textured entry: each pixel row also gets the packed color of its
+// first-crossing sample, tex[idx], or 0 for sky (idx == K). The TPU kernel
+// carries the running min's ARGMIN color (ties to the earlier sample)
+// through its merge, because the merge loses the samples' positions. The
+// search keeps idx, and the argmin of keys[0..idx] is idx itself: idx is
+// the first key <= 256h and key[idx-1] > 256h, so the running min first
+// takes its value key[idx] at sample idx. The argmin color there is the
+// sample's own color, which the block stages in shared memory beside the
+// keys (so the textured K limit is half the untextured one).
+//
 // One block per image column; the keys live in shared memory (4 bytes per
-// sample, 2.3 KB at K = 580). What bounds it on the H100: the ~log2(K)
-// dependent shared-memory reads of each row's search, ~10 per output
-// element at the 4096x1024 shape, against 9 bytes written per element.
+// sample, 2.3 KB at K = 580; 8 bytes textured). What bounds it on the
+// H100: the ~log2(K) dependent shared-memory reads of each row's search,
+// ~10 per output element at the 4096x1024 shape, against 9 bytes written
+// per element (13 textured).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,14 +46,18 @@ namespace {
 constexpr int BIG = 1 << 30;
 constexpr int THREADS = 128;
 
-__global__ void resolve_kernel(const float* __restrict__ y, int K, int H,
+template <bool TEX>
+__global__ void resolve_kernel(const float* __restrict__ y,
+                               const int* __restrict__ tex, int K, int H,
                                float amax, float inv_amax, int int_first,
                                int* __restrict__ idx_out,
                                float* __restrict__ alpha_out,
-                               uint8_t* __restrict__ ok_out) {
+                               uint8_t* __restrict__ ok_out,
+                               int* __restrict__ tex_out) {
   extern __shared__ int smem[];
   int* key = smem;            // K keys
   int* part = smem + K;       // THREADS chunk minima
+  int* col = part + THREADS;  // K sample colors (textured)
   const int tid = threadIdx.x;
   const long long w = blockIdx.x;
   const float* yw = y + w * K;
@@ -58,6 +74,7 @@ __global__ void resolve_kernel(const float* __restrict__ y, int K, int H,
     q = min(max(q, -(BIG - 1)), BIG - 1);
     run = min(run, q);
     key[k] = run;
+    if (TEX) col[k] = tex[w * K + k];
   }
   part[tid] = run;
   __syncthreads();
@@ -92,7 +109,27 @@ __global__ void resolve_kernel(const float* __restrict__ y, int K, int H,
     idx_out[o] = l;
     alpha_out[o] = __fmul_rn(rintf(__fmul_rn(alpha, amax)), inv_amax);
     ok_out[o] = ok ? 1 : 0;
+    if (TEX) tex_out[o] = l < K ? col[l] : 0;
   }
+}
+
+template <bool TEX>
+int launch(const void* y, const void* tex, int W, int K, int H, float amax,
+           float inv_amax, int int_first, void* idx, void* alpha, void* ok,
+           void* tex_out, void* stream) {
+  const size_t smem = sizeof(int) * ((size_t)K * (TEX ? 2 : 1) + THREADS);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        resolve_kernel<TEX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (W > 0) {
+    resolve_kernel<TEX><<<W, THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)y, (const int*)tex, K, H, amax, inv_amax, int_first,
+        (int*)idx, (float*)alpha, (uint8_t*)ok, (int*)tex_out);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -100,18 +137,14 @@ __global__ void resolve_kernel(const float* __restrict__ y, int K, int H,
 extern "C" int hz_resolve(const void* y, int W, int K, int H, float amax,
                           float inv_amax, int int_first, void* idx,
                           void* alpha, void* ok, void* stream) {
-  const size_t smem = sizeof(int) * ((size_t)K + THREADS);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        resolve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (W > 0) {
-    resolve_kernel<<<W, THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)y, K, H, amax, inv_amax, int_first, (int*)idx,
-        (float*)alpha,
-        (uint8_t*)ok);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(y, nullptr, W, K, H, amax, inv_amax, int_first, idx,
+                       alpha, ok, nullptr, stream);
+}
+
+extern "C" int hz_resolve_tex(const void* y, const void* tex, int W, int K,
+                              int H, float amax, float inv_amax,
+                              int int_first, void* idx, void* alpha,
+                              void* ok, void* tex_out, void* stream) {
+  return launch<true>(y, tex, W, K, H, amax, inv_amax, int_first, idx,
+                      alpha, ok, tex_out, stream);
 }

@@ -13,7 +13,11 @@ float32 (each march sample's elevation as a continuous pixel row, top =
 
 This is the contract of horizonator_tpu/render/resolve_window.py's fused
 kernel, bit for bit; see csrc/resolve.cu for the algorithm and for
-``int_first``.
+``int_first``. ``resolve_textured`` adds
+
+    tex   int32: the packed color of sample idx (the first-crossing
+          sample, which is also the argmin that the JAX kernel's running
+          min carries), 0 where idx == K (sky).
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ from . import build
 from ..geometry import recip
 
 BIG = 1 << 30
-MAX_K = (227 * 1024) // 4 - 128    # keys that fit one block's shared memory
+THREADS = 128                      # csrc/resolve.cu's block size
+SMEM = 227 * 1024                  # a block's shared memory on the H100
+MAX_K = SMEM // 4 - THREADS        # keys that fit one block's shared memory
+MAX_K_TEX = (SMEM - 4 * THREADS) // 8   # keys + colors
 
 
 def quantize_rows(y: torch.Tensor) -> torch.Tensor:
@@ -35,8 +42,8 @@ def quantize_rows(y: torch.Tensor) -> torch.Tensor:
 
 
 def resolve_plain(y: torch.Tensor, height: int, amax: float,
-                  int_first: bool):
-    """(idx, alpha, ok): cummin + searchsorted form of the kernel."""
+                  int_first: bool, tex: torch.Tensor | None = None):
+    """(idx, alpha, ok[, tex]): cummin + searchsorted form of the kernel."""
     w, k = y.shape
     keys = torch.cummin(quantize_rows(y), dim=1).values   # non-increasing
     thr = (torch.arange(height, dtype=torch.int32, device=y.device)
@@ -46,8 +53,8 @@ def resolve_plain(y: torch.Tensor, height: int, amax: float,
                              out_int32=True)
     has_cur = idx < k
     has_prev = idx > 0
-    y_cur = torch.where(
-        has_cur, torch.gather(keys, 1, idx.clamp(max=k - 1).long()), -BIG)
+    cur = idx.clamp(max=k - 1).long()
+    y_cur = torch.where(has_cur, torch.gather(keys, 1, cur), -BIG)
     y_prev = torch.where(
         has_prev, torch.gather(keys, 1, (idx - 1).clamp(min=0).long()), BIG)
     denom = (y_prev - y_cur).to(torch.float32)
@@ -60,7 +67,27 @@ def resolve_plain(y: torch.Tensor, height: int, amax: float,
     alpha = torch.clamp(num / torch.where(denom > 0, denom, one), 0.0, 1.0)
     # the decode's `/ amax` is a product with the float32 reciprocal in XLA
     alpha = torch.round(alpha * amax) * recip(amax)
-    return idx, alpha, ok
+    if tex is None:
+        return idx, alpha, ok
+    return idx, alpha, ok, torch.where(has_cur, torch.gather(tex, 1, cur), 0)
+
+
+def _check_resolve(fn: str, y: torch.Tensor, height: int, max_k: int):
+    if y.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {y.device}")
+    if y.dtype != torch.float32 or y.dim() != 2 or not y.is_contiguous():
+        raise ValueError(f"{fn}: y must be a contiguous 2-D float32 "
+                         f"tensor, got {y.dtype} {tuple(y.shape)}")
+    if not 0 < y.shape[1] <= max_k:
+        raise ValueError(f"{fn}: K={y.shape[1]} outside (0, {max_k}]")
+    if not 0 < height < (1 << 22):
+        raise ValueError(f"{fn}: height {height} out of range")
+
+
+def _outputs(w: int, height: int, device):
+    return (torch.empty((w, height), dtype=torch.int32, device=device),
+            torch.empty((w, height), dtype=torch.float32, device=device),
+            torch.empty((w, height), dtype=torch.bool, device=device))
 
 
 def resolve(y: torch.Tensor, height: int, amax: float, int_first: bool):
@@ -68,19 +95,9 @@ def resolve(y: torch.Tensor, height: int, amax: float, int_first: bool):
     y (W, K) float32; ``amax``: the alpha quantum's denominator."""
     if y.device.type == "cpu":
         return resolve_plain(y, height, amax, int_first)
-    if y.device.type != "cuda":
-        raise ValueError(f"resolve: unsupported device {y.device}")
-    if y.dtype != torch.float32 or y.dim() != 2 or not y.is_contiguous():
-        raise ValueError(f"resolve: y must be a contiguous 2-D float32 "
-                         f"tensor, got {y.dtype} {tuple(y.shape)}")
+    _check_resolve("resolve", y, height, MAX_K)
     w, k = y.shape
-    if not 0 < k <= MAX_K:
-        raise ValueError(f"resolve: K={k} outside (0, {MAX_K}]")
-    if not 0 < height < (1 << 22):
-        raise ValueError(f"resolve: height {height} out of range")
-    idx = torch.empty((w, height), dtype=torch.int32, device=y.device)
-    alpha = torch.empty((w, height), dtype=torch.float32, device=y.device)
-    ok = torch.empty((w, height), dtype=torch.bool, device=y.device)
+    idx, alpha, ok = _outputs(w, height, y.device)
     rc = build.library().hz_resolve(
         y.data_ptr(), w, k, height, amax, recip(amax), int(bool(int_first)),
         idx.data_ptr(), alpha.data_ptr(), ok.data_ptr(),
@@ -92,3 +109,32 @@ def resolve(y: torch.Tensor, height: int, amax: float, int_first: bool):
 
 
 resolve.launches = 0
+
+
+def resolve_textured(y: torch.Tensor, tex: torch.Tensor, height: int,
+                     amax: float, int_first: bool):
+    """``resolve`` plus each pixel row's first-crossing color (W, height)
+    int32, from the samples' packed colors ``tex`` (W, K) int32."""
+    if y.device.type == "cpu":
+        return resolve_plain(y, height, amax, int_first, tex=tex)
+    _check_resolve("resolve_textured", y, height, MAX_K_TEX)
+    w, k = y.shape
+    if (tex.device != y.device or tex.dtype != torch.int32
+            or tuple(tex.shape) != (w, k) or not tex.is_contiguous()):
+        raise ValueError(f"resolve_textured: tex must be a contiguous int32 "
+                         f"{(w, k)} tensor on {y.device}, got {tex.dtype} "
+                         f"{tuple(tex.shape)} on {tex.device}")
+    idx, alpha, ok = _outputs(w, height, y.device)
+    tex_out = torch.empty((w, height), dtype=torch.int32, device=y.device)
+    rc = build.library().hz_resolve_tex(
+        y.data_ptr(), tex.data_ptr(), w, k, height, amax, recip(amax),
+        int(bool(int_first)), idx.data_ptr(), alpha.data_ptr(),
+        ok.data_ptr(), tex_out.data_ptr(),
+        torch.cuda.current_stream(y.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"textured resolve launch failed: CUDA error {rc}")
+    resolve_textured.launches += 1
+    return idx, alpha, ok, tex_out
+
+
+resolve_textured.launches = 0

@@ -17,6 +17,13 @@ its curvature term ``q - dm*curv`` into fused multiply-adds (measured on
 the CPU: separate roundings match 74% of its samples, these three FMAs
 100%). So both versions equal it bit
 for bit wherever that kernel reports no dropped samples.
+
+``march_textured`` (``csrc/window_march.cu``'s textured entry) adds each
+sample's packed 0x00RRGGBB color from an (s*n, s*n) int32 plane, s = 1
+(cell) or 2 (half-cell): the two texels at ``s*axis`` on the crossed line,
+``floor(s*pos) + {0, 1}`` across it, weighted ``relu(1 - |s*pos - r|)``,
+per channel ``fma(h_hi, c_hi, h_lo*c_lo)`` (the same accumulation XLA
+fuses), then round half to even and clip to u8. Invalid samples get 0.
 """
 
 from __future__ import annotations
@@ -45,34 +52,77 @@ def fma32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return s.to(torch.float32)
 
 
+def _hats(x: torch.Tensor):
+    """(floor(x), relu(1 - |x - floor(x)|), relu(1 - |x - floor(x) - 1|))."""
+    fl = torch.floor(x)
+    h_lo = torch.clamp(1.0 - torch.abs(x - fl), min=0.0)
+    h_hi = torch.clamp(1.0 - torch.abs(x - (fl + 1.0)), min=0.0)
+    return fl, h_lo, h_hi
+
+
+def _taps(plane: torch.Tensor, r: torch.Tensor, ax: torch.Tensor,
+          jd: torch.Tensor):
+    """The two values of a square plane at cross positions r and r + 1 on
+    line ``ax`` (a row for j-dominant rays, else a column); the upper one
+    is 0 where r + 1 lies outside (its weight is 0 there)."""
+    rows = plane.shape[0]
+    i_lo = torch.where(jd, ax * rows + r, r * rows + ax)
+    has_hi = r + 1 < rows
+    i_hi = torch.where(has_hi, i_lo + torch.where(jd, 1, rows), i_lo)
+    flat = plane.reshape(-1)
+    return flat[i_lo], torch.where(has_hi, flat[i_hi], 0)
+
+
 def march_plain(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
-                k: int) -> torch.Tensor:
-    """(W, k) float32 samples; the gather form of the kernel's math."""
+                k: int, colors: torch.Tensor | None = None, scale: int = 1):
+    """(W, k) float32 samples, plus their (W, k) int32 packed colors when
+    ``colors`` is given; the gather form of the kernel's math."""
     n = dem.shape[0]
-    a, t, e, scale, axis0, sgn, jdom = (pcol[:, c:c + 1] for c in range(7))
+    a, t, e, dscale, axis0, sgn, jdom = (pcol[:, c:c + 1] for c in range(7))
     vz, znear, zfar, curv = fscal
     mf = torch.arange(k, dtype=torch.float32, device=dem.device)[None, :]
     pos = fma32(mf, t, a)
     axis_m = axis0 + mf * sgn
-    dm = (mf + e) * scale
+    dm = (mf + e) * dscale
     hi = float(n - 1)
     valid = ((axis_m >= 0.0) & (axis_m <= hi) & (pos >= 0.0) & (pos <= hi)
              & (dm >= znear) & (dm <= zfar))
-    fl = torch.floor(pos)
-    h_lo = torch.clamp(1.0 - torch.abs(pos - fl), min=0.0)
-    h_hi = torch.clamp(1.0 - torch.abs(pos - (fl + 1.0)), min=0.0)
-    r = fl.clamp(0, n - 1).to(torch.int64)
+    fl, h_lo, h_hi = _hats(pos)
     ax = axis_m.clamp(0, n - 1).to(torch.int64)
     jd = jdom != 0.0
-    i_lo = torch.where(jd, ax * n + r, r * n + ax)
-    has_hi = r + 1 < n    # pos == n-1: the upper tap is outside, weight 0
-    i_hi = torch.where(has_hi, i_lo + torch.where(jd, 1, n), i_lo)
-    flat = dem.reshape(-1)
-    z_lo = flat[i_lo]
-    z_hi = torch.where(has_hi, flat[i_hi], 0.0)
+    z_lo, z_hi = _taps(dem, fl.clamp(0, n - 1).to(torch.int64), ax, jd)
     z = fma32(h_hi, z_hi, h_lo * z_lo)
-    tanel = fma32(-dm, curv, (z - vz) / dm)
-    return torch.where(valid, tanel, NEG_BIG)
+    tanel = torch.where(valid, fma32(-dm, curv, (z - vz) / dm), NEG_BIG)
+    if colors is None:
+        return tanel
+    flc, hc_lo, hc_hi = _hats(pos * float(scale))
+    c_lo, c_hi = _taps(colors, flc.clamp(0, colors.shape[0] - 1).to(
+        torch.int64), ax * scale, jd)
+    packed = torch.zeros_like(c_lo)
+    for sh in (0, 8, 16):                                     # B, G, R
+        v = fma32(hc_hi, ((c_hi >> sh) & 0xff).to(torch.float32),
+                  hc_lo * ((c_lo >> sh) & 0xff).to(torch.float32))
+        packed |= torch.clamp(torch.round(v), 0.0, 255.0).to(
+            torch.int32) << sh
+    return tanel, torch.where(valid, packed, 0)
+
+
+def _check(fn: str, name: str, x: torch.Tensor, shape, dtype, device):
+    if (x.device != device or x.dtype != dtype or tuple(x.shape) != shape
+            or not x.is_contiguous()):
+        raise ValueError(f"{fn}: {name} must be a contiguous {dtype} {shape} "
+                         f"tensor on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def _check_march(fn: str, dem, pcol, fscal):
+    if dem.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dem.device}")
+    n = dem.shape[0]
+    _check(fn, "dem", dem, (n, n), torch.float32, dem.device)
+    _check(fn, "pcol", pcol, (pcol.shape[0], PCOL_WIDTH), torch.float32,
+           dem.device)
+    _check(fn, "fscal", fscal, (4,), torch.float32, dem.device)
 
 
 def march(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
@@ -83,18 +133,8 @@ def march(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
     ``fscal``: (4,) float32 [viewer z, znear, zfar, curvature]."""
     if dem.device.type == "cpu":
         return march_plain(dem, pcol, fscal, k)
-    if dem.device.type != "cuda":
-        raise ValueError(f"march: unsupported device {dem.device}")
-    n = dem.shape[0]
-    w = pcol.shape[0]
-    for name, x, shape in (("dem", dem, (n, n)),
-                           ("pcol", pcol, (w, PCOL_WIDTH)),
-                           ("fscal", fscal, (4,))):
-        if (x.device != dem.device or x.dtype != torch.float32
-                or tuple(x.shape) != shape or not x.is_contiguous()):
-            raise ValueError(f"march: {name} must be a contiguous float32 "
-                             f"{shape} tensor on {dem.device}, got "
-                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    _check_march("march", dem, pcol, fscal)
+    n, w = dem.shape[0], pcol.shape[0]
     out = torch.empty((w, k), dtype=torch.float32, device=dem.device)
     rc = build.library().hz_window_march(
         dem.data_ptr(), n, pcol.data_ptr(), fscal.data_ptr(), w, k,
@@ -106,3 +146,33 @@ def march(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
 
 
 march.launches = 0
+
+
+def march_textured(dem: torch.Tensor, pcol: torch.Tensor,
+                   fscal: torch.Tensor, k: int, colors: torch.Tensor,
+                   scale: int):
+    """(tanel (W, k) float32, tex (W, k) int32): ``march`` plus each
+    sample's packed 0x00RRGGBB color from the (scale*n, scale*n) int32
+    plane ``colors`` (scale 1: cell resolution, 2: half-cell)."""
+    if dem.device.type == "cpu":
+        return march_plain(dem, pcol, fscal, k, colors, scale)
+    _check_march("march_textured", dem, pcol, fscal)
+    n, w = dem.shape[0], pcol.shape[0]
+    if scale not in (1, 2):
+        raise ValueError(f"march_textured: scale must be 1 or 2, got {scale}")
+    _check("march_textured", "colors", colors, (scale * n, scale * n),
+           torch.int32, dem.device)
+    out = torch.empty((w, k), dtype=torch.float32, device=dem.device)
+    tex = torch.empty((w, k), dtype=torch.int32, device=dem.device)
+    rc = build.library().hz_window_march_tex(
+        dem.data_ptr(), n, colors.data_ptr(), scale, pcol.data_ptr(),
+        fscal.data_ptr(), w, k, out.data_ptr(), tex.data_ptr(),
+        torch.cuda.current_stream(dem.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"textured window march launch failed: CUDA "
+                           f"error {rc}")
+    march_textured.launches += 1
+    return out, tex
+
+
+march_textured.launches = 0

@@ -7,11 +7,14 @@ row y with the FIRST sample whose running-max elevation reaches row y.
 The output is the reference's contract (horizonator.h:155-169): an
 (H, W, 3) uint8 BGR image, top row first, shaded by the distance-red ramp
 (vertex.glsl:159-162), and an (H, W) float32 slant-range image with -1 for
-sky.
+sky. Textured renders blend each pixel's color into the ramp as the
+reference's fragment shader does, 0.7 * texture + 0.3 * shading
+(fragment.glsl:21).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 from .. import geometry
 from ..geometry import const, recip
 
+DEG = math.pi / 180.0
 _ROWQ = 256.0         # pixel-row quantization of the resolve keys (1/256 px)
 _ROWQ_BITS = 8        # log2(_ROWQ)
 
@@ -64,15 +68,21 @@ def params_from_jax(p, device) -> RenderParams:
 def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
                     height: int, nsteps: int, cells_per_deg: int,
                     surface: str = "bilinear", refine: bool = True,
-                    textured: bool = False, sampler: str = "window",
-                    lat_hint_deg: float = 45.0, znear_hint_m=100.0,
-                    with_dropped: bool = False, plain: bool = False):
+                    textured: bool = False, atlas=None, atlas_params=None,
+                    sampler: str = "window", lat_hint_deg: float = 45.0,
+                    color_planes=None, znear_hint_m=100.0,
+                    with_dropped: bool = False, exact_near_m=None,
+                    plain: bool = False):
     """Render one panorama from a square (n, n) float32 DEM tensor
     (dem[j, i], row 0 = SOUTH edge) on its device.
 
     ``nsteps``: the crossing budget (crossing.k_cross_for). ``surface`` is
     accepted for signature parity: crossings sample grid lines, where the
-    bilinear and triangulated surfaces agree. ``plain`` runs the kernels'
+    bilinear and triangulated surfaces agree. ``textured``: blend colors
+    into the image; they come from ``color_planes`` in the march (see
+    window.march_from_geometry; ``atlas``, ``atlas_params`` and
+    ``exact_near_m`` add the hybrid near field), or without planes from a
+    per-pixel gather of the packed ``atlas``. ``plain`` runs the kernels'
     plain PyTorch versions on any device.
 
     Returns (image (H, W, 3) uint8 BGR, ranges (H, W) float32), plus the
@@ -80,18 +90,26 @@ def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
     if sampler != "window":
         raise NotImplementedError(f"sampler={sampler!r} is not ported; "
                                   "only 'window' is")
-    if textured:
-        raise NotImplementedError("textured renders are not ported")
     if surface not in ("bilinear", "triangulated"):
         raise ValueError(f"unknown surface mode {surface!r}")
     from .window import march_from_geometry
     from .crossing import crossing_geometry
     geo = crossing_geometry(params, width=width, cells_per_deg=cells_per_deg)
-    tanel, dists = march_from_geometry(
-        dem, params, geo, k_cross=nsteps, cells_per_deg=cells_per_deg,
-        lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m, plain=plain)
+    mkw = dict(k_cross=nsteps, cells_per_deg=cells_per_deg,
+               lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
+               plain=plain)
+    tex_samples = None
+    if textured and color_planes is not None:
+        tanel, dists, tex_samples = march_from_geometry(
+            dem, params, geo, color_planes=color_planes, atlas=atlas,
+            atlas_params=atlas_params, exact_near_m=exact_near_m, **mkw)
+    else:
+        tanel, dists = march_from_geometry(dem, params, geo, **mkw)
     out = resolve_to_image(tanel, dists.d_of, geo.az, params, width=width,
-                           height=height, refine=refine, plain=plain)
+                           height=height, cells_per_deg=cells_per_deg,
+                           refine=refine, textured=textured, atlas=atlas,
+                           atlas_params=atlas_params,
+                           tex_samples=tex_samples, plain=plain)
     if with_dropped:
         return out + (torch.stack([dists.dropped, dists.truncated]),)
     return out
@@ -110,16 +128,19 @@ def horizon_rows(tanel: torch.Tensor, params: RenderParams, *, width: int,
 
 def resolve_to_image(tanel: torch.Tensor, d_of, az: torch.Tensor,
                      params: RenderParams, *, width: int, height: int,
-                     refine: bool = True, textured: bool = False,
+                     cells_per_deg: int | None = None, refine: bool = True,
+                     textured: bool = False, atlas=None, atlas_params=None,
+                     tex_samples: torch.Tensor | None = None,
                      plain: bool = False):
-    """The render tail (raymarch.py:944-1061, untextured): first-crossing
-    resolve in pixel-row space, refined ranges, image assembly.
+    """The render tail (raymarch.py:944-1061): first-crossing resolve in
+    pixel-row space, refined ranges, image assembly.
 
     Takes the RAW march tangents ``tanel`` (W, K): the resolve takes the
     running max itself (in row space, where it commutes with the monotone
-    row map bit for bit), so no run_max is needed."""
-    if textured:
-        raise NotImplementedError("textured resolve is not ported")
+    row map bit for bit), so no run_max is needed. Textured: with
+    ``tex_samples`` (W, K) the resolve routes each pixel's sample color;
+    without, each hit is gathered from the packed ``atlas``
+    (``atlas_params``, ``cells_per_deg``)."""
     from .resolve_window import resolve_window
     p = params
     ktotal = tanel.shape[1]
@@ -130,7 +151,12 @@ def resolve_to_image(tanel: torch.Tensor, d_of, az: torch.Tensor,
     el = el_ndc / az_ndc_per_rad * recip(aspect)                 # (H,)
 
     y_k = horizon_rows(tanel, p, width=width, height=height)
-    idx, alpha, ok = resolve_window(y_k, height, plain=plain)    # (W, H)
+    tex_hw = None
+    if tex_samples is not None:
+        idx, alpha, ok, tex_hw = resolve_window(y_k, height, tex=tex_samples,
+                                                plain=plain)     # (W, H)
+    else:
+        idx, alpha, ok = resolve_window(y_k, height, plain=plain)
     sky = idx >= ktotal
     idxc = torch.clamp(idx, max=ktotal - 1)
 
@@ -146,9 +172,33 @@ def resolve_to_image(tanel: torch.Tensor, d_of, az: torch.Tensor,
 
     red = torch.clamp((d_hit - p.znear_color) / (p.zfar_color - p.znear_color),
                       0.0, 1.0)
-    r8 = torch.round(red * 255.0).to(torch.uint8)
-    zero = torch.zeros_like(r8)
-    b = sky.to(torch.uint8) * 255
-    r = torch.where(sky, zero, r8)
-    image = torch.stack([b, zero, r], dim=-1).transpose(0, 1)    # (H, W, 3)
-    return image.contiguous(), ranges_wh.transpose(0, 1).contiguous()
+    if not textured:
+        r8 = torch.round(red * 255.0).to(torch.uint8)
+        zero = torch.zeros_like(r8)
+        b = sky.to(torch.uint8) * 255
+        r = torch.where(sky, zero, r8)
+        image = torch.stack([b, zero, r], dim=-1)                # (W, H, 3)
+    else:
+        from .texture import _unpack_bgr, sample_atlas_bgr
+        if tex_hw is not None:
+            tex_bgr = _unpack_bgr(tex_hw)
+        else:
+            # per-pixel atlas gather at each hit's grid position
+            # (raymarch.py:1039-1050, texture_quality="exact")
+            cell_m_north = geometry.EARTH_RADIUS_M * DEG / cells_per_deg
+            cell_m_east = cell_m_north * p.cos_viewer_lat
+            i_hit = (p.viewer_cell_i
+                     + d_hit * torch.sin(az)[:, None] / cell_m_east)
+            j_hit = (p.viewer_cell_j + d_hit * torch.cos(az)[:, None]
+                     * recip(cell_m_north))
+            tex_bgr = sample_atlas_bgr(atlas, atlas_params, i_hit, j_hit,
+                                       cells_per_deg)
+        # fragment.glsl:21: 0.7 * texture + 0.3 * shading; shading is the
+        # red ramp (B = G = 0)
+        mixed = 0.7 * tex_bgr
+        mixed[..., 2] += 0.3 * red * 255.0
+        image = torch.round(torch.clamp(mixed, 0.0, 255.0)).to(torch.uint8)
+        image[..., 0].masked_fill_(sky, 255)                     # sky: BGR
+        image[..., 1:].masked_fill_(sky[..., None], 0)           # blue
+    return (image.transpose(0, 1).contiguous(),
+            ranges_wh.transpose(0, 1).contiguous())

@@ -8,13 +8,23 @@ JAX package falls back to raymarch._resolve_rows, whose alpha has another
 quantum and rounds its numerator differently; ``alpha_quantum`` names both
 so that ``resolve_to_image`` gives the JAX numbers in either regime. The
 search itself runs in kernels/resolve.py.
+
+Textured resolves route each pixel's first-crossing color in both regimes.
+The fused kernel's contract (the running min's argmin color) is exactly
+the color of sample idx. The JAX fallback instead forward-fills colors
+from the argmax of the raw tangents through its merge, whose order among
+equal quantized keys is the network's; where a later sample raised the
+horizon by less than 1/512 px it can deliver that sample's color. The port
+keeps the first-crossing color there too (tests/test_torch_textured.py
+counts those pixels).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.resolve import resolve as _resolve, resolve_plain
+from ..kernels.resolve import resolve as _resolve, resolve_plain, \
+    resolve_textured
 
 _A_CAP = 10        # alpha bit budget cap (resolve_window.py:73)
 _N2_MAX = 4096     # the TPU kernel's VMEM cap on the merged lane count
@@ -50,13 +60,21 @@ def alpha_quantum(k: int, height: int) -> tuple[float, bool]:
     return float((1 << a_bits) - 1 if a_bits >= 5 else 32767), False
 
 
-def resolve_window(y_k: torch.Tensor, height: int, *, plain: bool = False):
-    """(idx, alpha, ok), each (W, height), for rows y_k (W, K): the JAX
-    package's numbers for (K, height), from its fused kernel where
+def resolve_window(y_k: torch.Tensor, height: int, *,
+                   tex: torch.Tensor | None = None, plain: bool = False):
+    """(idx, alpha, ok[, tex]), each (W, height), for rows y_k (W, K): the
+    JAX package's numbers for (K, height), from its fused kernel where
     ``resolve_fits`` and from raymarch._resolve_rows elsewhere. Rows may be
     raw or already monotone (the running min of a non-increasing row is
-    itself). ``plain`` runs the plain PyTorch version on any device (for
-    comparisons with the kernel)."""
+    itself). ``tex`` (W, K) int32: the samples' packed colors; adds each
+    pixel's first-crossing color. ``plain`` runs the plain PyTorch version
+    on any device (for comparisons with the kernel)."""
     amax, int_first = alpha_quantum(y_k.shape[1], height)
-    fn = resolve_plain if plain else _resolve
-    return fn(y_k.contiguous(), height, amax, int_first)
+    y_k = y_k.contiguous()
+    if tex is not None:
+        tex = tex.to(torch.int32).contiguous()
+        if plain:
+            return resolve_plain(y_k, height, amax, int_first, tex=tex)
+        return resolve_textured(y_k, tex, height, amax, int_first)
+    return (resolve_plain if plain else _resolve)(y_k, height, amax,
+                                                  int_first)

@@ -1,7 +1,7 @@
 """The window march: every image column's samples along its ray.
 
 Counterpart of horizonator_tpu.render.window.march_window for a square,
-unsharded, untextured grid. The output is the JAX package's
+unsharded grid, untextured or textured. The output is the JAX package's
 ``scene=None`` lane layout, (W, N_NEAR + k_limit):
 
 - lanes [0, N_NEAR): the near band, N_NEAR bilinear samples over
@@ -16,25 +16,36 @@ The guards keep their contract: ``dists.truncated`` counts columns whose
 valid crossings run past the step budget, ``dists.dropped`` near-band
 samples outside the static patch. A CUDA kernel reads the DEM directly,
 so the TPU's window-overflow class of ``dropped`` cannot occur.
+
+Textured marches (``color_planes``) return a fifth value, tex (W, N_NEAR +
+k_limit) int32 packed 0x00RRGGBB per sample: the far field from the
+kernel's textured entry, the near band bilinear at the planes' own
+resolution, and, with an atlas and ``exact_near_m`` (the API's "hybrid"
+quality), atlas-true z12 colors for the samples nearer than exact_near_m.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 
 from .. import geometry
 from ..geometry import const, recip
-from ..kernels.window_march import fma32, march, march_plain
+from ..kernels.window_march import (fma32, march, march_plain,
+                                    march_textured)
 from .crossing import (CrossingDists, CrossingGeom, N_NEAR, NEG_BIG,
                        crossing_geometry)
 from .raymarch import RenderParams
+from .texture import (AtlasParams, ColorPlanes2x, atlas_px_from_grid,
+                      pack_cell_colors, unpack_color_planes)
 
 DEG = math.pi / 180.0
 TILE_K = 128           # the JAX kernel's step tile: k budgets round to it
 ALIGN_MIN_N = TILE_K + 8   # grids below this are zero-padded (window.py:738)
 NEAR_PATCH_CAP = 64
+EXACT_PATCH_CAP = 256  # atlas-patch edge cap for the hybrid near field
 
 
 def near_patch_size(znear_hint_m: float, cells_per_deg: int,
@@ -83,54 +94,102 @@ def _truncated(geo: CrossingGeom, p: RenderParams, n: int,
     return (torch.floor(m_hi) >= reach).sum().to(torch.int32)
 
 
-def _near_band(dem: torch.Tensor, p: RenderParams, geo: CrossingGeom, *,
-               n_near: int, near_hi: torch.Tensor, n_real: int,
-               patch_n: int | None):
-    """(tanel_q (W, n_near), dropped) -- window.py:1027-1114 for a square
-    grid. ``dem`` is the (zero-padded) march grid, ``n_real`` the loaded
-    grid's edge."""
-    n = dem.shape[0]
-    q = torch.arange(n_near, dtype=torch.float32, device=dem.device)[None, :]
+def _hat(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - torch.abs(x - r), min=0.0)
+
+
+def _corners(ir: torch.Tensor, jr: torch.Tensor, size: int):
+    """(u0, v0, rows, cols): the floors of patch-relative positions and the
+    two row and column indices of their bilinear stencil, clamped into a
+    size x size patch (a clamped tap always carries zero weight)."""
+    u0 = torch.floor(ir)
+    v0 = torch.floor(jr)
+    rows = [(v0 + dv).clamp(0, size - 1).to(torch.int64) for dv in (0, 1)]
+    cols = [(u0 + du).clamp(0, size - 1).to(torch.int64) for du in (0, 1)]
+    return u0, v0, rows, cols
+
+
+def _bilerp(c, ir, jr, u0, v0) -> torch.Tensor:
+    """The JAX package's patch contraction sum_v hat(jr - v) * sum_u
+    hat(ir - u) * P[v, u] with its exact-zero terms dropped: four corners
+    c[dv][du], no matmul (so no TF32), in the order XLA evaluates it.
+    Corners may carry a leading channel axis over the (W, Q) positions."""
+    hx0, hx1 = _hat(ir, u0), _hat(ir, u0 + 1.0)
+    acc0 = hx0 * c[0][0] + hx1 * c[0][1]
+    acc1 = hx0 * c[1][0] + hx1 * c[1][1]
+    return fma32(_hat(jr, v0 + 1.0), acc1, _hat(jr, v0) * acc0)
+
+
+def _pack_u8(bgr: torch.Tensor) -> torch.Tensor:
+    """(3, ...) float B, G, R -> 0x00RRGGBB, each rounded (half to even)
+    and clipped to u8."""
+    c = torch.clamp(torch.round(bgr), 0.0, 255.0).to(torch.int32)
+    return (c[2] << 16) | (c[1] << 8) | c[0]
+
+
+def _bgr_of(src: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(3, ...) float32 B, G, R of values gathered from a color source: the
+    bytes of a packed int32 plane, or (3, ...) float planes as they are
+    (the JAX near band contracts float planes unrounded)."""
+    return unpack_color_planes(v) if src.dim() == 2 else v
+
+
+def _gather(src: torch.Tensor, rows, cols):
+    """src[..., rows, cols] of a packed plane or (3, ...) float planes."""
+    return src[rows, cols] if src.dim() == 2 else src[:, rows, cols]
+
+
+def _near_samples(p: RenderParams, geo: CrossingGeom, n_near: int,
+                  near_hi: torch.Tensor):
+    """(dq, iq, jq) (W, n_near): the near band's uniform distances over
+    [znear, near_hi) and their grid positions (window.py:1027-1038)."""
+    q = torch.arange(n_near, dtype=torch.float32, device=near_hi.device)[
+        None, :]
     # 1 mm floor: znear == 0 would put the first sample at d = 0
     dq = torch.clamp(
         p.znear + q * ((near_hi[:, None] - p.znear) * recip(n_near)),
         min=1e-3)
+    return (dq,) + _grid_pos(p, geo, dq)
+
+
+def _grid_pos(p: RenderParams, geo: CrossingGeom, d: torch.Tensor):
+    """Grid coordinates (i, j) at horizontal distance d along each column."""
     sin_az = torch.sin(geo.az)[:, None]
     cos_az = torch.cos(geo.az)[:, None]
-    iq = p.viewer_cell_i + dq * sin_az / geo.cell_m_east
+    iq = p.viewer_cell_i + d * sin_az / geo.cell_m_east
     # cell_m_north is a Python constant in the JAX package: XLA multiplies
     # by its float32 reciprocal
-    jq = p.viewer_cell_j + dq * cos_az * (1.0 / geo.cell_m_north)
+    jq = p.viewer_cell_j + d * cos_az * (1.0 / geo.cell_m_north)
+    return iq, jq
+
+
+def _patch_origin(p: RenderParams, patch_n: int, n: int):
+    """(oi, oj) int32: the viewer-centered near patch's corner."""
+    return tuple(
+        torch.clamp(torch.floor(v).to(torch.int32) - (patch_n // 2 - 1),
+                    0, n - patch_n)
+        for v in (p.viewer_cell_i, p.viewer_cell_j))
+
+
+def _near_band(dem: torch.Tensor, p: RenderParams, dq, iq, jq, near_hi, *,
+               n_real: int, patch_n: int | None):
+    """(tanel_q (W, n_near), dropped) -- window.py:1039-1114 for a square
+    grid. ``dem`` is the (zero-padded) march grid, ``n_real`` the loaded
+    grid's edge."""
+    n = dem.shape[0]
     edge = float(n_real - 1)
     vq = ((iq >= 0) & (iq <= edge) & (jq >= 0) & (jq <= edge)
           & (dq >= p.znear) & (dq <= p.zfar) & (dq < near_hi[:, None]))
     dropped = torch.zeros((), dtype=torch.int32, device=dem.device)
     if patch_n is not None:
-        # the viewer-centered patch at 0.5 m elevation resolution; each
-        # sample's bilinear value is the JAX package's hat contraction with
-        # its exact-zero terms dropped: 4 corners, no matmul (so no TF32)
-        oi = torch.clamp(torch.floor(p.viewer_cell_i).to(torch.int32)
-                         - (patch_n // 2 - 1), 0, n - patch_n)
-        oj = torch.clamp(torch.floor(p.viewer_cell_j).to(torch.int32)
-                         - (patch_n // 2 - 1), 0, n - patch_n)
+        # the viewer-centered patch at 0.5 m elevation resolution
+        oi, oj = _patch_origin(p, patch_n, n)
         ir = iq - oi.to(torch.float32)
         jr = jq - oj.to(torch.float32)
-        u0 = torch.floor(ir)
-        v0 = torch.floor(jr)
-
-        def hat(x, r):
-            return torch.clamp(1.0 - torch.abs(x - r), min=0.0)
-
-        def corner(dv, du):
-            # rows/cols past the patch carry zero weight; clamp the read
-            row = (oj + (v0 + dv).clamp(0, patch_n - 1).to(torch.int32))
-            col = (oi + (u0 + du).clamp(0, patch_n - 1).to(torch.int32))
-            z = dem[row.long(), col.long()]
-            return torch.round(z * 2.0) * 0.5
-
-        acc0 = hat(ir, u0) * corner(0, 0) + hat(ir, u0 + 1.0) * corner(0, 1)
-        acc1 = hat(ir, u0) * corner(1, 0) + hat(ir, u0 + 1.0) * corner(1, 1)
-        zq = fma32(hat(jr, v0 + 1.0), acc1, hat(jr, v0) * acc0)
+        u0, v0, rows, cols = _corners(ir, jr, patch_n)
+        c = [[torch.round(dem[oj + r, oi + cc] * 2.0) * 0.5 for cc in cols]
+             for r in rows]
+        zq = _bilerp(c, ir, jr, u0, v0)
         last = float(patch_n - 1)
         in_patch = (ir >= 0.0) & (ir <= last) & (jr >= 0.0) & (jr <= last)
         dropped = (vq & ~in_patch).sum().to(torch.int32)
@@ -155,29 +214,148 @@ def _near_band(dem: torch.Tensor, p: RenderParams, geo: CrossingGeom, *,
     return tanel_q, dropped
 
 
-def _check_supported(dem, j_hi, j_offset, color_planes, scene,
-                     exact_near_m):
+def _near_colors(src: torch.Tensor, s: int, p: RenderParams, iq, jq, *,
+                 n_real: int, patch_n: int | None) -> torch.Tensor:
+    """(W, n_near) packed near-band colors at the planes' own resolution s
+    (window.py:1115-1201). ``src``: the zero-padded packed (s*n, s*n)
+    plane, or (3, n, n) float planes at s = 1."""
+    if patch_n is not None:
+        # the same viewer patch as the elevation, s times finer
+        oi, oj = _patch_origin(p, patch_n, src.shape[-1] // s)
+        irc = iq * s - (s * oi).to(torch.float32)
+        jrc = jq * s - (s * oj).to(torch.float32)
+        u0, v0, rows, cols = _corners(irc, jrc, s * patch_n)
+        c = [[_bgr_of(src, _gather(src, s * oj + r, s * oi + cc))
+              for cc in cols] for r in rows]
+        return _pack_u8(_bilerp(c, irc, jrc, u0, v0))
+    # gather form: bilinear from four corners, clamped to the real planes
+    iqs, jqs = iq * s, jq * s
+    i0 = torch.clamp(torch.floor(iqs), 0, s * n_real - 2).to(torch.int32)
+    j0 = torch.clamp(torch.floor(jqs), 0, s * n_real - 2).to(torch.int32)
+    fi = torch.clamp(iqs - i0, 0.0, 1.0)
+    fj = torch.clamp(jqs - j0, 0.0, 1.0)
+    i0, j0 = i0.long(), j0.long()
+    g00, g01, g10, g11 = (_bgr_of(src, _gather(src, j, i)) for j, i in (
+        (j0, i0), (j0, i0 + 1), (j0 + 1, i0), (j0 + 1, i0 + 1)))
+    top = g00 + (g01 - g00) * fi
+    bot = g10 + (g11 - g10) * fi
+    return _pack_u8(top + (bot - top) * fj)
+
+
+def exact_near_sizes(exact_near_m: float, cells_per_deg: int,
+                     lat_hint_deg: float, zoom: int):
+    """Static (k_x, patch_px) of the hybrid near field: the crossing steps
+    reaching ``exact_near_m`` and the atlas-patch edge covering them, worst
+    case over the latitude bucket (window.py:353-365)."""
+    cos_l = max(0.05, math.cos(math.radians(min(abs(lat_hint_deg) + 5.0,
+                                                85.0))))
+    cell_e_min = geometry.EARTH_RADIUS_M * DEG / cells_per_deg * cos_l
+    k_x = int(math.ceil(exact_near_m / cell_e_min)) + 2
+    texel_m = 40075016.686 / (256.0 * (1 << zoom)) * cos_l
+    p_at = int(math.ceil(2.0 * exact_near_m / texel_m)) + 8
+    return k_x, -(-p_at // 8) * 8
+
+
+def _exact_near_colors(atlas: torch.Tensor, ap: AtlasParams,
+                       geo: CrossingGeom, p: RenderParams, near, *,
+                       k_x: int, p_at: int, cells_per_deg: int,
+                       exact_near_m: float):
+    """Hybrid near field (window.py:368-435): packed colors bilinearly
+    sampled from the z12 atlas itself for the near band (``near``: its
+    (dq, iq, jq), or None) and the first ``k_x`` crossing steps, through
+    one viewer-centered atlas patch. Returns (packed (W, n_near + k_x)
+    int32, replace mask): samples outside the patch or beyond exact_near_m
+    keep their plane colors."""
+    mm = torch.arange(k_x, dtype=torch.float32, device=atlas.device)[None, :]
+    d = (mm + geo.e[:, None]) * geo.scale[:, None]
+    iq, jq = _grid_pos(p, geo, d)
+    if near is not None:
+        d, iq, jq = (torch.cat(pair, dim=1)
+                     for pair in zip(near, (d, iq, jq)))
+    # the viewer's own atlas position rides along as one more element
+    px, py = atlas_px_from_grid(
+        torch.cat([iq.reshape(-1), p.viewer_cell_i.reshape(1)]),
+        torch.cat([jq.reshape(-1), p.viewer_cell_j.reshape(1)]), ap,
+        cells_per_deg)
+    pxv, pyv = px[-1], py[-1]
+    px, py = px[:-1].view_as(iq), py[:-1].view_as(jq)
+    h_at, w_at = atlas.shape
+    if min(h_at, w_at) < p_at:
+        raise ValueError(f"atlas {tuple(atlas.shape)} is smaller than the "
+                         f"hybrid near field's {p_at}-px patch")
+    ox = torch.clamp(torch.round(pxv).to(torch.int32) - p_at // 2,
+                     0, w_at - p_at)
+    oy = torch.clamp(torch.round(pyv).to(torch.int32) - p_at // 2,
+                     0, h_at - p_at)
+    xr = px - 0.5 - ox.to(torch.float32)
+    yr = py - 0.5 - oy.to(torch.float32)
+    u0, v0, rows, cols = _corners(xr, yr, p_at)
+    c = [[unpack_color_planes(atlas[oy + r, ox + cc]) for cc in cols]
+         for r in rows]
+    packed = _pack_u8(_bilerp(c, xr, yr, u0, v0))
+    replace = ((xr >= 0.0) & (xr <= p_at - 1.0) & (yr >= 0.0)
+               & (yr <= p_at - 1.0) & (d <= exact_near_m))
+    return packed, replace
+
+
+def _color_source(color_planes, n: int):
+    """(far plane, scale, near source) of a march's color planes: the
+    packed (s*n, s*n) int32 plane the kernel reads, s, and what the near
+    band samples (the JAX package contracts (3, n, n) float planes
+    unpacked there). Checks the shapes as window.py:680-736 does."""
+    if isinstance(color_planes, ColorPlanes2x):
+        fp = color_planes.full_packed
+        if tuple(fp.shape) != (2 * n, 2 * n) or fp.dtype != torch.int32:
+            raise ValueError(f"ColorPlanes2x plane {fp.dtype} "
+                             f"{tuple(fp.shape)} does not match the ({n}, "
+                             f"{n}) grid")
+        return fp.contiguous(), 2, fp
+    if color_planes.dim() == 2:
+        if color_planes.dtype != torch.int32:
+            raise ValueError(
+                f"2D color_planes must be packed int32 0x00RRGGBB "
+                f"(texture.pack_cell_colors), got {color_planes.dtype}")
+        if tuple(color_planes.shape) != (n, n):
+            raise ValueError(f"packed color plane shape "
+                             f"{tuple(color_planes.shape)} does not match "
+                             f"the ({n}, {n}) grid")
+        return color_planes.contiguous(), 1, color_planes
+    s = color_planes.shape[1] // n
+    if (color_planes.dim() != 3 or color_planes.shape[0] != 3
+            or s not in (1, 2)
+            or tuple(color_planes.shape[1:]) != (s * n, s * n)):
+        raise ValueError(f"color_planes shape {tuple(color_planes.shape)} "
+                         f"is neither (3, n, n) nor (3, 2n, 2n) for the "
+                         f"({n}, {n}) grid")
+    packed = pack_cell_colors(color_planes)
+    return packed, s, (packed if s == 2 else color_planes.to(torch.float32))
+
+
+def _check_supported(dem, j_hi, j_offset, scene):
     if dem.dim() != 2 or dem.shape[0] != dem.shape[1]:
         raise NotImplementedError("march_window: only square grids are "
                                   f"ported, got {tuple(dem.shape)}")
     for name, v in (("j_hi", j_hi), ("j_offset", j_offset),
-                    ("color_planes", color_planes), ("scene", scene),
-                    ("exact_near_m", exact_near_m)):
+                    ("scene", scene)):
         if v is not None:
-            raise NotImplementedError(f"march_window: {name}= (banded, "
-                                      "textured or aligned marches) is not "
-                                      "ported")
+            raise NotImplementedError(f"march_window: {name}= (banded or "
+                                      "aligned marches) is not ported")
 
 
 def march_from_geometry(dem: torch.Tensor, params: RenderParams,
                         geo: CrossingGeom, *, k_cross: int,
                         cells_per_deg: int, lat_hint_deg: float = 45.0,
                         n_near: int = N_NEAR, znear_hint_m=100.0,
-                        plain: bool = False):
-    """(tanel (W, n_near + k_limit), dists) for given crossing geometry.
+                        color_planes=None, atlas=None, atlas_params=None,
+                        exact_near_m=None, plain: bool = False):
+    """(tanel (W, n_near + k_limit), dists) for given crossing geometry,
+    plus tex (W, n_near + k_limit) int32 when ``color_planes`` is given:
+    a ColorPlanes2x (half-cell), (n, n) packed int32 cell planes, or
+    (3, n, n) / (3, 2n, 2n) float B/G/R planes. ``atlas`` (packed int32),
+    ``atlas_params`` and ``exact_near_m`` add the hybrid near field.
 
     ``plain`` runs the march's plain PyTorch version on any device (for
-    comparisons with the kernel); otherwise ``march`` picks by device."""
+    comparisons with the kernel); otherwise the wrappers pick by device."""
     p = params
     n = dem.shape[0]
     dem = dem.to(torch.float32).contiguous()
@@ -190,46 +368,95 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
         dim=1).contiguous()
     fscal = torch.stack([p.viewer_z, p.znear, p.zfar, p.curv]).to(
         torch.float32)
-    far = (march_plain if plain else march)(dem, pcol, fscal, k_limit)
+    textured = color_planes is not None
+    if textured:
+        plane, s, near_src = _color_source(color_planes, n)
+        far, tex = (march_plain if plain else march_textured)(
+            dem, pcol, fscal, k_limit, plane, s)
+    else:
+        far = (march_plain if plain else march)(dem, pcol, fscal, k_limit)
     truncated = _truncated(geo, p, n, k_limit)
 
     m_star = torch.clamp(torch.ceil(p.znear / geo.scale - geo.e), min=0.0)
     near_hi = torch.maximum((m_star + geo.e) * geo.scale, p.znear)
     dropped = torch.zeros((), dtype=torch.int32, device=dem.device)
+    near = None
     if n_near > 0:
-        n_pad = max(n, ALIGN_MIN_N)
-        grid = (dem if n_pad == n else
-                torch.nn.functional.pad(dem, (0, n_pad - n, 0, n_pad - n)))
+        pad = max(n, ALIGN_MIN_N) - n     # tiny grids: zeros = ocean
+        grid = torch.nn.functional.pad(dem, (0, pad, 0, pad)) if pad else dem
         patch_n = (near_patch_size(znear_hint_m, cells_per_deg, lat_hint_deg)
                    if znear_hint_m is not None else None)
         if patch_n is not None and (patch_n > NEAR_PATCH_CAP
-                                    or patch_n > n_pad):
+                                    or patch_n > n + pad):
             patch_n = None     # would not fit: the gather form, never a drop
-        tanel_q, dropped = _near_band(grid, p, geo, n_near=n_near,
-                                      near_hi=near_hi, n_real=n,
-                                      patch_n=patch_n)
+        near = dq, iq, jq = _near_samples(p, geo, n_near, near_hi)
+        tanel_q, dropped = _near_band(grid, p, dq, iq, jq, near_hi,
+                                      n_real=n, patch_n=patch_n)
         far = torch.cat([tanel_q, far], dim=1)
+        if textured:
+            if pad:
+                near_src = torch.nn.functional.pad(
+                    near_src, (0, s * pad, 0, s * pad))
+            tex = torch.cat([_near_colors(near_src, s, p, iq, jq, n_real=n,
+                                          patch_n=patch_n), tex], dim=1)
+    if (textured and exact_near_m is not None and atlas is not None
+            and atlas_params is not None):
+        tex = _hybrid_near_field(tex, atlas, atlas_params, geo, p, near,
+                                 n_near=n_near, cells_per_deg=cells_per_deg,
+                                 lat_hint_deg=lat_hint_deg,
+                                 exact_near_m=exact_near_m)
     dists = CrossingDists(e=geo.e, scale=geo.scale, znear=p.znear,
                           near_hi=near_hi, n_near=n_near, dropped=dropped,
                           truncated=truncated)
+    if textured:
+        return far, dists, tex
     return far, dists
+
+
+def _hybrid_near_field(tex, atlas, ap, geo, p, near, *, n_near,
+                       cells_per_deg, lat_hint_deg, exact_near_m):
+    """Swap the plane colors of the samples within exact_near_m for
+    atlas-true z12 texels (window.py:1203-1267, unaligned lanes); sample
+    validity, and so every range, is untouched. Falls back loudly to the
+    plane colors when the static caps are exceeded."""
+    k_x, p_at = exact_near_sizes(exact_near_m, cells_per_deg, lat_hint_deg,
+                                 ap.zoom)
+    if p_at > EXACT_PATCH_CAP or k_x > TILE_K:
+        warnings.warn(
+            f"hybrid near-field texture disabled for this render: "
+            f"exact_near_m={exact_near_m:g} at lat_hint={lat_hint_deg:g} "
+            f"needs an atlas patch of {p_at} px (cap {EXACT_PATCH_CAP}) "
+            f"over {k_x} crossing steps (cap {TILE_K}); falling back to "
+            f"half-cell grid2x colors. Reduce exact_near_m to restore "
+            f"atlas-true near texels.", RuntimeWarning, stacklevel=3)
+        return tex
+    ex, rep = _exact_near_colors(atlas, ap, geo, p, near, k_x=k_x,
+                                 p_at=p_at,
+                                 cells_per_deg=cells_per_deg,
+                                 exact_near_m=exact_near_m)
+    lanes = min(n_near + k_x, tex.shape[1])
+    return torch.cat([torch.where(rep[:, :lanes], ex[:, :lanes],
+                                  tex[:, :lanes]), tex[:, lanes:]], dim=1)
 
 
 def march_window(dem: torch.Tensor, params: RenderParams, *, width: int,
                  k_cross: int, cells_per_deg: int,
                  lat_hint_deg: float = 45.0, n_near: int = N_NEAR,
                  znear_hint_m=100.0, j_hi=None, j_offset=None,
-                 color_planes=None, scene=None, exact_near_m=None,
-                 plain: bool = False):
+                 color_planes=None, scene=None, atlas=None,
+                 atlas_params=None, exact_near_m=None, plain: bool = False):
     """The crossing march on a square (n, n) float32 DEM tensor: returns
-    (tanel (W, n_near + k_limit), run_max, dists, az) like
-    horizonator_tpu's march_window(scene=None). ``lat_hint_deg`` and
+    (tanel (W, n_near + k_limit), run_max, dists, az[, tex]) like
+    horizonator_tpu's march_window(scene=None); tex when ``color_planes``
+    is given (see march_from_geometry). ``lat_hint_deg`` and
     ``znear_hint_m`` size the static near patch as there."""
-    _check_supported(dem, j_hi, j_offset, color_planes, scene, exact_near_m)
+    _check_supported(dem, j_hi, j_offset, scene)
     geo = crossing_geometry(params, width=width, cells_per_deg=cells_per_deg)
-    tanel, dists = march_from_geometry(
+    out = march_from_geometry(
         dem, params, geo, k_cross=k_cross, cells_per_deg=cells_per_deg,
         lat_hint_deg=lat_hint_deg, n_near=n_near, znear_hint_m=znear_hint_m,
-        plain=plain)
+        color_planes=color_planes, atlas=atlas, atlas_params=atlas_params,
+        exact_near_m=exact_near_m, plain=plain)
+    tanel = out[0]
     run_max = torch.cummax(tanel, dim=1).values
-    return tanel, run_max, dists, geo.az
+    return (tanel, run_max, out[1], geo.az) + tuple(out[2:])

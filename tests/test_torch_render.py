@@ -137,7 +137,7 @@ def test_api_guard_and_unported(dem_dir):
                       strict_coverage=True, **kw)
     with pytest.raises(RuntimeError, match="masked"):
         hs.render(-60, 60, zfar=15000.0)
-    for bad in ({"render_texture": True}, {"hillshade": True},
+    for bad in ({"hillshade": True, "shadows": True},
                 {"region_mesh": "auto"}):
         with pytest.raises(NotImplementedError):
             THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, **kw, **bad)

@@ -161,11 +161,13 @@ def test_run_max_and_unsupported():
     np.testing.assert_array_equal(
         run_max.numpy(), np.maximum.accumulate(tanel.numpy(), axis=1))
     assert az.shape == (32,)
-    for kw in ({"j_hi": 10}, {"j_offset": 1}, {"color_planes": dem},
-               {"scene": object()}, {"exact_near_m": 1200.0}):
+    for kw in ({"j_hi": 10}, {"j_offset": 1}, {"scene": object()}):
         with pytest.raises(NotImplementedError):
             twin.march_window(dem, tp, width=32, k_cross=64,
                               cells_per_deg=CPD, **kw)
+    with pytest.raises(ValueError, match="packed int32"):  # 2D float planes
+        twin.march_window(dem, tp, width=32, k_cross=64, cells_per_deg=CPD,
+                          color_planes=dem)
     with pytest.raises(NotImplementedError):
         twin.march_window(dem[:, :60], tp, width=32, k_cross=64,
                           cells_per_deg=CPD)
