@@ -36,9 +36,21 @@ Phases, in order; any failure raises and exits nonzero:
     atlas; median ms/viewpoint over 20 renders with kernels (5 with plain
     versions), each textured kernel's time and each step's;
 10. the API with hillshade=True on phase 6's tiles: both textured kernels
-    launched, terrain gray-shaded.
-The last two lines of standard output are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+    launched, terrain gray-shaded;
+11. the roll-ceiling probes (benchmarks/profile_roll_ceiling.py's kernels)
+    at W 4096, m 1664, 40 stages: both kernels bitwise equal to their plain
+    versions there and at m 416 with tie-heavy kv keys; then the probe's
+    entry point, timed (CUDA events, back-to-back run), with the implied
+    merge floors printed beside phase 5's resolve time;
+12. the CLI in-process on phase 6's tiles: a 4096x1024 full circle to .pdf
+    with --ranges .npy; both kernels launched, the ranges bitwise equal to
+    the API's render, then the API's horizon() (march kernel) and a pick()
+    that projects back into its own column.
+Each kernel's record carries its bound: the larger of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s and
+its operations over the card's rate for their type (float32 67 TFLOP/s;
+int32 64 per SM per clock at clocks.max.sm). The last lines of standard
+output are the card, the kernels' JSON record and {"ok": true, ...}.
 """
 
 import json
@@ -62,6 +74,18 @@ N = 3400
 RENDERS = 20
 PLAIN_TEX_RENDERS = 5
 EXACT_NEAR_M = 1200.0
+PROBE_M, PROBE_STAGES = 1664, 40
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# float32 operations per march sample (FMA = 2), counted from
+# window_march.cu: position, axis, distance, bounds, hats, taps, tangent;
+# the textured entry adds the color hats and three channels
+MARCH_FLOPS, MARCH_TEX_FLOPS = 30, 60
+# int32 operations that the probes' function needs per lane and stage:
+# the lane mask, its test, the min or max and the select between them;
+# kv adds the compare of the new key with the old and the select of the
+# value (the partner index is the kernel's own bookkeeping, not counted)
+PROBE_OPS, PROBE_KV_OPS = 4, 6
 
 
 def fail(msg):
@@ -122,6 +146,43 @@ def cuda_ms_run(fn, n, warmup=2):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def int32_ops_per_s():
+    """H100 int32 rate: 64 lanes per SM per clock at the card's maximum SM
+    clock."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, check=True, timeout=60)
+    mhz = float(r.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 64 * mhz * 1e6, mhz, sms
+
+
+def bound(nbytes, ops, ops_per_s):
+    """(bound ms, what bounds it): bytes over the memory rate against
+    operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def disk_cells(n, vi, vj, zfar, lat):
+    """DEM cells within zfar of the viewer: the cells a march must read."""
+    cell_n = 6371000.0 * math.pi / 180.0 / CPD
+    cell_e = cell_n * math.cos(math.radians(lat))
+    i = (np.arange(n) - vi) * cell_e
+    j = (np.arange(n) - vj) * cell_n
+    return int((j[:, None] ** 2 + i[None, :] ** 2 <= zfar * zfar).sum())
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 nbytes, ops, ops_per_s):
+    b_ms, b_by = bound(nbytes, ops, ops_per_s)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def max_abs(a, b):
@@ -385,20 +446,146 @@ def textured_phases(c, tiles, profile_dir=None):
         f"{g.mean():.2f} std {g.std():.2f}; {ms_api:.3f} ms per render "
         f"(median of 5, outputs copied to the host)")
 
+    # bounds: the untextured work plus the half-cell texels in the zfar
+    # disk (4 per cell) and the (W, K) colors out; the resolve adds the
+    # (W, K) colors in and the (W, H) colors out
+    m_bytes, m_samples = c["march_bytes"], W * k_lim
+    r_bytes, r_ops = c["resolve_bytes"], c["resolve_ops"]
     return [
-        {"name": "window_march_textured", "route": "cuda",
-         "source": "horizonator_tpu_torch/kernels/csrc/window_march.cu",
-         "replaces": "horizonator_tpu/render/window.py:452",
-         "launches": launches["window_march_textured"],
-         "max_abs_err": march_err,
-         "ms": t_march, "plain_ms": t_march_p},
-        {"name": "resolve_textured", "route": "cuda",
-         "source": "horizonator_tpu_torch/kernels/csrc/resolve.cu",
-         "replaces": "horizonator_tpu/render/resolve_window.py:132",
-         "launches": launches["resolve_textured"],
-         "max_abs_err": resolve_err,
-         "ms": t_res, "plain_ms": t_res_p},
+        kernel_entry("window_march_textured",
+                     "horizonator_tpu_torch/kernels/csrc/window_march.cu",
+                     "horizonator_tpu/render/window.py:452",
+                     launches["window_march_textured"], march_err, t_march,
+                     t_march_p, m_bytes + 16 * c["disk_cells"]
+                     + 4 * m_samples, MARCH_TEX_FLOPS * m_samples,
+                     FP32_OPS_PER_S),
+        kernel_entry("resolve_textured",
+                     "horizonator_tpu_torch/kernels/csrc/resolve.cu",
+                     "horizonator_tpu/render/resolve_window.py:132",
+                     launches["resolve_textured"], resolve_err, t_res,
+                     t_res_p, r_bytes + 4 * y_k.numel() + 4 * W * H,
+                     r_ops + W * H, c["int32_rate"]),
     ]
+
+
+def probe_phase(int32_rate, resolve_ms):
+    """Phase 11: the roll-ceiling probes; returns their JSON entries."""
+    from horizonator_tpu_torch.benchmarks import profile_roll_ceiling as prc
+    from horizonator_tpu_torch.kernels.roll_ceiling import (roll_kv,
+                                                            roll_kv_plain,
+                                                            roll_minmax,
+                                                            roll_minmax_plain)
+    w, m, st = prc.W, PROBE_M, PROBE_STAGES
+    x = prc.probe_input(w, m)
+    rng = np.random.default_rng(11)
+    checks, err = {}, {"minmax": 0.0, "kv": 0.0}
+    for mm, keys in ((m, None), (416, 16)):
+        xr = (x if mm == m else torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (w, mm), dtype=np.int64).astype(
+                np.int32)).cuda())
+        k = xr if keys is None else torch.from_numpy(rng.integers(
+            0, keys, (w, mm), dtype=np.int64).astype(np.int32)).cuda()
+        v = xr + 1
+        got = [roll_minmax(xr, st), *roll_kv(k, v, st)]
+        ref = [roll_minmax_plain(xr, st), *roll_kv_plain(k, v, st)]
+        torch.cuda.synchronize()
+        for name, a, b in zip(("minmax", "kv keys", "kv values"), got, ref):
+            if not torch.equal(a, b):
+                fail(f"roll {name} (m {mm}) != plain: "
+                     f"{int((a != b).sum())} lanes differ")
+        err["minmax"] = max(err["minmax"], max_abs(got[0], ref[0]))
+        err["kv"] = max(err["kv"], max_abs(got[1], ref[1]),
+                        max_abs(got[2], ref[2]))
+        checks[mm] = float((got[2] != v).float().mean())
+    log(f"[11] roll_minmax and roll_kv (W {w}, {st} stages) == plain "
+        f"bitwise at m {m} (probe input) and m 416 (seeded, kv keys in "
+        f"0..15); kv values moved at {checks[m]:.3f} / {checks[416]:.3f} "
+        f"of lanes")
+    t_mm_p = cuda_ms_run(lambda i: roll_minmax_plain(x, st), 5, warmup=1)
+    t_kv_p = cuda_ms_run(lambda i: roll_kv_plain(x, x + 1, st), 5, warmup=1)
+
+    # the probe's entry point is this path: counts from 0 around it
+    roll_minmax.launches = roll_kv.launches = 0
+    e_mm, t_mm = prc.run("minmax", w, m, st)
+    e_kv, t_kv = prc.run("kv", w, m, st)
+    launches = {"roll_minmax": roll_minmax.launches,
+                "roll_kv": roll_kv.launches}
+    if min(launches.values()) < 1:
+        fail(f"the probe skipped a kernel: {launches}")
+    log(f"[11] probe W {w} m {m} S {st}: minmax {t_mm:.4f} ms "
+        f"({e_mm / 1e9:.0f} G elem-stages/s; plain {t_mm_p:.4f} ms), kv "
+        f"{t_kv:.4f} ms ({e_kv / 1e9:.0f} G elem-stages/s, 2 arrays; plain "
+        f"{t_kv_p:.4f} ms); launches {launches}")
+    for line in prc.floor_lines(e_mm, e_kv, w, m, resolve_ms):
+        log(f"[11] {line} (phase 5)" if "measured" in line
+            else f"[11] {line}")
+    lanes = w * m
+    src = "horizonator_tpu_torch/kernels/csrc/roll_ceiling.cu"
+    return [
+        kernel_entry("roll_minmax", src,
+                     "benchmarks/profile_roll_ceiling.py:38",
+                     launches["roll_minmax"], err["minmax"], t_mm, t_mm_p,
+                     8 * lanes, PROBE_OPS * lanes * st, int32_rate),
+        kernel_entry("roll_kv", src,
+                     "benchmarks/profile_roll_ceiling.py:62",
+                     launches["roll_kv"], err["kv"], t_kv, t_kv_p,
+                     16 * lanes, PROBE_KV_OPS * lanes * st, int32_rate),
+    ]
+
+
+def cli_phase(tiles):
+    """Phase 12: the CLI in-process on phase 6's tiles, then the API's
+    horizon() and pick()."""
+    from horizonator_tpu_torch import cli, horizonator
+    from horizonator_tpu_torch.geometry import project
+    from horizonator_tpu_torch.kernels.resolve import resolve
+    from horizonator_tpu_torch.kernels.window_march import march
+    with tempfile.TemporaryDirectory() as td:
+        pdf, npy = os.path.join(td, "pano.pdf"), os.path.join(td, "pano.npy")
+        march.launches = resolve.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--width", str(W), "--height", str(H), "--image", pdf,
+                       "--ranges", npy, "--dirdems", tiles, "34.4", "-117.6",
+                       "0", "180"])
+        cli_s = time.perf_counter() - t0
+        launches = {"window_march": march.launches,
+                    "resolve": resolve.launches}
+        if rc != 0 or min(launches.values()) < 1:
+            fail(f"CLI rc {rc}, launches {launches}")
+        r_cli = np.load(npy)
+        with open(pdf, "rb") as f:
+            head = f.read(8)
+        pdf_mb = os.path.getsize(pdf) / 1e6
+    h = horizonator(34.4, -117.6, W, H, dir_dems=tiles,
+                    render_radius_m=40000.0)
+    r_api = h.render(-180, 180)[1]
+    if not np.array_equal(r_cli, r_api):
+        fail(f"CLI ranges != API render: {int((r_cli != r_api).sum())} "
+             f"pixels differ")
+    if not head.startswith(b"%PDF"):
+        fail(f"CLI wrote no PDF: {head!r}")
+    log(f"[12] CLI {W}x{H} full circle -> .pdf ({pdf_mb:.1f} MB) + .npy in "
+        f"{cli_s:.2f} s: rc 0, launches {launches}, ranges == API render "
+        f"bitwise")
+    march.launches = 0
+    az, tan_el = h.horizon(-180, 180)
+    if march.launches < 1:
+        fail("horizon() did not launch the march kernel")
+    if az.shape != (W,) or not np.isfinite(tan_el).all():
+        fail(f"bad horizon {az.shape} {tan_el.shape}")
+    ys, xs = np.nonzero(r_api > 2000.0)
+    k = len(ys) // 2
+    x, y = int(xs[k]), int(ys[k])
+    lat, lon = h.pick(x, y)
+    px = float(project(34.4, math.cos(math.radians(34.4)), -117.6,
+                       h.viewer_z, lat, lon, 0.0, math.radians(-180.0),
+                       math.radians(180.0), W, H)[0])
+    if abs(px - x) > 0.5:
+        fail(f"pick({x}, {y}) -> ({lat}, {lon}) projects to column {px}")
+    log(f"[12] horizon(-180, 180): {W} columns, max tan_el "
+        f"{float(tan_el.max()):.4f}, march launched {march.launches}; "
+        f"pick({x}, {y}) at {float(r_api[y, x]):.1f} m -> ({lat:.6f}, "
+        f"{lon:.6f}), projects to column {px:.3f}")
 
 
 def main(profile_dir=None):
@@ -429,8 +616,11 @@ def main(profile_dir=None):
     build.library()
     build_s = time.perf_counter() - t0
     card = card_line()
+    int32_rate, sm_mhz, sms = int32_ops_per_s()
     log(f"[1] card: {card}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+        f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; {sms} SMs "
+        f"at clocks.max.sm {sm_mhz:g} MHz: int32 {int32_rate / 1e12:.2f} "
+        f"Tops/s")
     log(f"[1] kernels built in {build_s:.2f} s (nvcc {nvcc_s:.2f} s): "
         f"{path.name}")
     for line in nvcc_log.splitlines():
@@ -582,7 +772,7 @@ def main(profile_dir=None):
             f"{out}")
 
     # -- 6. the API -------------------------------------------------------
-    tiles_dir = tempfile.TemporaryDirectory()     # phases 6 and 10
+    tiles_dir = tempfile.TemporaryDirectory()     # phases 6, 10, 12
     tiles = tiles_dir.name
     write_tiles(tiles, 34, -118)
     h = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device=dev)
@@ -602,24 +792,43 @@ def main(profile_dir=None):
         f"{vis6:.4f}, launches {api_launches}")
     del h
 
+    # bounds at these shapes: the march must read the DEM cells within
+    # zfar of the viewer and the per-column parameters and write (W, K)
+    # tangents; the resolve reads (W, K) rows and writes (W, H) idx,
+    # alpha and ok (9 bytes), its operations those of a merge of K keys
+    # against H thresholds per column (~4 per key, ~12 per row)
+    cells = disk_cells(N, N / 2, N / 2, ZFAR, LAT)
+    march_bytes = 4 * cells + pcol.nbytes + fscal.nbytes + 4 * W * k_lim
+    resolve_bytes = y_k.nbytes + 9 * W * H
+    resolve_ops = W * (4 * y_k.shape[1] + 12 * H)
+    log(f"[5] bounds: {cells} DEM cells within zfar ({4 * cells / 1e6:.2f} "
+        f"MB) of the {dem.nbytes / 1e6:.1f} MB DEM; march moves "
+        f"{march_bytes / 1e6:.2f} MB, resolve {resolve_bytes / 1e6:.2f} MB")
+
     ctx = dict(dev=dev, dem=dem, p=p, geo=geo, params=params, mkw=mkw,
                rkw=rkw, tan_k=tan_k, y_k=y_k, res_k=out_k, rng=rng,
-               dists=dists, pcol=pcol, fscal=fscal, k_lim=k_lim, card=card)
+               dists=dists, pcol=pcol, fscal=fscal, k_lim=k_lim, card=card,
+               disk_cells=cells, march_bytes=march_bytes,
+               resolve_bytes=resolve_bytes, resolve_ops=resolve_ops,
+               int32_rate=int32_rate)
     tex_kernels = textured_phases(ctx, tiles, profile_dir)
+    probe_kernels = probe_phase(int32_rate, t_res)
+    cli_phase(tiles)
     tiles_dir.cleanup()
 
     kernels = [
-        {"name": "window_march", "route": "cuda",
-         "source": "horizonator_tpu_torch/kernels/csrc/window_march.cu",
-         "replaces": "horizonator_tpu/render/window.py:446",
-         "launches": launches["window_march"], "max_abs_err": march_err,
-         "ms": t_march, "plain_ms": t_march_p},
-        {"name": "resolve", "route": "cuda",
-         "source": "horizonator_tpu_torch/kernels/csrc/resolve.cu",
-         "replaces": "horizonator_tpu/render/resolve_window.py:117",
-         "launches": launches["resolve"], "max_abs_err": resolve_err,
-         "ms": t_res, "plain_ms": t_res_p},
+        kernel_entry("window_march",
+                     "horizonator_tpu_torch/kernels/csrc/window_march.cu",
+                     "horizonator_tpu/render/window.py:446",
+                     launches["window_march"], march_err, t_march, t_march_p,
+                     march_bytes, MARCH_FLOPS * W * k_lim, FP32_OPS_PER_S),
+        kernel_entry("resolve",
+                     "horizonator_tpu_torch/kernels/csrc/resolve.cu",
+                     "horizonator_tpu/render/resolve_window.py:117",
+                     launches["resolve"], resolve_err, t_res, t_res_p,
+                     resolve_bytes, resolve_ops, int32_rate),
         *tex_kernels,
+        *probe_kernels,
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

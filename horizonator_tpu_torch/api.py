@@ -5,9 +5,11 @@ az_deg1, ...)`` keep the constructor/render signature and return shapes of
 the reference's CPython module (horizonator-pywrap.c:49-125, 158-279):
 the constructor loads the DEM window (and, for textured renders, the tile
 atlas and its color planes) and puts it on ``device``; render() is the
-repeatable path with a movable camera. This port covers the window
-sampler, untextured, textured (``render_texture``) and hillshaded; cast
-shadows, debug fill modes, region sharding and long-clip LOD renders raise
+repeatable path with a movable camera; pick() reads the last render's
+range image back to lat/lon, and horizon() gives the per-column horizon
+without an image. This port covers the window sampler, untextured,
+textured (``render_texture``) and hillshaded; cast shadows, debug fill
+modes, region sharding and long-clip LOD renders raise
 NotImplementedError.
 """
 
@@ -24,6 +26,7 @@ from .dem import load_mosaic, RADIUS_CELLS_DEFAULT_PY
 from .render import make_params, render_panorama
 from .render.crossing import k_cross_for
 from .render import texture
+from .render.window import march_window
 
 ZNEAR_DEFAULT = 100.0     # horizonator.h:9
 ZFAR_DEFAULT = 40000.0    # horizonator.h:10
@@ -145,6 +148,7 @@ class horizonator:
         self.viewer_lon = float(lon)
         self.viewer_z = self.mosaic.auto_viewer_z(lat, lon)
         self.strict_coverage = bool(strict_coverage)
+        self._last = None    # the last render's ranges and window, for pick()
 
     def _put_color_planes(self, planes, scale):
         """Half-cell planes are packed once per scene (ColorPlanes2x);
@@ -156,7 +160,7 @@ class horizonator:
 
     # -- coverage guard -----------------------------------------------------
 
-    def _check_dropped(self, guard):
+    def _check_dropped(self, guard, what="render"):
         """Warn (raise under strict_coverage) when the march reports
         ``dropped`` near-band samples outside the static patch or
         ``truncated`` columns whose march stopped short of zfar/the grid
@@ -176,11 +180,17 @@ class horizonator:
                 f"the grid edge, so their far samples were masked (manual "
                 f"nsteps= below k_cross_for's latitude-scaled budget -- "
                 f"raise nsteps or drop the override)")
-        msg = ("render(): " + "; ".join(parts)
+        msg = (f"{what}(): " + "; ".join(parts)
                + " -- horizons may be silently low.")
         if self.strict_coverage:
             raise RuntimeError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+    def resized(self, width, height):
+        """Change the output viewport (horizonator_resized,
+        horizonator-lib.c:838-856); the DEM stays on the device."""
+        self.width = int(width)
+        self.height = int(height)
 
     # -- static hints ---------------------------------------------------------
 
@@ -193,6 +203,17 @@ class horizonator:
         """znear rounded UP to a power of two (floor 128): sizes the static
         near patch; a larger hint only grows it."""
         return float(max(128.0, 2.0 ** math.ceil(math.log2(max(znear, 1.0)))))
+
+    def _params(self, az_deg0, az_deg1, znear, zfar, znear_color,
+                zfar_color):
+        ci, cj = self.mosaic.viewer_cell(self.viewer_lat, self.viewer_lon)
+        return make_params(
+            device=self.device,
+            viewer_cell_i=ci, viewer_cell_j=cj, viewer_z=self.viewer_z,
+            cos_viewer_lat=math.cos(math.radians(self.viewer_lat)),
+            az_rad0=math.radians(az_deg0), az_rad1=math.radians(az_deg1),
+            znear=znear, zfar=zfar, znear_color=znear_color,
+            zfar_color=zfar_color, curv=self._curv)
 
     def _auto_nsteps(self, znear, zfar):
         if self._nsteps_fixed is not None:
@@ -246,14 +267,8 @@ class horizonator:
                 f"this render needs {nsteps} crossing steps; the JAX package "
                 f"renders it with the LOD march, which is not ported "
                 f"(shorten zfar or pass nsteps<={LOD_SWAP_NSTEPS})")
-        ci, cj = self.mosaic.viewer_cell(self.viewer_lat, self.viewer_lon)
-        params = make_params(
-            device=self.device,
-            viewer_cell_i=ci, viewer_cell_j=cj, viewer_z=self.viewer_z,
-            cos_viewer_lat=math.cos(math.radians(self.viewer_lat)),
-            az_rad0=math.radians(az_deg0), az_rad1=math.radians(az_deg1),
-            znear=znear, zfar=zfar, znear_color=znear_color,
-            zfar_color=zfar_color, curv=self._curv)
+        params = self._params(az_deg0, az_deg1, znear, zfar, znear_color,
+                              zfar_color)
         image, ranges, guard = render_panorama(
             self._dem, params, width=self.width, height=self.height,
             nsteps=nsteps, cells_per_deg=self.mosaic.cells_per_deg,
@@ -264,13 +279,61 @@ class horizonator:
             color_planes=self._color_planes,
             znear_hint_m=self._znear_hint(znear), with_dropped=True,
             exact_near_m=self._exact_near_m)
+        # pick() reads the ranges; the host copy is made only when asked for
+        ranges_np = ranges.cpu().numpy() if return_range else None
+        self._last = dict(ranges=ranges_np, ranges_dev=ranges,
+                          az_deg0=az_deg0, az_deg1=az_deg1,
+                          lat=self.viewer_lat, lon=self.viewer_lon)
         out = []
         if return_image:
             out.append(image.cpu().numpy())
         if return_range:
-            out.append(ranges.cpu().numpy())
+            out.append(ranges_np)
         self._check_dropped(guard)
         return tuple(out) if len(out) > 1 else out[0]
+
+    def _last_ranges(self):
+        """Host copy of the last render's range image (made on first use)."""
+        last = self._last
+        if last["ranges"] is None:
+            last["ranges"] = last["ranges_dev"].cpu().numpy()
+        return last["ranges"]
+
+    def pick(self, x, y):
+        """Pixel of the last render -> (lat, lon), or None for sky
+        (horizonator-lib.c:1216-1296, reading the range image instead of the
+        GL depth buffer)."""
+        if self._last is None:
+            raise RuntimeError("pick() before render()")
+        last = self._last
+        r = self._last_ranges()[int(y), int(x)]
+        if r <= 0:
+            return None
+        lat, lon = geometry.unproject(
+            float(x), float(y), float(r), -1.0,
+            last["lat"], math.cos(math.radians(last["lat"])), last["lon"],
+            last["az_deg0"], last["az_deg1"], self.width, self.height)
+        return float(lat), float(lon)
+
+    def horizon(self, az_deg0, az_deg1, *, width=None,
+                znear=ZNEAR_DEFAULT, zfar=ZFAR_DEFAULT):
+        """Per-column horizon (az_rad, tan_el) as numpy float32 arrays,
+        without an image: the window march and a plain max over each
+        column's samples. It marches the full crossing budget at any zfar
+        (no LOD swap, as in the JAX package)."""
+        width = self.width if width is None else int(width)
+        params = self._params(float(az_deg0), float(az_deg1), znear, zfar,
+                              znear, zfar)
+        tanel, _, dists, az = march_window(
+            self._dem, params, width=width,
+            k_cross=self._auto_nsteps(znear, zfar),
+            cells_per_deg=self.mosaic.cells_per_deg,
+            lat_hint_deg=self._lat_hint(),
+            znear_hint_m=self._znear_hint(znear))
+        out = az.cpu().numpy(), tanel.max(dim=1).values.cpu().numpy()
+        self._check_dropped(torch.stack([dists.dropped, dists.truncated]),
+                            "horizon")
+        return out
 
     def __str__(self):
         return f"Looking out from {self.viewer_lat:.4f},{self.viewer_lon:.4f}"

@@ -1,0 +1,264 @@
+"""The ``standalone``-compatible CLI: one render to .png/.pdf/.svg.
+
+The counterpart of horizonator_tpu.cli, with the same flag surface,
+validation messages and exit codes, and the reference tool's conventions
+(standalone.c:115-323):
+
+- ``--width`` selects offscreen mode (required with ``--image``);
+- ``--height`` optional; a 20-degree FOV default otherwise (standalone.c:407-411);
+- positional LAT LON AZ_CENTER_DEG AZ_RADIUS_DEG; in image mode the azimuths
+  refer to pixel CENTERS and get the half-pixel viewport conversion
+  (standalone.c:400-404);
+- ``--znear/--zfar`` clip, ``--znear-color/--zfar-color`` ramp (defaulting to
+  the clip values, standalone.c:333-334);
+- ``.png`` -> plain render; ``.pdf``/``.svg`` -> annotated render;
+  ``--ranges`` also writes the range image.
+
+``--device`` (default ``cuda``) picks where the render runs; the JAX CLI
+takes its backend from JAX_PLATFORMS instead. Flags whose code is not
+ported yet (``--viewshed``, ``--horizon-out``, ``--pois-out``,
+``--shadows``, ``--surface triangulated``, ``--allow-dem-downloads``, and
+the interactive viewer) exit with status 1 and a message naming the
+missing module.
+
+Usage: python -m horizonator_tpu_torch.cli [options] LAT LON AZ_C AZ_R
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="horizonator-tpu-torch",
+        description="Render a terrain panorama from SRTM data (PyTorch + "
+                    "CUDA port of horizonator_tpu, a rebuild of "
+                    "dkogan/horizonator's `standalone` tool)")
+    p.add_argument("--width", type=int, default=0)
+    p.add_argument("--height", type=int, default=0)
+    p.add_argument("--cut-off-bottom-px", type=int, default=0, dest="cut_off_bottom_px")
+    p.add_argument("--image", type=str, default=None,
+                   help="output file: .png (render) or .pdf/.svg (annotated)")
+    p.add_argument("--dirdems", type=str, default=None)
+    p.add_argument("--dirtiles", type=str, default=None)
+    p.add_argument("--tiles", type=str, default=None, metavar="NAME=FMT")
+    p.add_argument("--texture", action="store_true")
+    p.add_argument("--hillshade", action="store_true",
+                   help="beyond-reference: Lambertian sun shading computed "
+                        "from the DEM (no tiles needed); exclusive with "
+                        "--texture")
+    p.add_argument("--sun-az", type=float, default=315.0, dest="sun_az",
+                   metavar="DEG", help="hillshade sun azimuth, deg cw from "
+                                       "north (default 315 = NW)")
+    p.add_argument("--sun-alt", type=float, default=45.0, dest="sun_alt",
+                   metavar="DEG", help="hillshade sun altitude above the "
+                                       "horizon (default 45)")
+    p.add_argument("--shadows", action="store_true",
+                   help="with --hillshade: cast terrain shadows (not ported: "
+                        "needs ops/shadows)")
+    p.add_argument("--sun-time", type=str, default=None, dest="sun_time",
+                   metavar="ISO8601",
+                   help="place the hillshade sun at its real position for "
+                        "this UTC time (e.g. 2026-08-18T15:00); overrides "
+                        "--sun-az/--sun-alt")
+    p.add_argument("--SRTM1", action="store_true")
+    p.add_argument("--curvature", choices=["none", "spherical", "refracted"],
+                   default="none",
+                   help="correct apparent elevations for earth curvature "
+                        "(and standard atmospheric refraction); the "
+                        "reference renders on a flat tangent plane = none")
+    p.add_argument("--allow-tile-downloads", action="store_true",
+                   dest="allow_downloads")
+    p.add_argument("--allow-dem-downloads", action="store_true",
+                   dest="allow_dem_downloads",
+                   help="fetch missing .hgt tiles into --dirdems (not "
+                        "ported: needs the DEM downloader)")
+    p.add_argument("--dem-url", type=str, default=None, dest="dem_url_fmt",
+                   metavar="FMT",
+                   help="DEM download URL template: %%s or {name} = "
+                        "N34W118.hgt, {ns} = N34; gzip/zip unwrapped")
+    p.add_argument("--znear", type=float, default=100.0)
+    p.add_argument("--zfar", type=float, default=40000.0)
+    p.add_argument("--znear-color", type=float, default=-1.0, dest="znear_color")
+    p.add_argument("--zfar-color", type=float, default=-1.0, dest="zfar_color")
+    p.add_argument("--ranges", type=str, default=None, metavar="FILE",
+                   help="also write the float32 range image (slant meters, "
+                        "invisible/sky = -1) as .npy, or raw little-endian "
+                        "f32 for any other extension")
+    p.add_argument("--horizon-out", type=str, default=None,
+                   dest="horizon_out", metavar="FILE",
+                   help="the geolocated skyline as .csv or GeoJSON (not "
+                        "ported: needs skyline)")
+    p.add_argument("--pois", type=str, default=None,
+                   help="peak list for .pdf/.svg annotation: a JSON file of "
+                        "[{name, lat, lon, ele_m}] (replaces the reference's "
+                        "compiled-in socal-peaks.h)")
+    p.add_argument("--pois-out", type=str, default=None, dest="pois_out",
+                   metavar="FILE",
+                   help="visible-peaks report as GeoJSON (not ported: needs "
+                        "visible_peaks)")
+    p.add_argument("--nsteps", type=int, default=None,
+                   help="ray-march samples (default: auto from zfar)")
+    p.add_argument("--surface", choices=["bilinear", "triangulated"],
+                   default="bilinear")
+    p.add_argument("--viewshed", type=str, default=None, metavar="FILE.tif",
+                   help="a GIS viewshed raster as GeoTIFF (not ported: "
+                        "needs ops/viewshed)")
+    p.add_argument("--viewshed-halfwidth", type=int, default=0,
+                   dest="viewshed_halfwidth", metavar="CELLS")
+    p.add_argument("--viewshed-sampler", choices=["step", "crossing",
+                                                  "window"],
+                   default="window", dest="viewshed_sampler")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the render (default cuda; cpu runs "
+                        "the kernels' plain versions)")
+    p.add_argument("lat", type=float)
+    p.add_argument("lon", type=float)
+    p.add_argument("az_center_deg", type=float)
+    p.add_argument("az_radius_deg", type=float)
+    return p
+
+
+def _validate(args) -> str | None:
+    """The JAX CLI's argument checks, in its order; the message, or None."""
+    if not (-80.0 <= args.lat <= 80.0):
+        return "Got invalid latitude"                    # standalone.c:360-364
+    if not (-180.0 <= args.lon <= 180.0):
+        return "Got invalid longitude"
+    wants_gis_vectors = (args.horizon_out is not None
+                         or args.pois_out is not None)
+    if args.width > 0 and args.image is None and not wants_gis_vectors:
+        return ("--width makes sense only with --image, --horizon-out or "
+                "--pois-out")
+    if args.width <= 0 and args.image is not None:
+        return "--width required if --image"
+    if args.width == 1:
+        # the pixel-center az conversion divides by width-1
+        return "--width must be >= 2"
+    if args.height > 0 and args.width <= 0:
+        return "--height makes sense only with --width"
+    if args.az_radius_deg <= 0 and (args.image is not None
+                                    or wants_gis_vectors):
+        # the default-height formula divides by az_radius
+        return "AZ_RADIUS_DEG must be > 0"
+    if args.pois_out is not None and args.pois is None:
+        return "--pois-out needs --pois"
+    return None
+
+
+def _unported(args) -> str | None:
+    """The first requested feature whose code the port lacks, as a message."""
+    missing = [
+        (args.viewshed is not None, "--viewshed", "ops/viewshed"),
+        (args.horizon_out is not None, "--horizon-out", "skyline"),
+        (args.pois_out is not None, "--pois-out", "visible_peaks"),
+        (args.shadows, "--shadows", "ops/shadows"),
+        (args.surface == "triangulated", "--surface triangulated",
+         "the uniform-step sampler"),
+        (args.allow_dem_downloads, "--allow-dem-downloads",
+         "the DEM downloader"),
+        (args.image is None, "interactive mode (no --image)", "viewer.py"),
+    ]
+    for wanted, flag, module in missing:
+        if wanted:
+            return (f"{flag} needs {module}, which is not ported to "
+                    f"horizonator_tpu_torch")
+    return None
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    msg = _validate(args) or _unported(args)
+    if msg:
+        print(msg, file=sys.stderr)
+        return 1
+
+    suffix = args.image.lower()[-4:]
+    if suffix not in (".png", ".pdf", ".svg"):
+        print("--image MUST be given a '.png' or '.pdf' or '.svg' filename",
+              file=sys.stderr)
+        return 1
+
+    tiles_name = tiles_url_fmt = None
+    if args.tiles is not None:
+        if "=" not in args.tiles:
+            print("Couldn't find '=' in --tiles", file=sys.stderr)
+            return 1
+        tiles_name, tiles_url_fmt = args.tiles.split("=", 1)
+
+    znear_color = args.znear_color if args.znear_color > 0 else args.znear
+    zfar_color = args.zfar_color if args.zfar_color > 0 else args.zfar
+
+    # pixel-center -> viewport-edge azimuths (standalone.c:400-404)
+    az_radius = args.az_radius_deg
+    az_per_pixel = 2.0 * az_radius / (args.width - 1)
+    az_radius += az_per_pixel / 2.0
+    # AZ_RADIUS_DEG == 180 stays a FULL circle: the half-pixel widening
+    # would push the span past 360 deg, which the azimuth window rewraps to
+    # a half-pixel-wide window facing az_center+180, so the widened span is
+    # clamped at exactly 360. Radii > 180 keep the reference's rewrap.
+    if args.az_radius_deg <= 180.0:
+        az_radius = min(az_radius, 180.0)
+    az_deg0 = args.az_center_deg - az_radius
+    az_deg1 = args.az_center_deg + az_radius
+
+    height = args.height
+    if height <= 0:
+        # the reference's default-height formula (standalone.c:407-411):
+        # its comment says a 20-deg fov, but width*20/az_radius under the
+        # equirect mapping gives a 40-deg vertical span; parity wins
+        fovy_deg = 20.0
+        height = int(round(args.width * fovy_deg / az_radius))
+
+    from .api import horizonator
+
+    try:
+        h = horizonator(args.lat, args.lon, args.width, height,
+                        render_texture=args.texture, SRTM1=args.SRTM1,
+                        dir_dems=args.dirdems, dir_tiles=args.dirtiles,
+                        tiles_name=tiles_name, tiles_url_fmt=tiles_url_fmt,
+                        allow_downloads=args.allow_downloads,
+                        render_radius_m=args.zfar,     # standalone.c:437
+                        nsteps=args.nsteps, curvature=args.curvature,
+                        dem_url_fmt=args.dem_url_fmt,
+                        hillshade=args.hillshade, sun_az_deg=args.sun_az,
+                        sun_alt_deg=args.sun_alt, sun_time=args.sun_time,
+                        device=args.device)
+        image, ranges = h.render(az_deg0, az_deg1,
+                                 znear=args.znear, zfar=args.zfar,
+                                 znear_color=znear_color,
+                                 zfar_color=zfar_color)
+    except NotImplementedError as e:
+        # e.g. SRTM1 at the default zfar needs the LOD march
+        print(f"not ported to horizonator_tpu_torch: {e}", file=sys.stderr)
+        return 1
+
+    crop = args.cut_off_bottom_px
+    if args.ranges:
+        import numpy as np
+        r = ranges[: ranges.shape[0] - crop]
+        if args.ranges.lower().endswith(".npy"):
+            np.save(args.ranges, r)
+        else:
+            r.astype("<f4").tofile(args.ranges)
+    if suffix == ".png" and not args.pois:
+        from PIL import Image
+        out = image[: image.shape[0] - crop, :, ::-1]   # BGR -> RGB
+        Image.fromarray(out).save(args.image)
+    else:
+        # .pdf/.svg (reference annotator parity) or .png with --pois
+        # (labels rasterized straight into the bitmap)
+        from .annotate import annotate, load_pois
+        pois = load_pois(args.pois) if args.pois else []
+        annotate(args.image, image, ranges,
+                 cut_off_bottom_px=crop, pois=pois,
+                 lat=h.viewer_lat, lon=h.viewer_lon,
+                 az_deg0=az_deg0, az_deg1=az_deg1,
+                 ele_m=h.viewer_z, curv=h._curv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

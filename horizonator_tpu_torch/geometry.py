@@ -5,8 +5,8 @@ horizonator-lib.c:1055-1213): azimuth 0 = North, 90 deg = East; the
 azimuth window [az0, az1] maps to the full viewport width with az1
 unwrapped into (az0, az0 + 2 pi].
 
-Every function takes float32 tensors and keeps float32 arithmetic, in the
-operations the JAX package's jitted code performs:
+The render's functions take float32 tensors and keep float32 arithmetic,
+in the operations the JAX package's jitted code performs:
 
 - XLA rewrites a division by a compile-time constant into a product with
   the constant's float32 reciprocal; the port writes that product
@@ -14,6 +14,14 @@ operations the JAX package's jitted code performs:
 - a Python number that a tensor divides goes through ``const`` first:
   torch computes ``scalar / tensor`` as a reciprocal times the scalar on
   the CPU, which moves the result by an ulp against a true division.
+
+The projection math (``project``, ``pixel_az_el_rad``, ``unproject``) runs
+eagerly in the JAX package, on the numbers and numpy arrays of the
+annotator and of pick(): their arithmetic stays in float64 until a jnp
+function converts it to float32. The port converts at the same points
+(``as_f32``), so its results are float32 tensors within an ulp or two of
+the JAX package's; ``project``'s x goes through the render's
+``x_from_az`` and lands within a few ulps more.
 """
 
 from __future__ import annotations
@@ -68,6 +76,92 @@ def x_from_az(az_rad, az_rad0, az_rad1, width: int):
     az_ndc = (az - az_center) * az_ndc_per_rad
     x = (az_ndc + 1.0) * 0.5 * width - 0.5
     return x, az_ndc, az_ndc_per_rad
+
+
+def as_f32(x) -> torch.Tensor:
+    """x as a float32 tensor: where the JAX package's projection math hands
+    a Python number or a numpy array to a jnp function, which converts it
+    to float32 (x64 off)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.from_numpy(np.asarray(x, dtype=np.float32))
+
+
+def latlon_to_en(lat, lon, lat_viewer, cos_lat_viewer, lon_viewer):
+    """Tangent-plane east/north meters from the viewer (vertex.glsl:128-130).
+    Computes in the inputs' own type: float32 for tensors, float64 for
+    numpy arrays and Python numbers, as the JAX package does there."""
+    east = (lon - lon_viewer) * DEG * EARTH_RADIUS_M * cos_lat_viewer
+    north = (lat - lat_viewer) * DEG * EARTH_RADIUS_M
+    return east, north
+
+
+def en_to_latlon(east, north, lat_viewer, cos_lat_viewer, lon_viewer):
+    """Inverse of latlon_to_en (horizonator-lib.c:1209-1210)."""
+    lon = lon_viewer + east / EARTH_RADIUS_M / DEG / cos_lat_viewer
+    lat = lat_viewer + north / EARTH_RADIUS_M / DEG
+    return lat, lon
+
+
+def project(lat_viewer, cos_lat_viewer, lon_viewer, ele_viewer,
+            lat, lon, ele, az_rad0, az_rad1, width, height, curv=0.0):
+    """Project world points into the panorama: (x, y, range_enh, visible),
+    float32 tensors; ``visible`` is |az_ndc| <= 1 and |el_ndc| <= 1
+    (horizonator-lib.c:1097-1155). lat/lon/ele may be numbers, numpy
+    arrays or tensors; the viewer and window are numbers. ``curv`` must
+    match the render's for annotations and picks to line up."""
+    east, north = latlon_to_en(lat, lon, lat_viewer, cos_lat_viewer,
+                               lon_viewer)
+    dist_sq_ne = east * east + north * north
+    x, az_ndc, az_ndc_per_rad = x_from_az(
+        torch.atan2(as_f32(east), as_f32(north)), as_f32(az_rad0),
+        as_f32(az_rad1), width)
+    h = ele - ele_viewer
+    distance_ne = torch.sqrt(as_f32(dist_sq_ne))
+    range_enh = torch.sqrt(as_f32(dist_sq_ne + h * h))
+    aspect = width / height
+    # apparent elevation: tan el = h/d - d*curv (atan2 keeps d = 0 safe)
+    el_ndc = (torch.atan2(as_f32(h - dist_sq_ne * curv), distance_ne)
+              * aspect * az_ndc_per_rad)
+    y = (-el_ndc + 1.0) / 2.0 * height - 0.5
+    visible = (torch.abs(az_ndc) <= 1.0) & (torch.abs(el_ndc) <= 1.0)
+    return x, y, range_enh, visible
+
+
+def pixel_az_el_rad(x, y, az_deg0, az_deg1, width, height):
+    """Azimuth/elevation in radians at the CENTER of pixel (x, y), y from
+    the top row (horizonator-lib.c:1181-1201), window in degrees.
+
+    The span az1 - az0 is normalized into (0, 360], as the renderer unwraps
+    it, so wrapped (350, 10) and over-wound (0, 540) windows map pixels to
+    the azimuths that render() drew; a window already in (0, 360] keeps
+    az1 bitwise."""
+    span0 = az_deg1 - az_deg0
+    turns = torch.where(torch.as_tensor(span0 <= 0.0),
+                        torch.floor(as_f32(-span0 / 360.0)) + 1.0,
+                        -torch.ceil(as_f32(span0 / 360.0)) + 1.0)
+    az_deg1 = az_deg1 + 360.0 * turns
+    az_ndc = (x + 0.5) / width * 2.0 - 1.0
+    az = (as_f32(az_ndc) * (az_deg1 - az_deg0) / 2.0
+          + (az_deg1 + az_deg0) / 2.0) * DEG
+    el_ndc = 1.0 - (y + 0.5) / height * 2.0   # top row -> +1 side
+    aspect = width / height
+    el = as_f32(el_ndc) * (az_deg1 - az_deg0) / 2.0 / aspect * DEG
+    return az, el
+
+
+def unproject(x, y, range_enh, range_en,
+              lat_viewer, cos_lat_viewer, lon_viewer,
+              az_deg0, az_deg1, width, height):
+    """Pixel + range -> (lat, lon) float32 tensors
+    (horizonator-lib.c:1157-1213): range_en (horizontal) where positive,
+    else cos(el) * range_enh (slant)."""
+    az, el = pixel_az_el_rad(x, y, az_deg0, az_deg1, width, height)
+    range_en = torch.where(as_f32(range_en) > 0, as_f32(range_en),
+                           torch.cos(el) * as_f32(range_enh))
+    east = range_en * torch.sin(az)
+    north = range_en * torch.cos(az)
+    return en_to_latlon(east, north, lat_viewer, cos_lat_viewer, lon_viewer)
 
 
 def sun_position(lat_deg: float, lon_deg: float, when) -> tuple[float, float]:

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), bound with ctypes.
 
-``window_march.march`` and ``resolve.resolve`` launch their kernels for
-CUDA tensors, take their plain PyTorch versions for CPU tensors, and count
+``window_march.march``, ``resolve.resolve`` and the roll-ceiling probes
+``roll_ceiling.roll_minmax``/``roll_kv`` launch their kernels for CUDA
+tensors, take their plain PyTorch versions for CPU tensors, and count
 their launches in ``<wrapper>.launches``. ``build`` compiles ``csrc/*.cu``.
 """

@@ -100,5 +100,9 @@ def library() -> ctypes.CDLL:
     lib.hz_resolve_tex.argtypes = [vp, vp, ci, ci, ci, cf, cf, ci, vp, vp,
                                    vp, vp, vp]
     lib.hz_resolve_tex.restype = ci
+    lib.hz_roll_minmax.argtypes = [vp, vp, ci, ci, ci, vp]
+    lib.hz_roll_minmax.restype = ci
+    lib.hz_roll_kv.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.hz_roll_kv.restype = ci
     return lib
 
