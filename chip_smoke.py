@@ -45,7 +45,17 @@ Phases, in order; any failure raises and exits nonzero:
 12. the CLI in-process on phase 6's tiles: a 4096x1024 full circle to .pdf
     with --ranges .npy; both kernels launched, the ranges bitwise equal to
     the API's render, then the API's horizon() (march kernel) and a pick()
-    that projects back into its own column.
+    that projects back into its own column;
+13. both resolve entries vs the plain version at the edge shapes (H not a
+    multiple of 4, K of 1, 2 and 129, all-sky and covered columns, keys at
+    negative multiples of 256, thresholds equal to keys, a cliff beside a
+    plateau, K at the shared-memory limit), in both alpha regimes:
+    bitwise; one key more than the limit raises with the limit named.
+A kernel's "device ms" (the ``ms`` of its record) is the replay time of a
+CUDA graph of back-to-back launches over their count, so no Python runs in
+the timed region; the "host-loop ms" printed before it is the same wrapper
+called from a Python loop, which for kernels this short is the host's
+launch interval.
 Each kernel's record carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s and
 its operations over the card's rate for their type (float32 67 TFLOP/s;
@@ -75,6 +85,9 @@ RENDERS = 20
 PLAIN_TEX_RENDERS = 5
 EXACT_NEAR_M = 1200.0
 PROBE_M, PROBE_STAGES = 1664, 40
+HOST_LOOP = 100               # wrapper calls of a host-loop timing
+GRAPH_LAUNCHES = 64           # render-kernel launches in a timed CUDA graph
+PROBE_GRAPH_LAUNCHES = 16
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # float32 operations per march sample (FMA = 2), counted from
@@ -133,8 +146,10 @@ def cuda_ms(fn, n, warmup=2):
 
 
 def cuda_ms_run(fn, n, warmup=2):
-    """Mean device time of fn() over a run of n back-to-back calls between
-    two CUDA events (a kernel's own time, without per-call host gaps)."""
+    """Mean time of fn() over a Python loop of n back-to-back calls between
+    two CUDA events: the "host-loop ms". For a kernel of a few tens of
+    microseconds this is the wrapper's launch interval on the host, not the
+    kernel's time; ``graph_ms`` gives that."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -146,6 +161,43 @@ def cuda_ms_run(fn, n, warmup=2):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def graph_ms(fn, n, replays=5):
+    """Device time of one launch of the wrapper fn(): n launches captured
+    in one CUDA graph, the median of ``replays`` replays between two CUDA
+    events, over n. No Python runs inside the timed region. Every launch's
+    outputs stay alive through the capture, so each launch writes memory of
+    its own; the inputs are the same tensors for every launch, so they sit
+    in the L2 cache as far as they fit, as the frame leaves them."""
+    fn()
+    torch.cuda.synchronize()
+    graph, keep = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            keep.append(fn())
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    del graph, keep
+    return statistics.median(times) / n
+
+
+def fill_ms(nbytes):
+    """A write-only yardstick: the device time of one torch fill_ of nbytes
+    of fresh memory, what the card takes to write a kernel's outputs and do
+    nothing else."""
+    return graph_ms(lambda: torch.empty(nbytes, dtype=torch.uint8,
+                                        device="cuda").fill_(1),
+                    GRAPH_LAUNCHES)
 
 
 def int32_ops_per_s():
@@ -211,23 +263,33 @@ def write_tiles(d, lat0, lon0):
                           np.round(np.maximum(z, 0.0)).astype(np.int16))
 
 
-def profile_renders(fn, n, card, out_path, title):
+def profile_renders(fn, n, card, out_path, title, kernel_names):
     """torch.profiler over n calls of fn(i), its table written to out_path;
-    returns the device's busy ms per call."""
+    returns the device's busy ms per call and, for each of ``kernel_names``
+    (substrings of the CUDA kernels' names), the mean device ms of that
+    kernel's launches inside those calls."""
     from torch.profiler import ProfilerActivity, profile as tprof
     with tprof(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=100)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_cuda_time_total", row_limit=100)
+    in_frame = {}
+    for name in kernel_names:
+        rows = [e for e in averages if name in e.key
+                and e.self_device_time_total > 0]
+        if not rows:
+            fail(f"profile of {title}: no device time for {name}")
+        in_frame[name] = (sum(e.self_device_time_total for e in rows) / 1e3
+                          / sum(e.count for e in rows))
     busy = sum(e.self_device_time_total for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         f.write(f"{card}\n{title}\n{table}\n")
-    return busy
+    return busy, in_frame
 
 
 def textured_phases(c, tiles, profile_dir=None):
@@ -383,17 +445,26 @@ def textured_phases(c, tiles, profile_dir=None):
     pcol, fscal, k_lim = c["pcol"], c["fscal"], c["k_lim"]
     plane = cp2.full_packed
     amax, int_first = alpha_quantum(k_tot, H)
-    t_march = cuda_ms_run(lambda i: march_textured(dem, pcol, fscal, k_lim,
-                                                   plane, 2), 200)
+    hl_march = cuda_ms_run(lambda i: march_textured(dem, pcol, fscal, k_lim,
+                                                    plane, 2), HOST_LOOP)
+    hl_res = cuda_ms_run(lambda i: resolve_textured(y_k, tx_k, H, amax,
+                                                    int_first), HOST_LOOP)
+    log(f"[9] host-loop ms ({HOST_LOOP} wrapper calls from Python): "
+        f"textured window march {hl_march:.4f}, textured resolve "
+        f"{hl_res:.4f}")
+    t_march = graph_ms(lambda: march_textured(dem, pcol, fscal, k_lim, plane,
+                                              2), GRAPH_LAUNCHES)
+    t_res = graph_ms(lambda: resolve_textured(y_k, tx_k, H, amax, int_first),
+                     GRAPH_LAUNCHES)
     t_march_p = cuda_ms_run(lambda i: march_plain(dem, pcol, fscal, k_lim,
                                                   plane, 2), 20)
-    t_res = cuda_ms_run(lambda i: resolve_textured(y_k, tx_k, H, amax,
-                                                   int_first), 200)
     t_res_p = cuda_ms_run(lambda i: resolve_plain(y_k, H, amax, int_first,
                                                   tex=tx_k), 50)
-    log(f"[9] textured window march kernel {t_march:.4f} ms vs plain "
-        f"{t_march_p:.4f}; textured resolve kernel {t_res:.4f} ms vs plain "
-        f"{t_res_p:.4f} (mean over back-to-back runs)")
+    log(f"[9] device ms (graph replay, {GRAPH_LAUNCHES} launches): textured "
+        f"window march {t_march:.4f} (plain {t_march_p:.4f}), textured "
+        f"resolve {t_res:.4f} (plain {t_res_p:.4f}); yardstick: fill_ of "
+        f"the textured resolve's {13 * W * H / 1e6:.2f} MB of outputs "
+        f"{fill_ms(13 * W * H):.4f}")
     dists = c["dists"]
     steps = {
         "geometry": lambda i: crossing_geometry(p, width=W, cells_per_deg=CPD),
@@ -412,12 +483,16 @@ def textured_phases(c, tiles, profile_dir=None):
         log(f"[9] step {name}: {cuda_ms(fn, 20):.4f} ms")
     if profile_dir:
         out = os.path.join(profile_dir, "profile_render_textured.txt")
-        busy = profile_renders(
+        busy, in_frame = profile_renders(
             lambda i: render_panorama(dem, params[i], **tkw), 5, c["card"],
-            out, f"5 textured renders {W}x{H}")
+            out, f"5 textured renders {W}x{H}",
+            ("window_march_kernel<true", "resolve_kernel<true"))
         log(f"[9] profile: device busy {busy:.3f} ms per textured render of "
             f"{ms_kernel:.3f} ms ({100 * busy / ms_kernel:.1f}%); table in "
             f"{out}")
+        log("[9] profile: mean device ms inside the textured frame: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in in_frame.items())
+            + f" (graph replay: march {t_march:.4f}, resolve {t_res:.4f})")
     del cp1, img_p, rng_p
 
     # -- 10. the API with hillshade -------------------------------------------
@@ -512,10 +587,20 @@ def probe_phase(int32_rate, resolve_ms):
                 "roll_kv": roll_kv.launches}
     if min(launches.values()) < 1:
         fail(f"the probe skipped a kernel: {launches}")
-    log(f"[11] probe W {w} m {m} S {st}: minmax {t_mm:.4f} ms "
-        f"({e_mm / 1e9:.0f} G elem-stages/s; plain {t_mm_p:.4f} ms), kv "
-        f"{t_kv:.4f} ms ({e_kv / 1e9:.0f} G elem-stages/s, 2 arrays; plain "
-        f"{t_kv_p:.4f} ms); launches {launches}")
+    log(f"[11] probe W {w} m {m} S {st}, host-loop ms (the entry point's "
+        f"own timing: 16 wrapper calls from Python between two CUDA "
+        f"events): minmax {t_mm:.4f} ({e_mm / 1e9:.0f} G elem-stages/s), kv "
+        f"{t_kv:.4f} ({e_kv / 1e9:.0f} G elem-stages/s, 2 arrays); launches "
+        f"{launches}")
+    x1 = x + 1
+    t_mm = graph_ms(lambda: roll_minmax(x, st), PROBE_GRAPH_LAUNCHES)
+    t_kv = graph_ms(lambda: roll_kv(x, x1, st), PROBE_GRAPH_LAUNCHES)
+    e_mm, e_kv = (w * m * st * a / (t * 1e-3)
+                  for a, t in ((1, t_mm), (2, t_kv)))
+    log(f"[11] device ms (graph replay, {PROBE_GRAPH_LAUNCHES} launches): "
+        f"minmax {t_mm:.4f} ({e_mm / 1e9:.0f} G elem-stages/s; plain "
+        f"{t_mm_p:.4f} ms), kv {t_kv:.4f} ({e_kv / 1e9:.0f} G elem-stages/s; "
+        f"plain {t_kv_p:.4f} ms)")
     for line in prc.floor_lines(e_mm, e_kv, w, m, resolve_ms):
         log(f"[11] {line} (phase 5)" if "measured" in line
             else f"[11] {line}")
@@ -531,6 +616,99 @@ def probe_phase(int32_rate, resolve_ms):
                      launches["roll_kv"], err["kv"], t_kv, t_kv_p,
                      16 * lanes, PROBE_KV_OPS * lanes * st, int32_rate),
     ]
+
+
+def resolve_edge_cases():
+    """(name, rows y (W, K) float32, H): the shapes and columns on which a
+    resolve's index arithmetic can go wrong, from seeded numpy."""
+    rng = np.random.default_rng(13)
+
+    def rows(w, k, h):
+        return (h * (0.5 + 0.4 * rng.standard_normal((w, k)))).astype(
+            np.float32)
+
+    cases = [("H 100", rows(16, 300, 100), 100),
+             ("H 1023", rows(8, 129, 1023), 1023),
+             ("K 129, H 130", rows(8, 129, 130), 130)]
+    for k in (1, 2):
+        y = rows(12, k, 64)
+        y[0], y[1], y[2] = 70.0, -3.0, 17.0     # sky, covered, a pixel row
+        cases.append((f"K {k}", y, 64))
+    y = rows(6, 40, 128)
+    y[0] = 128.0 + 5.0 * rng.random(40)         # all sky: idx K everywhere
+    y[1, 0] = -2.0                              # covered from sample 0
+    y[2, 0] = 0.0                               # key 0 equals threshold 0
+    y[3] = 127.0                                # one crossing, the last row
+    cases.append(("sky and covered columns", y, 128))
+    # keys at and below the image top: exact negative multiples of 256 and
+    # 1/256 steps between them
+    y = (rng.integers(-8, 100, (10, 64)).astype(np.float32)
+         - rng.integers(0, 2, (10, 64)) * rng.integers(0, 256, (10, 64))
+         / np.float32(256.0)).astype(np.float32)
+    y[:, :8] = np.sort(y[:, :8], axis=1)[:, ::-1]
+    cases.append(("negative keys", y, 96))
+    cases.append(("thresholds equal to keys",
+                  rng.integers(0, 64, (10, 80)).astype(np.float32), 64))
+    # a long plateau, a cliff owning > 256 rows, a plateau again, a ramp
+    y = np.empty((4, 600), np.float32)
+    y[:, :200] = 1000.25
+    y[:, 200:330] = 20.5
+    y[:, 330:] = 20.5 - np.arange(270, dtype=np.float32) * 0.07
+    y[1, 100] = 700.0                           # a dip inside the plateau
+    y[2, 199] = 300.0
+    y[3] += rng.random(600).astype(np.float32) * 0.01
+    cases.append(("cliff beside a plateau", y, 1024))
+    return cases
+
+
+def edge_phase(dev):
+    """Phase 13: both resolve entries against the plain version at the edge
+    shapes, in both alpha regimes, bitwise."""
+    from horizonator_tpu_torch.kernels.resolve import (max_k, resolve,
+                                                       resolve_plain,
+                                                       resolve_textured)
+    rng = np.random.default_rng(14)
+    names = []
+    cases = resolve_edge_cases()
+    # the most keys that fit a block's shared memory, and one more
+    for textured in (False, True):
+        k = max_k(64, textured)
+        y_np = (64.0 * rng.random((2, k + 1))).astype(np.float32)
+        cases.append((f"K at the {'textured ' * textured}limit", y_np[:, :k],
+                      64))
+        y = torch.from_numpy(y_np).to(dev)
+        try:
+            if textured:
+                resolve_textured(y, y.to(torch.int32), 64, 1023.0, True)
+            else:
+                resolve(y, 64, 1023.0, True)
+        except ValueError as e:
+            if str(k) not in str(e):
+                fail(f"the K limit's message does not name {k}: {e}")
+        else:
+            fail(f"K {k + 1} above the limit did not raise")
+    for name, y_np, h in cases:
+        y = torch.from_numpy(np.ascontiguousarray(y_np)).to(dev)
+        tex = torch.from_numpy(rng.integers(
+            1, 1 << 24, y_np.shape, dtype=np.int32)).to(dev)
+        for amax, int_first in ((1023.0, True), (32767.0, False)):
+            ref = resolve_plain(y, h, amax, int_first, tex=tex)
+            entries = [("resolve", lambda: resolve(y, h, amax, int_first))]
+            if y.shape[1] <= max_k(h, True):    # the textured limit is lower
+                entries.append(("textured resolve", lambda: resolve_textured(
+                    y, tex, h, amax, int_first)))
+            for entry, fn in entries:
+                got = fn()
+                torch.cuda.synchronize()
+                for what, r, g in zip(("idx", "alpha", "ok", "tex"), ref, got):
+                    if not torch.equal(g, r):
+                        fail(f"{entry} {what} != plain at edge case "
+                             f"'{name}' (amax {amax:g}): "
+                             f"{int((g != r).sum())} differ")
+        names.append(f"{name} {tuple(y_np.shape)}")
+    log(f"[13] resolve and textured resolve == plain bitwise (idx, alpha, "
+        f"ok, tex), amax 1023 int-first and amax 32767 float-first, at: "
+        + "; ".join(names) + "; one key above either limit raises")
 
 
 def cli_phase(tiles):
@@ -739,15 +917,23 @@ def main(profile_dir=None):
                        1).contiguous()
     fscal = torch.stack([p.viewer_z, p.znear, p.zfar, p.curv])
     k_lim = tan_k.shape[1] - N_NEAR
-    t_march = cuda_ms_run(lambda i: march(dem, pcol, fscal, k_lim), 200)
+    hl_march = cuda_ms_run(lambda i: march(dem, pcol, fscal, k_lim), HOST_LOOP)
+    hl_res = cuda_ms_run(lambda i: resolve(y_k, H, amax, int_first),
+                         HOST_LOOP)
+    log(f"[5] host-loop ms (wrapper called {HOST_LOOP} times from Python "
+        f"between two CUDA events; the launch interval, not the kernel): "
+        f"window march {hl_march:.4f}, resolve {hl_res:.4f}")
+    t_march = graph_ms(lambda: march(dem, pcol, fscal, k_lim), GRAPH_LAUNCHES)
+    t_res = graph_ms(lambda: resolve(y_k, H, amax, int_first), GRAPH_LAUNCHES)
     t_march_p = cuda_ms_run(lambda i: march_plain(dem, pcol, fscal, k_lim),
                             50)
-    t_res = cuda_ms_run(lambda i: resolve(y_k, H, amax, int_first), 200)
     t_res_p = cuda_ms_run(lambda i: resolve_plain(y_k, H, amax, int_first),
                           50)
-    log(f"[5] window march kernel {t_march:.4f} ms vs plain {t_march_p:.4f}; "
-        f"resolve kernel {t_res:.4f} ms vs plain {t_res_p:.4f} (mean over "
-        f"back-to-back runs)")
+    log(f"[5] device ms (replay of a CUDA graph of {GRAPH_LAUNCHES} "
+        f"launches, inputs warm in L2): window march {t_march:.4f} (plain "
+        f"{t_march_p:.4f}), resolve {t_res:.4f} (plain {t_res_p:.4f}); "
+        f"yardstick: fill_ of the resolve's {9 * W * H / 1e6:.2f} MB of "
+        f"outputs {fill_ms(9 * W * H):.4f}")
 
     # where the frame's time goes, step by step (kernel path)
     steps = {
@@ -765,11 +951,16 @@ def main(profile_dir=None):
 
     if profile_dir:
         out = os.path.join(profile_dir, "profile_render.txt")
-        busy = profile_renders(lambda i: render_panorama(dem, params[i], **rkw),
-                               5, card, out, f"5 renders {W}x{H}")
+        busy, in_frame = profile_renders(
+            lambda i: render_panorama(dem, params[i], **rkw), 5, card, out,
+            f"5 renders {W}x{H}",
+            ("window_march_kernel<false", "resolve_kernel<false"))
         log(f"[5] profile: device busy {busy:.3f} ms per render of "
             f"{ms_kernel:.3f} ms ({100 * busy / ms_kernel:.1f}%); table in "
             f"{out}")
+        log("[5] profile: mean device ms inside the frame: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in in_frame.items())
+            + f" (graph replay: march {t_march:.4f}, resolve {t_res:.4f})")
 
     # -- 6. the API -------------------------------------------------------
     tiles_dir = tempfile.TemporaryDirectory()     # phases 6, 10, 12
@@ -815,6 +1006,7 @@ def main(profile_dir=None):
     probe_kernels = probe_phase(int32_rate, t_res)
     cli_phase(tiles)
     tiles_dir.cleanup()
+    edge_phase(dev)
 
     kernels = [
         kernel_entry("window_march",

@@ -13,8 +13,8 @@ exchange over a (W, m) int32 array, through the port's
 Prints ms per call and G elem-stages/s (elem = one lane of one row of ONE
 array, so kv counts 2 arrays), then the implied resolve floor at 45
 stages. That floor is the ceiling a merge-based resolve of m lanes would be
-held against; the port's resolve is a per-row binary search, not a merge,
-so the script prints its measured time beside the floor.
+held against; the port's resolve is a scan, a scatter and a second scan,
+not a merge, so the script prints its measured time beside the floor.
 
 Times come from CUDA events around a back-to-back run of ``reps`` calls,
 each on a perturbed input (x + i), after a warm-up. Needs a CUDA card:
@@ -100,7 +100,7 @@ def floor_lines(eps_minmax, eps_kv, w, m, resolve_time_ms):
         out.append(f"implied {name} resolve floor at {FLOOR_STAGES} stages: "
                    f"{floor_ms:.4f} ms (the ceiling a merge-based resolve "
                    f"over m={m} lanes would be held against)")
-    out.append(f"the port's resolve (per-row binary search, W={w} "
+    out.append(f"the port's resolve (scans and a scatter, no merge; W={w} "
                f"K={RESOLVE_K} H={RESOLVE_H}): {resolve_time_ms:.4f} ms "
                f"measured")
     return out

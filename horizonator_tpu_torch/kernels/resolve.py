@@ -28,10 +28,18 @@ from . import build
 from ..geometry import recip
 
 BIG = 1 << 30
-THREADS = 128                      # csrc/resolve.cu's block size
 SMEM = 227 * 1024                  # a block's shared memory on the H100
-MAX_K = SMEM // 4 - THREADS        # keys that fit one block's shared memory
-MAX_K_TEX = (SMEM - 4 * THREADS) // 8   # keys + colors
+ROWS = 4                           # csrc/resolve.cu: pixel rows per thread
+EXTRA_WORDS = 3 * 4 + 2            # its warps' exchange words, 2 sentinels
+
+
+def max_k(height: int, textured: bool) -> int:
+    """The most samples K whose keys (and colors, when ``textured``) fit
+    one block's shared memory beside the kernel's (height,) row array;
+    <= 0 where the row array alone does not fit."""
+    rows = -(-height // ROWS) * ROWS
+    words = SMEM // 4 - rows - EXTRA_WORDS
+    return (words - 1) // 2 if textured else words    # colors: 1 sentinel
 
 
 def quantize_rows(y: torch.Tensor) -> torch.Tensor:
@@ -43,7 +51,8 @@ def quantize_rows(y: torch.Tensor) -> torch.Tensor:
 
 def resolve_plain(y: torch.Tensor, height: int, amax: float,
                   int_first: bool, tex: torch.Tensor | None = None):
-    """(idx, alpha, ok[, tex]): cummin + searchsorted form of the kernel."""
+    """(idx, alpha, ok[, tex]): the kernel's function as cummin +
+    searchsorted (the kernel finds idx by each sample's run of rows)."""
     w, k = y.shape
     keys = torch.cummin(quantize_rows(y), dim=1).values   # non-increasing
     thr = (torch.arange(height, dtype=torch.int32, device=y.device)
@@ -72,16 +81,19 @@ def resolve_plain(y: torch.Tensor, height: int, amax: float,
     return idx, alpha, ok, torch.where(has_cur, torch.gather(tex, 1, cur), 0)
 
 
-def _check_resolve(fn: str, y: torch.Tensor, height: int, max_k: int):
+def _check_resolve(fn: str, y: torch.Tensor, height: int, textured: bool):
     if y.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {y.device}")
     if y.dtype != torch.float32 or y.dim() != 2 or not y.is_contiguous():
         raise ValueError(f"{fn}: y must be a contiguous 2-D float32 "
                          f"tensor, got {y.dtype} {tuple(y.shape)}")
-    if not 0 < y.shape[1] <= max_k:
-        raise ValueError(f"{fn}: K={y.shape[1]} outside (0, {max_k}]")
     if not 0 < height < (1 << 22):
         raise ValueError(f"{fn}: height {height} out of range")
+    limit = max_k(height, textured)
+    if not 0 < y.shape[1] <= limit:
+        raise ValueError(f"{fn}: K={y.shape[1]} outside (0, {limit}] at "
+                         f"height {height}: the keys and the row array "
+                         f"must fit {SMEM} bytes of shared memory")
 
 
 def _outputs(w: int, height: int, device):
@@ -95,7 +107,7 @@ def resolve(y: torch.Tensor, height: int, amax: float, int_first: bool):
     y (W, K) float32; ``amax``: the alpha quantum's denominator."""
     if y.device.type == "cpu":
         return resolve_plain(y, height, amax, int_first)
-    _check_resolve("resolve", y, height, MAX_K)
+    _check_resolve("resolve", y, height, False)
     w, k = y.shape
     idx, alpha, ok = _outputs(w, height, y.device)
     rc = build.library().hz_resolve(
@@ -117,7 +129,7 @@ def resolve_textured(y: torch.Tensor, tex: torch.Tensor, height: int,
     int32, from the samples' packed colors ``tex`` (W, K) int32."""
     if y.device.type == "cpu":
         return resolve_plain(y, height, amax, int_first, tex=tex)
-    _check_resolve("resolve_textured", y, height, MAX_K_TEX)
+    _check_resolve("resolve_textured", y, height, True)
     w, k = y.shape
     if (tex.device != y.device or tex.dtype != torch.int32
             or tuple(tex.shape) != (w, k) or not tex.is_contiguous()):
