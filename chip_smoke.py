@@ -17,8 +17,8 @@ Phases, in order; any failure raises and exits nonzero:
  5. the main path, render_panorama at 4096x1024 on that scene: visible
     fraction in (0.05, 0.95), both kernels launched, output bitwise equal
     to the plain versions' render; median ms/viewpoint over 20 renders
-    (CUDA events) with kernels and with plain versions, and each step's
-    time;
+    (CUDA events) with kernels and with plain versions, each step's
+    time, and the march kernel's time at five step counts;
  6. the API: horizonator(lat, lon, 4096, 1024, dir_dems=<3x3 synthetic
     SRTM3 tiles>).render(-180, 180) at the default radius and zfar;
  7. textured window march vs its plain version on phase 2's scene, with
@@ -50,12 +50,21 @@ Phases, in order; any failure raises and exits nonzero:
     multiple of 4, K of 1, 2 and 129, all-sky and covered columns, keys at
     negative multiples of 256, thresholds equal to keys, a cliff beside a
     plateau, K at the shared-memory limit), in both alpha regimes:
-    bitwise; one key more than the limit raises with the limit named.
+    bitwise; one key more than the limit raises with the limit named;
+14. both march entries vs the plain version at the edge shapes (W of 1, 31,
+    33 and 37, K of 1, 2, 31, 33, 129 and 577, n of 64, 100 and 1210,
+    azimuth windows inside one octant, across an octant boundary within 32
+    columns and across +-180 deg, a viewer in a corner of the grid and on
+    a grid line, positions that reach n-1 exactly, zfar below the second
+    step tile, znear above the first crossings), with cell and half-cell
+    color planes: samples and colors bitwise, NEG_BIG and the 0 color at
+    the invalid samples included.
 A kernel's "device ms" (the ``ms`` of its record) is the replay time of a
 CUDA graph of back-to-back launches over their count, so no Python runs in
 the timed region; the "host-loop ms" printed before it is the same wrapper
 called from a Python loop, which for kernels this short is the host's
-launch interval.
+launch interval. The fill_ yardsticks are the device time of writing a
+kernel's outputs and nothing else.
 Each kernel's record carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s and
 its operations over the card's rate for their type (float32 67 TFLOP/s;
@@ -462,9 +471,10 @@ def textured_phases(c, tiles, profile_dir=None):
                                                   tex=tx_k), 50)
     log(f"[9] device ms (graph replay, {GRAPH_LAUNCHES} launches): textured "
         f"window march {t_march:.4f} (plain {t_march_p:.4f}), textured "
-        f"resolve {t_res:.4f} (plain {t_res_p:.4f}); yardstick: fill_ of "
-        f"the textured resolve's {13 * W * H / 1e6:.2f} MB of outputs "
-        f"{fill_ms(13 * W * H):.4f}")
+        f"resolve {t_res:.4f} (plain {t_res_p:.4f}); yardsticks: fill_ of "
+        f"the textured march's {8 * W * k_lim / 1e6:.2f} MB of outputs "
+        f"{fill_ms(8 * W * k_lim):.4f}, of the textured resolve's "
+        f"{13 * W * H / 1e6:.2f} MB {fill_ms(13 * W * H):.4f}")
     dists = c["dists"]
     steps = {
         "geometry": lambda i: crossing_geometry(p, width=W, cells_per_deg=CPD),
@@ -711,6 +721,126 @@ def edge_phase(dev):
         + "; ".join(names) + "; one key above either limit raises")
 
 
+def pcol_fscal(geo, p):
+    """The march wrappers' inputs from a crossing geometry: (W, 8) float32
+    per-column constants and the (4,) scalars."""
+    pcol = torch.stack([geo.a, geo.t, geo.e, geo.scale, geo.axis0.float(),
+                        geo.sign.float(), geo.j_dom.float(),
+                        torch.zeros_like(geo.a)], 1).contiguous()
+    return pcol, torch.stack([p.viewer_z, p.znear, p.zfar, p.curv])
+
+
+def march_edge_cases():
+    """(name, n, viewer i, j, az0, az1 deg, W, K, znear, zfar, what must
+    hold): the shapes and columns on which a march's thread mapping can go
+    wrong. ``what``: "j_dom" / "i_dom" (every column row- or column-
+    dominant), "mixed" (both within the first 32 columns), "edge" (columns
+    rewritten so that positions reach n-1 exactly), "far" (no valid sample
+    from step 32 on), or None."""
+    return [
+        ("W 1, K 1", 64, 31.4, 30.7, 10.0, 11.0, 1, 1, 10.0, 8000.0, None),
+        ("W 31, K 2", 64, 31.4, 30.7, -180.0, 180.0, 31, 2, 10.0, 8000.0,
+         None),
+        ("W 33, K 31", 64, 31.4, 30.7, -180.0, 180.0, 33, 31, 100.0, 8000.0,
+         None),
+        ("W 37, K 33, n 100", 100, 48.3, 51.9, -180.0, 180.0, 37, 33, 100.0,
+         8000.0, None),
+        ("W 37, K 129, n 100", 100, 48.3, 51.9, -180.0, 180.0, 37, 129,
+         100.0, 8000.0, None),
+        ("W 33, K 577, n 1210", 1210, 604.6, 605.2, -180.0, 180.0, 33, 577,
+         100.0, 60000.0, None),
+        ("octant boundary within 32 columns", 100, 50.2, 49.7, 38.0, 41.0,
+         37, 64, 100.0, 8000.0, "mixed"),
+        ("all row-dominant", 100, 50.2, 49.7, -10.0, 10.0, 64, 65, 100.0,
+         8000.0, "j_dom"),
+        ("all column-dominant", 100, 50.2, 49.7, 80.0, 100.0, 64, 65, 100.0,
+         8000.0, "i_dom"),
+        ("window across +-180 deg", 100, 50.2, 49.7, 170.0, -170.0, 40, 64,
+         100.0, 8000.0, None),
+        ("viewer in a corner", 100, 1.3, 97.8, -180.0, 180.0, 70, 129, 100.0,
+         20000.0, None),
+        ("viewer on a grid line", 64, 32.0, 20.0, -180.0, 180.0, 64, 64,
+         100.0, 8000.0, None),
+        ("pos reaches n-1", 64, 31.4, 30.7, -180.0, 180.0, 37, 64, 50.0,
+         8000.0, "edge"),
+        ("zfar within the first steps", 100, 50.2, 49.7, -180.0, 180.0, 96,
+         129, 100.0, 500.0, "far"),
+        ("znear above the first crossings", 100, 50.2, 49.7, -180.0, 180.0,
+         33, 129, 1000.0, 8000.0, None),
+    ]
+
+
+def march_edge_phase(dev):
+    """Phase 14: both march entries against the plain version at the edge
+    shapes, with cell and half-cell color planes, bitwise."""
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_plain,
+                                                            march_textured)
+    from horizonator_tpu_torch.render import make_params
+    from horizonator_tpu_torch.render.crossing import crossing_geometry
+    rng = np.random.default_rng(15)
+    names = []
+    for name, n, vi, vj, az0, az1, w, k, znear, zfar, what in \
+            march_edge_cases():
+        dem = torch.from_numpy((2000.0 * rng.random((n, n))).astype(
+            np.float32)).to(dev)
+        p = make_params(device=dev, viewer_cell_i=vi, viewer_cell_j=vj,
+                        viewer_z=900.0,
+                        cos_viewer_lat=math.cos(math.radians(LAT)),
+                        az_rad0=math.radians(az0), az_rad1=math.radians(az1),
+                        znear=znear, zfar=zfar, znear_color=znear,
+                        zfar_color=zfar, curv=6.8e-8)
+        geo = crossing_geometry(p, width=w, cells_per_deg=CPD)
+        pcol, fscal = pcol_fscal(geo, p)
+        if what == "edge":
+            # columns 0-3 march along line 0.., their position on it n-1
+            # at every step (t = 0) or exactly at step 10 (t = 0.5), as
+            # row- and as column-dominant columns
+            pcol[:4, 4], pcol[:4, 5] = 0.0, 1.0
+            pcol[:4, 0] = torch.tensor([n - 1.0, n - 1.0, n - 6.0, n - 6.0])
+            pcol[:4, 1] = torch.tensor([0.0, 0.0, 0.5, 0.5])
+            pcol[:4, 6] = torch.tensor([0.0, 1.0, 0.0, 1.0])
+        ref = march_plain(dem, pcol, fscal, k)
+        valid = ref > -1e30
+        jd = pcol[:32, 6] != 0.0
+        holds = {None: True, "mixed": bool(jd.any() and not jd.all()),
+                 "j_dom": bool((pcol[:, 6] != 0.0).all()),
+                 "i_dom": bool((pcol[:, 6] == 0.0).all()),
+                 "far": bool(valid[:, :32].any()
+                             and not valid[:, 32:].any())}
+        if what == "edge":
+            m = torch.arange(k, dtype=torch.float32, device=dev)[None, :]
+            at_edge = (pcol[:, :1] + m * pcol[:, 1:2] == n - 1.0) & valid
+            holds["edge"] = bool(at_edge[:4].any(1).all())
+        if not holds[what]:
+            fail(f"march edge case '{name}' does not show its edge")
+        got = march(dem, pcol, fscal, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"window march != plain at edge case '{name}': "
+                 f"{int((got != ref).sum())} samples differ")
+        for s in (1, 2):
+            colors = torch.from_numpy(rng.integers(
+                0, 1 << 24, (s * n, s * n), dtype=np.int32)).to(dev)
+            ref_t, ref_c = march_plain(dem, pcol, fscal, k, colors, s)
+            got_t, got_c = march_textured(dem, pcol, fscal, k, colors, s)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_t, ref) and torch.equal(ref_t, ref)):
+                fail(f"textured march (s {s}) samples != untextured at "
+                     f"edge case '{name}'")
+            if not torch.equal(got_c, ref_c):
+                fail(f"textured march (s {s}) colors != plain at edge case "
+                     f"'{name}': {int((got_c != ref_c).sum())} differ")
+            if (got_c[~valid] != 0).any():
+                fail(f"textured march (s {s}) colors an invalid sample at "
+                     f"edge case '{name}'")
+        names.append(f"{name} ({w}, {k}) {float(valid.float().mean()):.2f} "
+                     f"valid")
+    log("[14] window march and textured march (cell and half-cell planes) "
+        "== plain bitwise (samples incl. NEG_BIG, colors incl. 0 at invalid "
+        "samples) at: " + "; ".join(names))
+
+
 def cli_phase(tiles):
     """Phase 12: the CLI in-process on phase 6's tiles, then the API's
     horizon() and pick()."""
@@ -911,11 +1041,7 @@ def main(profile_dir=None):
         f"run of {RENDERS} with kernels: {run_kernel:.3f} ms each")
 
     # each kernel alone vs its plain version, at the main path's shapes
-    pcol = torch.stack([geo.a, geo.t, geo.e, geo.scale,
-                        geo.axis0.float(), geo.sign.float(),
-                        geo.j_dom.float(), torch.zeros_like(geo.a)],
-                       1).contiguous()
-    fscal = torch.stack([p.viewer_z, p.znear, p.zfar, p.curv])
+    pcol, fscal = pcol_fscal(geo, p)
     k_lim = tan_k.shape[1] - N_NEAR
     hl_march = cuda_ms_run(lambda i: march(dem, pcol, fscal, k_lim), HOST_LOOP)
     hl_res = cuda_ms_run(lambda i: resolve(y_k, H, amax, int_first),
@@ -932,8 +1058,17 @@ def main(profile_dir=None):
     log(f"[5] device ms (replay of a CUDA graph of {GRAPH_LAUNCHES} "
         f"launches, inputs warm in L2): window march {t_march:.4f} (plain "
         f"{t_march_p:.4f}), resolve {t_res:.4f} (plain {t_res_p:.4f}); "
-        f"yardstick: fill_ of the resolve's {9 * W * H / 1e6:.2f} MB of "
-        f"outputs {fill_ms(9 * W * H):.4f}")
+        f"yardsticks: fill_ of the march's {4 * W * k_lim / 1e6:.2f} MB of "
+        f"outputs {fill_ms(4 * W * k_lim):.4f}, of the resolve's "
+        f"{9 * W * H / 1e6:.2f} MB {fill_ms(9 * W * H):.4f}")
+
+    # the march's time against its step count: what a launch costs before
+    # its first sample, and what each further step tile adds
+    scan = {kk: graph_ms(lambda: march(dem, pcol, fscal, kk), GRAPH_LAUNCHES)
+            for kk in (64, 192, 384, k_lim, 2 * k_lim)}
+    log(f"[5] window march device ms by step count ({W} columns, "
+        f"{GRAPH_LAUNCHES} launches a graph): "
+        + ", ".join(f"K {kk}: {t:.4f}" for kk, t in scan.items()))
 
     # where the frame's time goes, step by step (kernel path)
     steps = {
@@ -1007,6 +1142,7 @@ def main(profile_dir=None):
     cli_phase(tiles)
     tiles_dir.cleanup()
     edge_phase(dev)
+    march_edge_phase(dev)
 
     kernels = [
         kernel_entry("window_march",

@@ -48,7 +48,7 @@ class horizonator:
                  render_radius_cells=-1, render_radius_m=-1.0,
                  *,
                  nsteps=None, surface="bilinear", refine=True,
-                 sampler="auto", device="cuda",
+                 oversample=1.5, sampler="auto", device="cuda",
                  texture_on_error="raise", texture_quality="hybrid",
                  exact_near_m=1200.0, curvature="none",
                  allow_dem_downloads=False, dem_url_fmt=None,
@@ -88,6 +88,9 @@ class horizonator:
         self._curv = geometry.curvature_coeff(curvature)
         self.surface = surface
         self.refine = bool(refine)
+        # the uniform-step sampler's steps per cell; stored as the JAX
+        # package stores it, unused by the window sampler
+        self.oversample = float(oversample)
         self._nsteps_fixed = nsteps
         self.device = torch.device(device)
         self.mosaic = load_mosaic(
@@ -191,6 +194,11 @@ class horizonator:
         horizonator-lib.c:838-856); the DEM stays on the device."""
         self.width = int(width)
         self.height = int(height)
+
+    @property
+    def cell_m_north(self) -> float:
+        return (geometry.EARTH_RADIUS_M * math.pi / 180.0
+                / self.mosaic.cells_per_deg)
 
     # -- static hints ---------------------------------------------------------
 

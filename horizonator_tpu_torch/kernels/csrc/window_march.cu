@@ -9,7 +9,8 @@
 //
 //   pos = fma(m, t, a), axis = axis0 + m*sign, d = (m + e) * scale
 //   z   = fma(h_hi, dem[floor(pos) + 1], h_lo * dem[floor(pos)])
-//         (along row `axis` for N/S rays, column `axis` for E/W rays)
+//         (along row `axis` for row-dominant columns, j_dom, and along
+//         column `axis` for the others)
 //   out = fma(-d, curv, (z - vz)/d), or NEG_BIG outside the grid or
 //         [znear, zfar]
 //
@@ -19,7 +20,8 @@
 // contracts in the JAX kernel (its `a + mf*t`, its hat accumulations
 // `acc + hat*w` and its curvature term `q - dm*curv`). The hat form's
 // non-support terms are exact zeros, so the sample equals the JAX kernel's
-// sum bit for bit.
+// sum bit for bit. The position is fma(m, t, a) from the integer step at
+// every sample, never a running sum.
 //
 // Textured entry: the same sample also reads two texels of a packed
 // 0x00RRGGBB (s*n, s*n) int32 plane, s = 1 (cell) or 2 (half-cell), at
@@ -29,13 +31,44 @@
 // window-relative (s*(pos - o) - r); with o an integer both subtractions are
 // exact, so the absolute form here gives the same weights.
 //
-// What bounds it on the H100: two 4-byte reads per sample from a DEM that
-// stays in the 50 MB L2 (46 MB at a 3400^2 grid), two more from the color
-// plane when textured (185 MB at the 6800^2 half-cell plane: those miss
-// L2); ~20 flops (textured: ~40). Threads run along the step axis of one
-// column, so N/S rays read along a row (near-contiguous) while E/W rays
-// stride by a whole row per step. A transposed copy for the E/W directions
-// is the later fix.
+// Thread mapping. A thread owns one image column; a warp is 32 adjacent
+// columns at ONE step. A block of 4 warps computes a tile of 32 columns x
+// 64 steps, warp w taking steps w, w + 4, ... of the tile. Adjacent columns
+// share axis0 and sign within an octant, so at step m a warp reads one
+// grid line: for row-dominant columns (address axis*n + r) its 32 taps lie
+// within a few cells of each other on one DEM row, one to eight 32-byte
+// sectors; for column-dominant columns (address r*n + axis) they lie on
+// one DEM column, one sector per distinct r (about a dozen at mid range).
+// A warp along 32 steps of one column would read 32 DEM rows per load for
+// the row-dominant half. The column's eight constants
+// are two 16-byte loads, made once and kept in registers for all 16 of the
+// thread's steps; the grid is 2-D (column tiles x step tiles), so no
+// thread divides. A thread takes its steps four at a time: first the four
+// positions, validity tests and (predicated) loads, then the arithmetic,
+// so eight DEM loads (sixteen with colors) are in flight per thread and no
+// sample's load waits behind another sample's division.
+//
+// Stores. The samples of a tile go into a padded shared array [64][33]
+// (a second one of int for the colors); after one barrier each warp writes
+// 32 consecutive steps of one column, 128 contiguous bytes per warp store
+// (whole 32-byte sectors wherever K allows), reading the array down a
+// column: the padding keeps both the row-wise writes and the column-wise
+// reads free of bank conflicts. Partial tiles (W % 32, K % 64) are
+// predicated: a thread outside W loads nothing and stores nothing but
+// reaches the barrier.
+//
+// What bounds it on the H100. The function's bytes (the DEM cells within
+// zfar, the columns' constants, the (W, K) outputs) are a few microseconds
+// at 3.35 TB/s, and the kernel is not held by them: variants without the
+// DEM loads or without the stores ran about as long. It is held by
+// instruction throughput and the length of a thread's dependent chain:
+// about 65 machine instructions per sample (six bounds tests, the hats,
+// the IEEE division, 64-bit index arithmetic), 16 samples per thread in
+// four rounds, behind a launch and a first load of the constants that
+// cost as much as a write-only pass over the outputs. PERF.md has the
+// times. A transposed copy of the DEM and the color plane for the
+// column-dominant half would take out sectors, which are not what holds
+// the kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +76,11 @@
 namespace {
 
 constexpr float NEG_BIG = -3.0e38f;
+constexpr int COLS = 32;            // columns of a tile: the lanes of a warp
+constexpr int STEPS = 64;           // steps of a tile
+constexpr int WARPS = 4;            // warps of a block
+constexpr int U = 4;                // steps whose loads are in flight together
+static_assert(STEPS % 32 == 0 && STEPS % (WARPS * U) == 0, "tile shape");
 
 __device__ __forceinline__ void hats(float x, float& fl, float& h_lo,
                                      float& h_hi) {
@@ -55,82 +93,128 @@ __device__ __forceinline__ void hats(float x, float& fl, float& h_lo,
 // pcol: (W, 8) float32 per column: a, t, e, scale, axis0, sign, j_dom, 0.
 // fscal: (4,) float32: viewer z, znear, zfar, curvature coefficient.
 template <bool TEX>
-__global__ void window_march_kernel(const float* __restrict__ dem, int n,
-                                    const int* __restrict__ colors, int s,
-                                    const float* __restrict__ pcol,
-                                    const float* __restrict__ fscal, int W,
-                                    int K, float* __restrict__ out,
-                                    int* __restrict__ tex_out) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)W * K) return;
-  const int w = (int)(idx / K);
-  const int m = (int)(idx - (long long)w * K);
-  const float* pc = pcol + 8 * w;
-  const float a = pc[0], t = pc[1], e = pc[2], scale = pc[3];
-  const float axis0 = pc[4], sgn = pc[5];
-  const bool j_dom = pc[6] != 0.0f;
-  const float vz = fscal[0], znear = fscal[1], zfar = fscal[2];
-  const float curv = fscal[3];
+__global__ void __launch_bounds__(32 * WARPS)
+window_march_kernel(const float* __restrict__ dem, int n,
+                    const int* __restrict__ colors, int s,
+                    const float* __restrict__ pcol,
+                    const float* __restrict__ fscal, int W, int K,
+                    float* __restrict__ out, int* __restrict__ tex_out) {
+  __shared__ float s_out[STEPS][COLS + 1];
+  __shared__ int s_tex[TEX ? STEPS : 1][COLS + 1];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int w0 = blockIdx.x * COLS, m0 = blockIdx.y * STEPS;
+  const int w = w0 + lane;
 
-  const float mf = (float)m;
-  const float pos = __fmaf_rn(mf, t, a);
-  const float axis_m = __fadd_rn(axis0, __fmul_rn(mf, sgn));
-  const float dm = __fmul_rn(__fadd_rn(mf, e), scale);
+  // the thread's column, for all of its steps
+  float4 c0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), c1 = c0;
+  if (w < W) {
+    c0 = __ldg(reinterpret_cast<const float4*>(pcol) + 2 * w);
+    c1 = __ldg(reinterpret_cast<const float4*>(pcol) + 2 * w + 1);
+  }
+  const float a = c0.x, t = c0.y, e = c0.z, scale = c0.w;
+  const float axis0 = c1.x, sgn = c1.y;
+  const bool j_dom = c1.z != 0.0f;
+  const float vz = __ldg(fscal), znear = __ldg(fscal + 1);
+  const float zfar = __ldg(fscal + 2), curv = __ldg(fscal + 3);
   const float hi = (float)(n - 1);
-  const bool valid = axis_m >= 0.0f && axis_m <= hi && pos >= 0.0f &&
-                     pos <= hi && dm >= znear && dm <= zfar;
-  float res = NEG_BIG;
-  int texv = 0;
-  if (valid) {
-    float fl, h_lo, h_hi;
-    hats(pos, fl, h_lo, h_hi);
-    const int r = (int)fl;
-    const int ax = (int)axis_m;
-    const long long step = j_dom ? 1 : n;
-    const long long i_lo =
-        j_dom ? (long long)ax * n + r : (long long)r * n + ax;
-    const float z_lo = __ldg(dem + i_lo);
-    // pos == n-1 exactly: the upper tap lies outside the grid with weight 0
-    const float z_hi = (r + 1 < n) ? __ldg(dem + i_lo + step) : 0.0f;
-    const float z = __fmaf_rn(h_hi, z_hi, __fmul_rn(h_lo, z_lo));
-    res = __fmaf_rn(-dm, curv, __fdiv_rn(__fsub_rn(z, vz), dm));
-    if (TEX) {
-      const int nc = s * n;
-      float flc, hc_lo, hc_hi;
-      hats(__fmul_rn(pos, (float)s), flc, hc_lo, hc_hi);
-      const int rc = (int)flc;
-      const int axc = s * ax;
-      const long long cstep = j_dom ? 1 : nc;
-      const long long c_lo_i =
-          j_dom ? (long long)axc * nc + rc : (long long)rc * nc + axc;
-      const int c_lo = __ldg(colors + c_lo_i);
-      // at s = 1 the tap past pos == n-1 is outside, as for the DEM
-      const int c_hi = (rc + 1 < nc) ? __ldg(colors + c_lo_i + cstep) : 0;
+  const unsigned nc = (unsigned)(s * n);
+  const unsigned step = j_dom ? 1u : (unsigned)n, cstep = j_dom ? 1u : nc;
+
+  // U steps at a time: first every step's position, validity and loads
+  // (no load waits for another), then the arithmetic on what arrived
+#pragma unroll 1
+  for (int i0 = 0; i0 < STEPS / WARPS; i0 += U) {
+    float pos[U], dm[U], z_lo[U], z_hi[U];
+    int c_lo[TEX ? U : 1], c_hi[TEX ? U : 1];
+    bool valid[U];
 #pragma unroll
-      for (int sh = 0; sh <= 16; sh += 8) {                 // B, G, R
-        const float v =
-            __fmaf_rn(hc_hi, (float)((c_hi >> sh) & 0xff),
-                      __fmul_rn(hc_lo, (float)((c_lo >> sh) & 0xff)));
-        texv |= (int)fminf(fmaxf(rintf(v), 0.0f), 255.0f) << sh;
+    for (int u = 0; u < U; ++u) {
+      const int m = m0 + warp + (i0 + u) * WARPS;
+      const float mf = (float)m;
+      pos[u] = __fmaf_rn(mf, t, a);
+      const float axis_m = __fadd_rn(axis0, __fmul_rn(mf, sgn));
+      dm[u] = __fmul_rn(__fadd_rn(mf, e), scale);
+      valid[u] = w < W && m < K && axis_m >= 0.0f && axis_m <= hi &&
+                 pos[u] >= 0.0f && pos[u] <= hi && dm[u] >= znear &&
+                 dm[u] <= zfar;
+      // the addresses of an invalid step are never used
+      const unsigned r = (unsigned)(int)floorf(pos[u]);
+      const unsigned ax = (unsigned)(int)axis_m;
+      const unsigned long long i_lo =
+          (unsigned long long)(j_dom ? ax : r) * (unsigned)n +
+          (j_dom ? r : ax);
+      z_lo[u] = valid[u] ? __ldg(dem + i_lo) : 0.0f;
+      // pos == n-1 exactly: the upper tap lies outside the grid with weight 0
+      z_hi[u] = (valid[u] && r + 1u < (unsigned)n) ? __ldg(dem + i_lo + step)
+                                                   : 0.0f;
+      if (TEX) {
+        const unsigned rc =
+            (unsigned)(int)floorf(__fmul_rn(pos[u], (float)s));
+        const unsigned axc = (unsigned)s * ax;
+        const unsigned long long ci =
+            (unsigned long long)(j_dom ? axc : rc) * nc + (j_dom ? rc : axc);
+        c_lo[u] = valid[u] ? __ldg(colors + ci) : 0;
+        // at s = 1 the tap past pos == n-1 is outside, as for the DEM
+        c_hi[u] = (valid[u] && rc + 1u < nc) ? __ldg(colors + ci + cstep) : 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int sl = warp + (i0 + u) * WARPS;
+      float fl, h_lo, h_hi;
+      hats(pos[u], fl, h_lo, h_hi);
+      const float z = __fmaf_rn(h_hi, z_hi[u], __fmul_rn(h_lo, z_lo[u]));
+      // an invalid step divides by 1 and its result is dropped
+      const float d = valid[u] ? dm[u] : 1.0f;
+      const float res = __fmaf_rn(-d, curv, __fdiv_rn(__fsub_rn(z, vz), d));
+      s_out[sl][lane] = valid[u] ? res : NEG_BIG;
+      if (TEX) {
+        float flc, hc_lo, hc_hi;
+        hats(__fmul_rn(pos[u], (float)s), flc, hc_lo, hc_hi);
+        int texv = 0;
+#pragma unroll
+        for (int sh = 0; sh <= 16; sh += 8) {                 // B, G, R
+          const float v =
+              __fmaf_rn(hc_hi, (float)((c_hi[u] >> sh) & 0xff),
+                        __fmul_rn(hc_lo, (float)((c_lo[u] >> sh) & 0xff)));
+          texv |= (int)fminf(fmaxf(rintf(v), 0.0f), 255.0f) << sh;
+        }
+        s_tex[sl][lane] = valid[u] ? texv : 0;
       }
     }
   }
-  out[idx] = res;
-  if (TEX) tex_out[idx] = texv;
+  __syncthreads();
+
+  // the transpose: a warp writes 32 consecutive steps of one column
+  for (int c = warp; c < COLS && w0 + c < W; c += WARPS) {
+    const long long row = (long long)(w0 + c) * K;
+#pragma unroll
+    for (int sb = 0; sb < STEPS; sb += 32) {
+      const int m = m0 + sb + lane;
+      if (m < K) {
+        out[row + m] = s_out[sb + lane][c];
+        if (TEX) tex_out[row + m] = s_tex[sb + lane][c];
+      }
+    }
+  }
 }
 
 template <bool TEX>
 int launch(const void* dem, int n, const void* colors, int s,
            const void* pcol, const void* fscal, int W, int K, void* out,
            void* tex, void* stream) {
-  const int threads = 256;
-  const long long total = (long long)W * K;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  if (total > 0) {
-    window_march_kernel<TEX><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)dem, n, (const int*)colors, s, (const float*)pcol,
-        (const float*)fscal, W, K, (float*)out, (int*)tex);
-  }
+  if (W <= 0 || K <= 0) return (int)cudaGetLastError();
+  const unsigned col_tiles = ((unsigned)W + COLS - 1) / COLS;
+  const unsigned step_tiles = ((unsigned)K + STEPS - 1) / STEPS;
+  // the step tiles ride on gridDim.y; the columns' constants are read as
+  // two 16-byte vectors
+  if (step_tiles > 65535u || ((uintptr_t)pcol & 15u))
+    return (int)cudaErrorInvalidValue;
+  window_march_kernel<TEX>
+      <<<dim3(col_tiles, step_tiles), dim3(32, WARPS), 0,
+         (cudaStream_t)stream>>>(
+          (const float*)dem, n, (const int*)colors, s, (const float*)pcol,
+          (const float*)fscal, W, K, (float*)out, (int*)tex);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,14 @@
 """Window march: far-field crossing samples, CUDA kernel + plain version.
 
 ``march`` launches ``csrc/window_march.cu`` for CUDA tensors and takes
-``march_plain`` only for CPU tensors. Both compute, per (column w, step m)
-of a square (n, n) DEM:
+``march_plain`` only for CPU tensors. The kernel gives a thread one column
+and a warp 32 adjacent columns at one step, so a warp's taps lie on one
+grid line; a block computes a tile of 32 columns x 64 steps into shared
+memory and writes it out transposed, 128 contiguous bytes per warp store.
+It is held by instruction throughput and the length of a sample's dependent
+chain (bounds tests, hats, an IEEE division), not by the bytes it moves;
+its source's header and PERF.md say how that was found. Both versions
+compute, per (column w, step m) of a square (n, n) DEM:
 
     pos = fma(m, t, a), axis = axis0 + m*sign, d = (m + e)*scale
     z   = fma(h_hi, dem[floor(pos)+1], h_lo*dem[floor(pos)])  (2 taps along

@@ -16,7 +16,9 @@ pixel between two neighbouring samples. So:
 - the images differ at <= 0.1% of pixels, by <= 1 in the red channel
   wherever both pixels are terrain (a sky flip is counted by the masks);
 - ranges agree to <= 1e-4 relative where both pixels are terrain, at all
-  but 0.1% of pixels (the flips above).
+  but 0.1% of pixels (the flips above);
+- with znear = 0 (the near band's first sample floored at 1 mm) the same
+  tolerances hold, and every tangent and resolve key of the port is finite.
 """
 
 import subprocess
@@ -35,6 +37,8 @@ from horizonator_tpu_torch import horizonator as THorizonator
 from horizonator_tpu_torch.dem import load_mosaic as t_load_mosaic
 from horizonator_tpu_torch.render import params_from_jax, render_panorama
 from horizonator_tpu_torch.render.crossing import k_cross_for
+from horizonator_tpu_torch.render.raymarch import horizon_rows
+from horizonator_tpu_torch.render.window import march_window
 from tests.conftest import make_synthetic_dem_dir
 from tests.test_torch_geometry import CPD, jax_params
 
@@ -108,6 +112,52 @@ def test_render_panorama_matches_jax(dem_dir, width, height, az0, az1, zfar):
     assert guard.tolist() == [0, 0]
     _compare(np.asarray(img_j), np.asarray(rng_j), img_t.numpy(),
              rng_t.numpy())
+
+
+def test_render_znear_zero_matches_jax(dem_dir):
+    """znear = 0: the near band starts at the viewer, its first sample's
+    distance floored at 1 mm, so no tangent divides by zero."""
+    m = j_load_mosaic(VIEW["lat"], VIEW["lon"], render_radius_cells=128,
+                      datadir=dem_dir)
+    dem = m.grid.astype(np.float32)
+    at = (VIEW["lat"], VIEW["lon"])
+    ci, cj = m.viewer_cell(*at)
+    jp = jax_params(ci, cj, m.auto_viewer_z(*at), znear=0.0, zfar=15000.0,
+                    lat=VIEW["lat"])
+    k = k_cross_for(15000.0, CPD, VIEW["lat"], n=dem.shape[0])
+    tp, td = params_from_jax(jp, "cpu"), torch.from_numpy(dem)
+    tanel, _, dists, _ = march_window(td, tp, width=256, k_cross=k,
+                                      cells_per_deg=CPD, lat_hint_deg=30.0)
+    assert int(dists.dropped) == 0 and int(dists.truncated) == 0
+    assert torch.isfinite(tanel).all() and (tanel[:, 0] > -1e30).all()
+    assert float(dists.d_of(torch.zeros(256, 1, dtype=torch.int64)).min()) \
+        == 0.0                   # the band really starts at the viewer
+    assert torch.isfinite(horizon_rows(tanel, tp, width=256,
+                                       height=96)).all()
+    kw = dict(width=256, height=96, nsteps=k, cells_per_deg=CPD,
+              lat_hint_deg=30.0)
+    img_j, rng_j = j_render(jnp.asarray(dem), jp, sampler="window", **kw)
+    img_t, rng_t, guard = render_panorama(td, tp, with_dropped=True, **kw)
+    assert guard.tolist() == [0, 0]
+    assert np.isfinite(rng_t.numpy()).all()
+    _compare(np.asarray(img_j), np.asarray(rng_j), img_t.numpy(),
+             rng_t.numpy())
+
+
+@pytest.mark.parametrize("oversample", [None, 2.5])
+def test_api_oversample_and_cell_m_north(dem_dir, oversample):
+    """oversample= is accepted and stored as the JAX package stores it
+    (the window sampler does not read it); cell_m_north is the same
+    property."""
+    kw = dict(dir_dems=dem_dir, render_radius_cells=64)
+    if oversample is not None:
+        kw["oversample"] = oversample
+    hj = JHorizonator(VIEW["lat"], VIEW["lon"], 64, 32, **kw)
+    ht = THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, device="cpu", **kw)
+    assert ht.oversample == hj.oversample == (oversample or 1.5)
+    assert isinstance(ht.oversample, float)
+    assert ht.cell_m_north == hj.cell_m_north
+    assert abs(ht.cell_m_north - 92.66) < 0.01      # SRTM3: 3 arc seconds
 
 
 def test_api_render_matches_jax(dem_dir):

@@ -14,7 +14,11 @@ Tolerances:
   use are XLA's choice, which moves an elevation by a few of its ulps;
 - the port's own full march (its own geometry, whose slopes differ by up
   to 4 ulp): visibility equal at >= 99.9% of samples, tangents within 1e-5
-  where both are valid, horizons within 1e-5.
+  where both are valid, horizons within 1e-5;
+- the edge shapes (the ones chip_smoke.py holds the CUDA kernel to against
+  the plain version): far-field samples bitwise, NEG_BIG included, wherever
+  the JAX kernel reports no dropped samples; far-field colors bitwise, 0
+  at invalid samples included (test_torch_textured's tolerance for them).
 """
 
 import functools
@@ -25,9 +29,12 @@ import numpy as np
 import pytest
 import torch
 
+from horizonator_tpu.render import texture as jtex
 from horizonator_tpu.render.crossing import crossing_geometry as j_geometry
 from horizonator_tpu.render.window import march_window as j_march
+from horizonator_tpu_torch.kernels.window_march import fma32
 from horizonator_tpu_torch.render import params_from_jax
+from horizonator_tpu_torch.render import texture as ttex
 from horizonator_tpu_torch.render import window as twin
 from horizonator_tpu_torch.render.crossing import k_cross_for
 from tests.test_torch_geometry import (CPD, geo_to_torch, jax_params,
@@ -135,6 +142,110 @@ def test_full_march_own_geometry(n, vi, vj, az0, az1, zfar, curv, width):
     both = vj_ & vt
     assert np.abs(tt[both] - jt[both]).max() < 1e-5
     np.testing.assert_allclose(tt.max(axis=1), jt.max(axis=1), atol=1e-5)
+
+
+@functools.partial(jax.jit, static_argnames=("width", "k", "znear_hint_m"))
+def _jax_march_tex(dem, p, planes, width, k, znear_hint_m=100.0):
+    tanel, _, dists, _, tex = j_march(dem, p, width=width, k_cross=k,
+                                      cells_per_deg=CPD, lat_hint_deg=34.0,
+                                      znear_hint_m=znear_hint_m,
+                                      color_planes=planes)
+    return tanel, tex, dists.dropped
+
+
+EDGE_CASES = [
+    # (id, n, vi, vj, az0, az1, width, k, znear, zfar, s, what); s: 0
+    # untextured, 1 packed cell planes, 2 half-cell planes; what must hold
+    # of the case: "mixed" (row- and column-dominant columns within the
+    # first 32), "j_dom" / "i_dom" (all of one kind), "edge" (a valid
+    # sample at pos == n-1 exactly), "far" (no valid sample from step 32 on)
+    ("W1-K1", 64, 31.4, 30.7, 10.0, 11.0, 1, 1, 10.0, 8000.0, 0, None),
+    ("W31-K2", 64, 31.4, 30.7, -180.0, 180.0, 31, 2, 10.0, 8000.0, 2, None),
+    ("W33-K31", 64, 31.4, 30.7, -180.0, 180.0, 33, 31, 100.0, 8000.0, 1,
+     None),
+    ("W37-K33-n100", 100, 48.3, 51.9, -180.0, 180.0, 37, 33, 100.0, 8000.0,
+     2, None),
+    ("W37-K129-n100", 100, 48.3, 51.9, -180.0, 180.0, 37, 129, 100.0, 8000.0,
+     1, None),
+    ("W33-K577-n700", 700, 349.6, 350.2, -180.0, 180.0, 33, 577, 100.0,
+     60000.0, 0, None),
+    ("octant-boundary", 100, 50.2, 49.7, 38.0, 41.0, 37, 64, 100.0, 8000.0,
+     2, "mixed"),
+    ("row-dominant", 100, 50.2, 49.7, -10.0, 10.0, 64, 65, 100.0, 8000.0, 1,
+     "j_dom"),
+    ("column-dominant", 100, 50.2, 49.7, 80.0, 100.0, 64, 65, 100.0, 8000.0,
+     2, "i_dom"),
+    ("across-180", 100, 50.2, 49.7, 170.0, -170.0, 40, 64, 100.0, 8000.0, 2,
+     None),
+    ("corner", 100, 1.3, 97.8, -180.0, 180.0, 70, 129, 100.0, 20000.0, 2,
+     None),
+    ("on-grid-line", 64, 32.0, 20.0, -180.0, 180.0, 64, 64, 100.0, 8000.0, 1,
+     None),
+    ("pos-reaches-n-1", 64, 20.0, 63.0, 80.0, 100.0, 33, 64, 50.0, 8000.0, 0,
+     "edge"),
+    ("pos-reaches-n-1-cell-planes", 64, 20.0, 63.0, 80.0, 100.0, 33, 64,
+     50.0, 8000.0, 1, "edge"),
+    ("pos-reaches-n-1-half-cell-planes", 64, 20.0, 63.0, 80.0, 100.0, 33, 64,
+     50.0, 8000.0, 2, "edge"),
+    ("zfar-within-first-steps", 100, 50.2, 49.7, -180.0, 180.0, 96, 129,
+     100.0, 500.0, 2, "far"),
+    ("znear-above-first-crossings", 100, 50.2, 49.7, -180.0, 180.0, 33, 129,
+     1000.0, 8000.0, 1, None),
+]
+
+
+@pytest.mark.parametrize("n,vi,vj,az0,az1,width,k,znear,zfar,s,what",
+                         [c[1:] for c in EDGE_CASES],
+                         ids=[c[0] for c in EDGE_CASES])
+def test_march_edge_shapes(n, vi, vj, az0, az1, width, k, znear, zfar, s,
+                           what):
+    """The plain march against the JAX kernel at the shapes and columns on
+    which a kernel's thread mapping can go wrong."""
+    dem = make_dem(n)
+    jp = jax_params(vi, vj, 900.0, az0=az0, az1=az1, zfar=zfar, znear=znear,
+                    curv=6.8e-8)
+    geo = geo_to_torch(_jax_geometry(jp, width))
+    hint = max(znear, 100.0)        # the near patch covers znear: no drops
+    kw = dict(k_cross=k, cells_per_deg=CPD, lat_hint_deg=34.0,
+              znear_hint_m=hint)
+    tp, td = params_from_jax(jp, "cpu"), torch.from_numpy(dem)
+    q = twin.N_NEAR
+    if s == 0:
+        jt, jdrop, _ = _jax_march(jnp.asarray(dem), jp, width, k,
+                                  znear_hint_m=hint)
+        tt, _ = twin.march_from_geometry(td, tp, geo, **kw)
+    else:
+        c = np.random.default_rng(n + k).integers(
+            0, 256, (3, s * n, s * n)).astype(np.float32)
+        jplanes = (jtex.prepare_color_planes(jnp.asarray(c)) if s == 2
+                   else jtex.pack_cell_colors(jnp.asarray(c)))
+        jt, jx, jdrop = _jax_march_tex(jnp.asarray(dem), jp, jplanes, width,
+                                       k, znear_hint_m=hint)
+        tt, _, tx = twin.march_from_geometry(
+            td, tp, geo, color_planes=ttex.scene_from_jax(jplanes)[0], **kw)
+        jx, tx = np.asarray(jx)[:, q:], tx.numpy()[:, q:]
+        np.testing.assert_array_equal(tx, jx)
+        assert (tx[np.asarray(jt)[:, q:] <= NEG] == 0).all()
+    assert int(jdrop) == 0
+    jt, tt = np.asarray(jt)[:, q:], tt.numpy()[:, q:]
+    assert tt.shape == (width, k)
+    np.testing.assert_array_equal(tt, jt)
+    valid = tt > NEG
+    jd = geo.j_dom.numpy()
+    if what == "mixed":
+        assert jd[:32].any() and not jd[:32].all()
+    elif what == "j_dom":
+        assert jd.all()
+    elif what == "i_dom":
+        assert not jd.any()
+    elif what == "far":
+        assert valid[:, :32].any() and not valid[:, 32:].any()
+    elif what == "edge":
+        m = torch.arange(k, dtype=torch.float32)[None, :]
+        pos = fma32(m, geo.t[:, None], geo.a[:, None]).numpy()
+        assert ((pos == n - 1.0) & valid).any()
+    else:
+        assert valid.any()
 
 
 def test_far_edge_crossings_not_truncated():
