@@ -6,7 +6,7 @@ then drive the main render path and the API on the card.
                                           # of the render into DIR
 
 Phases, in order; any failure raises and exits nonzero:
- 1. build both CUDA kernels from csrc/ (nvcc, sm_90a) and print the card;
+ 1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the card;
  2. window-march kernel vs its plain version at the bench shape (3400^2
     DEM of bench.py's formula, seed 7, 4096 columns, 360 deg, zfar 40 km):
     tangents bitwise equal, no dropped or truncated samples;
@@ -37,11 +37,18 @@ Phases, in order; any failure raises and exits nonzero:
     versions), each textured kernel's time and each step's;
 10. the API with hillshade=True on phase 6's tiles: both textured kernels
     launched, terrain gray-shaded;
-11. the roll-ceiling probes (benchmarks/profile_roll_ceiling.py's kernels)
-    at W 4096, m 1664, 40 stages: both kernels bitwise equal to their plain
-    versions there and at m 416 with tie-heavy kv keys; then the probe's
-    entry point, timed (CUDA events, back-to-back run), with the implied
-    merge floors printed beside phase 5's resolve time;
+11. the roll-ceiling probes (benchmarks/profile_roll_ceiling.py's kernels),
+    register kernels (m a multiple of 32 that the source instantiates) and
+    shared-memory kernels (any m): ptxas's registers for the register
+    kernels, no spills; both flavors on both paths bitwise equal to their
+    plain versions at W 4096, m 1664, 40 stages, at m 416 with tie-heavy kv
+    keys, and at the edge shapes (m 32, 96, 416, 1000, 1664, 2048 x W 1, 3,
+    4097 x 0, 1, 10, 13, 40, 45 stages x wide and tie-heavy keys, INT32_MIN
+    and INT32_MAX in every array; m 1000 takes the general path only); the
+    probe's entry point at m 1664 must launch the register kernels and at
+    m 1000 the shared-memory ones; both paths timed at the default shape,
+    the register kernels also at five stage counts, with the implied merge
+    floors printed beside phase 5's resolve time;
 12. the CLI in-process on phase 6's tiles: a 4096x1024 full circle to .pdf
     with --ranges .npy; both kernels launched, the ranges bitwise equal to
     the API's render, then the API's horizon() (march kernel) and a pick()
@@ -65,6 +72,10 @@ the timed region; the "host-loop ms" printed before it is the same wrapper
 called from a Python loop, which for kernels this short is the host's
 launch interval. The fill_ yardsticks are the device time of writing a
 kernel's outputs and nothing else.
+The probes' records: roll_minmax and roll_kv are the register kernels at
+the probe's default shape with the launches of its entry point there;
+roll_minmax_smem and roll_kv_smem are timed at the same shape, their
+launches those of the entry point at m 1000.
 Each kernel's record carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s and
 its operations over the card's rate for their type (float32 67 TFLOP/s;
@@ -75,6 +86,7 @@ output are the card, the kernels' JSON record and {"ok": true, ...}.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -103,11 +115,19 @@ FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # window_march.cu: position, axis, distance, bounds, hats, taps, tangent;
 # the textured entry adds the color hats and three channels
 MARCH_FLOPS, MARCH_TEX_FLOPS = 30, 60
-# int32 operations that the probes' function needs per lane and stage:
-# the lane mask, its test, the min or max and the select between them;
-# kv adds the compare of the new key with the old and the select of the
-# value (the partner index is the kernel's own bookkeeping, not counted)
-PROBE_OPS, PROBE_KV_OPS = 4, 6
+# int32 operations that the probes' function needs per lane and stage. The
+# lane mask and its test are constants once the stage and the lane's place
+# are known when the code is compiled, and the two lanes of a pair (i, i+d)
+# need one min and one max: 1. kv: one key compare per pair and four
+# selects (two keys, two values): 2.5. The partner index is bookkeeping.
+PROBE_OPS, PROBE_KV_OPS = 1, 2.5
+# phase 11's edge shapes: m with d >= m (d % m != d), one that is not a
+# multiple of 32 (the shared-memory kernels only), ragged W, stage counts
+# from none to more than four rounds of the ten shifts
+PROBE_EDGE_M = (32, 96, 416, 1000, 1664, 2048)
+PROBE_EDGE_W = (1, 3, 4097)
+PROBE_EDGE_STAGES = (0, 1, 10, 13, 40, 45)
+PROBE_GENERAL_M = 1000        # the probe's entry point on the general path
 
 
 def fail(msg):
@@ -553,79 +573,204 @@ def textured_phases(c, tiles, profile_dir=None):
     ]
 
 
-def probe_phase(int32_rate, resolve_ms):
-    """Phase 11: the roll-ceiling probes; returns their JSON entries."""
-    from horizonator_tpu_torch.benchmarks import profile_roll_ceiling as prc
-    from horizonator_tpu_torch.kernels.roll_ceiling import (roll_kv,
-                                                            roll_kv_plain,
-                                                            roll_minmax,
-                                                            roll_minmax_plain)
-    w, m, st = prc.W, PROBE_M, PROBE_STAGES
-    x = prc.probe_input(w, m)
-    rng = np.random.default_rng(11)
-    checks, err = {}, {"minmax": 0.0, "kv": 0.0}
-    for mm, keys in ((m, None), (416, 16)):
-        xr = (x if mm == m else torch.from_numpy(rng.integers(
-            -2 ** 31, 2 ** 31, (w, mm), dtype=np.int64).astype(
-                np.int32)).cuda())
-        k = xr if keys is None else torch.from_numpy(rng.integers(
-            0, keys, (w, mm), dtype=np.int64).astype(np.int32)).cuda()
-        v = xr + 1
-        got = [roll_minmax(xr, st), *roll_kv(k, v, st)]
-        ref = [roll_minmax_plain(xr, st), *roll_kv_plain(k, v, st)]
-        torch.cuda.synchronize()
-        for name, a, b in zip(("minmax", "kv keys", "kv values"), got, ref):
-            if not torch.equal(a, b):
-                fail(f"roll {name} (m {mm}) != plain: "
-                     f"{int((a != b).sum())} lanes differ")
-        err["minmax"] = max(err["minmax"], max_abs(got[0], ref[0]))
-        err["kv"] = max(err["kv"], max_abs(got[1], ref[1]),
-                        max_abs(got[2], ref[2]))
-        checks[mm] = float((got[2] != v).float().mean())
-    log(f"[11] roll_minmax and roll_kv (W {w}, {st} stages) == plain "
-        f"bitwise at m {m} (probe input) and m 416 (seeded, kv keys in "
-        f"0..15); kv values moved at {checks[m]:.3f} / {checks[416]:.3f} "
-        f"of lanes")
-    t_mm_p = cuda_ms_run(lambda i: roll_minmax_plain(x, st), 5, warmup=1)
-    t_kv_p = cuda_ms_run(lambda i: roll_kv_plain(x, x + 1, st), 5, warmup=1)
+def ptxas_table(nvcc_log):
+    """{kernel's mangled name: [registers, spill store bytes, spill load
+    bytes]} from the build's ``-Xptxas -v`` log."""
+    out, cur = {}, None
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), [0, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur[1:] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur[0] = int(m.group(1))
+    return out
 
-    # the probe's entry point is this path: counts from 0 around it
-    roll_minmax.launches = roll_kv.launches = 0
-    e_mm, t_mm = prc.run("minmax", w, m, st)
-    e_kv, t_kv = prc.run("kv", w, m, st)
-    launches = {"roll_minmax": roll_minmax.launches,
-                "roll_kv": roll_kv.launches}
-    if min(launches.values()) < 1:
-        fail(f"the probe skipped a kernel: {launches}")
+
+def probe_edge_inputs(gen, w, m, ties):
+    """Seeded (x, keys, values) (w, m) int32 on gen's device: full-range x
+    and values, keys full-range or in 0..15, and 3% of each array at
+    INT32_MIN and 3% at INT32_MAX."""
+    dev = gen.device
+    out = []
+    for lo, hi in ((-2 ** 31, 2 ** 31), (0, 16) if ties else
+                   (-2 ** 31, 2 ** 31), (-2 ** 31, 2 ** 31)):
+        a = torch.randint(lo, hi, (w, m), dtype=torch.int64, device=dev,
+                          generator=gen).to(torch.int32)
+        u = torch.rand((w, m), device=dev, generator=gen)
+        a[u < 0.03] = -2 ** 31
+        a[(u >= 0.03) & (u < 0.06)] = 2 ** 31 - 1
+        out.append(a)
+    return out
+
+
+def probe_phase(int32_rate, resolve_ms, nvcc_log):
+    """Phase 11: the roll-ceiling probes, both paths; returns their JSON
+    entries (what each holds: the module docstring)."""
+    from horizonator_tpu_torch.benchmarks import profile_roll_ceiling as prc
+    from horizonator_tpu_torch.kernels import roll_ceiling as rc
+    w, m, st = prc.W, PROBE_M, PROBE_STAGES
+    if not rc.register_path(m):
+        fail(f"m {m} does not take the register kernels")
+    if nvcc_log:
+        regs = {}
+        for name, (nreg, sst, sld) in ptxas_table(nvcc_log).items():
+            g = re.search(r"roll_regsILi(\d+)ELb([01])E", name)
+            if g:
+                regs[("kv" if g.group(2) == "1" else "minmax",
+                      int(g.group(1)))] = (nreg, sst, sld)
+        spills = {k: v for k, v in regs.items() if v[1] or v[2]}
+        if not regs or spills:
+            fail(f"register kernels: none in the ptxas log, or spills "
+                 f"{spills}")
+        log("[11] ptxas, register kernels (flavor R: registers): "
+            + ", ".join(f"{f} {r}: {v[0]}"
+                        for (f, r), v in sorted(regs.items()))
+            + "; no spills")
+    kernels = {"roll_minmax": (rc.roll_minmax, rc.roll_kv),
+               "roll_minmax_smem": (rc.roll_minmax_smem, rc.roll_kv_smem)}
+    err = {"roll_minmax": 0.0, "roll_kv": 0.0, "roll_minmax_smem": 0.0,
+           "roll_kv_smem": 0.0}
+
+    def check(xr, k, v, s, label):
+        """Both flavors on every path that serves m, against the plain
+        versions, bitwise; returns the paths checked."""
+        ref = [rc.roll_minmax_plain(xr, s), *rc.roll_kv_plain(k, v, s)]
+        paths = [p for p in kernels
+                 if p.endswith("smem") or rc.register_path(xr.shape[1])]
+        for path in paths:
+            mm_fn, kv_fn = kernels[path]
+            got = [mm_fn(xr, s), *kv_fn(k, v, s)]
+            torch.cuda.synchronize()
+            for what, a, b in zip(("minmax", "kv keys", "kv values"), got,
+                                  ref):
+                if not torch.equal(a, b):
+                    fail(f"{path} {what} != plain at {label}: "
+                         f"{int((a != b).sum())} lanes differ")
+            kv_name = path.replace("minmax", "kv")
+            err[path] = max(err[path], max_abs(got[0], ref[0]))
+            err[kv_name] = max(err[kv_name], max_abs(got[1], ref[1]),
+                               max_abs(got[2], ref[2]))
+        return paths, float((ref[2] != v).float().mean()) if v.numel() else 0
+
+    x = prc.probe_input(w, m)
+    dev = x.device
+    rng = np.random.default_rng(11)
+    x416 = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (w, 416),
+                                         dtype=np.int64).astype(np.int32))
+    k416 = torch.from_numpy(rng.integers(0, 16, (w, 416),
+                                         dtype=np.int64).astype(np.int32))
+    _, moved = check(x, x, x + 1, st, f"m {m}")
+    x416, k416 = x416.to(dev), k416.to(dev)
+    _, moved416 = check(x416, k416, x416 + 1, st, "m 416")
+    log(f"[11] roll_minmax and roll_kv (W {w}, {st} stages) == plain "
+        f"bitwise on both paths at m {m} (probe input) and m 416 (seeded, "
+        f"kv keys in 0..15); kv values moved at {moved:.3f} / "
+        f"{moved416:.3f} of lanes")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    served = {"roll_minmax": 0, "roll_minmax_smem": 0}
+    for mm in PROBE_EDGE_M:
+        for we in PROBE_EDGE_W:
+            for ties in (False, True):
+                xe, ke, ve = probe_edge_inputs(gen, we, mm, ties)
+                for s in PROBE_EDGE_STAGES:
+                    paths, _ = check(xe, ke, ve, s,
+                                     f"W {we}, m {mm}, {s} stages, "
+                                     f"{'tie' if ties else 'wide'} keys")
+                    for p in paths:
+                        served[p] += 1
+    log(f"[11] edge shapes: m {PROBE_EDGE_M} x W {PROBE_EDGE_W} x stages "
+        f"{PROBE_EDGE_STAGES} x keys wide and in 0..15, INT32_MIN and "
+        f"INT32_MAX in every array: == plain bitwise on the register path "
+        f"in {served['roll_minmax']} cases and the shared-memory path in "
+        f"{served['roll_minmax_smem']}")
+
+    t_mm_p = cuda_ms_run(lambda i: rc.roll_minmax_plain(x, st), 5, warmup=1)
+    t_kv_p = cuda_ms_run(lambda i: rc.roll_kv_plain(x, x + 1, st), 5,
+                         warmup=1)
+    counters = (rc.roll_minmax, rc.roll_kv, rc.roll_minmax_smem,
+                rc.roll_kv_smem)
+
+    def entry_point(mm):
+        """The probe's entry point at m mm, counts from 0 around it."""
+        for fn in counters:
+            fn.launches = 0
+        eps_ms = [prc.run(f, w, mm, st) for f in ("minmax", "kv")]
+        return eps_ms, {fn.__name__: fn.launches for fn in counters}
+
+    # the probe's entry point is this path: the default shape takes the
+    # register kernels, m PROBE_GENERAL_M the shared-memory ones
+    (run_mm, run_kv), launches = entry_point(m)
+    if min(launches["roll_minmax"], launches["roll_kv"]) < 1 or max(
+            launches["roll_minmax_smem"], launches["roll_kv_smem"]):
+        fail(f"the probe at m {m} did not take the register kernels: "
+             f"{launches}")
+    _, gen_launches = entry_point(PROBE_GENERAL_M)
+    if min(gen_launches["roll_minmax_smem"],
+           gen_launches["roll_kv_smem"]) < 1 or max(
+            gen_launches["roll_minmax"], gen_launches["roll_kv"]):
+        fail(f"the probe at m {PROBE_GENERAL_M} did not take the "
+             f"shared-memory kernels: {gen_launches}")
     log(f"[11] probe W {w} m {m} S {st}, host-loop ms (the entry point's "
         f"own timing: 16 wrapper calls from Python between two CUDA "
-        f"events): minmax {t_mm:.4f} ({e_mm / 1e9:.0f} G elem-stages/s), kv "
-        f"{t_kv:.4f} ({e_kv / 1e9:.0f} G elem-stages/s, 2 arrays); launches "
-        f"{launches}")
+        f"events): minmax {run_mm[1]:.4f} ({run_mm[0] / 1e9:.0f} G "
+        f"elem-stages/s), kv {run_kv[1]:.4f} ({run_kv[0] / 1e9:.0f} G "
+        f"elem-stages/s, 2 arrays); launches {launches}; at m "
+        f"{PROBE_GENERAL_M}: {gen_launches}")
     x1 = x + 1
-    t_mm = graph_ms(lambda: roll_minmax(x, st), PROBE_GRAPH_LAUNCHES)
-    t_kv = graph_ms(lambda: roll_kv(x, x1, st), PROBE_GRAPH_LAUNCHES)
-    e_mm, e_kv = (w * m * st * a / (t * 1e-3)
-                  for a, t in ((1, t_mm), (2, t_kv)))
-    log(f"[11] device ms (graph replay, {PROBE_GRAPH_LAUNCHES} launches): "
-        f"minmax {t_mm:.4f} ({e_mm / 1e9:.0f} G elem-stages/s; plain "
-        f"{t_mm_p:.4f} ms), kv {t_kv:.4f} ({e_kv / 1e9:.0f} G elem-stages/s; "
-        f"plain {t_kv_p:.4f} ms)")
+    calls = {"roll_minmax": lambda: rc.roll_minmax(x, st),
+             "roll_kv": lambda: rc.roll_kv(x, x1, st),
+             "roll_minmax_smem": lambda: rc.roll_minmax_smem(x, st),
+             "roll_kv_smem": lambda: rc.roll_kv_smem(x, x1, st)}
+    host = {n: cuda_ms_run(lambda i: fn(), HOST_LOOP) for n, fn in
+            calls.items()}
+    dev_ms = {n: graph_ms(fn, PROBE_GRAPH_LAUNCHES) for n, fn in
+              calls.items()}
+    lanes = w * m
+    work = {n: ((16, PROBE_KV_OPS) if "kv" in n else (8, PROBE_OPS))
+            for n in calls}
+    work = {n: (b * lanes, ops * lanes * st) for n, (b, ops) in work.items()}
+    bounds = {n: bound(*work[n], int32_rate) for n in calls}
+    log(f"[11] W {w} m {m} S {st}, device ms (graph replay, "
+        f"{PROBE_GRAPH_LAUNCHES} launches) / host-loop ms ({HOST_LOOP} "
+        f"calls) / share of the bound: " + ", ".join(
+            f"{n} {dev_ms[n]:.4f} / {host[n]:.4f} / "
+            f"{100 * bounds[n][0] / dev_ms[n]:.1f}% of {bounds[n][0]:.5f} "
+            f"({bounds[n][1]})" for n in calls)
+        + f"; plain minmax {t_mm_p:.4f}, kv {t_kv_p:.4f}; register path "
+        f"{dev_ms['roll_minmax_smem'] / dev_ms['roll_minmax']:.2f}x and "
+        f"{dev_ms['roll_kv_smem'] / dev_ms['roll_kv']:.2f}x the "
+        f"shared-memory path")
+    # the register kernels' time against their stage count: at 0 stages
+    # what moving the rows costs, from there what each stage adds
+    scan = {s: (graph_ms(lambda: rc.roll_minmax(x, s), PROBE_GRAPH_LAUNCHES),
+                graph_ms(lambda: rc.roll_kv(x, x1, s), PROBE_GRAPH_LAUNCHES))
+            for s in (0, 10, 40, 80, 160)}
+    log(f"[11] register kernels, device ms by stage count (W {w}, m {m}): "
+        + ", ".join(f"S {s}: minmax {a:.4f} kv {b:.4f}"
+                    for s, (a, b) in scan.items()))
+    e_mm, e_kv = (w * m * st * a / (dev_ms[n] * 1e-3)
+                  for a, n in ((1, "roll_minmax"), (2, "roll_kv")))
     for line in prc.floor_lines(e_mm, e_kv, w, m, resolve_ms):
         log(f"[11] {line} (phase 5)" if "measured" in line
             else f"[11] {line}")
-    lanes = w * m
     src = "horizonator_tpu_torch/kernels/csrc/roll_ceiling.cu"
-    return [
-        kernel_entry("roll_minmax", src,
-                     "benchmarks/profile_roll_ceiling.py:38",
-                     launches["roll_minmax"], err["minmax"], t_mm, t_mm_p,
-                     8 * lanes, PROBE_OPS * lanes * st, int32_rate),
-        kernel_entry("roll_kv", src,
-                     "benchmarks/profile_roll_ceiling.py:62",
-                     launches["roll_kv"], err["kv"], t_kv, t_kv_p,
-                     16 * lanes, PROBE_KV_OPS * lanes * st, int32_rate),
-    ]
+    out = []
+    for n in calls:
+        kv = "kv" in n
+        runs = gen_launches if n.endswith("smem") else launches
+        out.append(kernel_entry(
+            n, src, "benchmarks/profile_roll_ceiling.py:" + ("62" if kv
+                                                            else "38"),
+            runs[n], err[n], dev_ms[n], t_kv_p if kv else t_mm_p, *work[n],
+            int32_rate))
+    return out
 
 
 def resolve_edge_cases():
@@ -1138,7 +1283,7 @@ def main(profile_dir=None):
                resolve_bytes=resolve_bytes, resolve_ops=resolve_ops,
                int32_rate=int32_rate)
     tex_kernels = textured_phases(ctx, tiles, profile_dir)
-    probe_kernels = probe_phase(int32_rate, t_res)
+    probe_kernels = probe_phase(int32_rate, t_res, nvcc_log)
     cli_phase(tiles)
     tiles_dir.cleanup()
     edge_phase(dev)

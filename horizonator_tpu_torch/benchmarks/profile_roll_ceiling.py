@@ -10,6 +10,10 @@ exchange over a (W, m) int32 array, through the port's
 - ``kv``: the same on a key array with a value array following the key's
   exchanges (a textured merge's stage).
 
+Rows of m = 32 R lanes with R in the source's set (the default m 1664 is
+R 52) run on the register kernels, a warp per row; other m on the
+shared-memory kernels (``kernels/roll_ceiling.py``).
+
 Prints ms per call and G elem-stages/s (elem = one lane of one row of ONE
 array, so kv counts 2 arrays), then the implied resolve floor at 45
 stages. That floor is the ceiling a merge-based resolve of m lanes would be

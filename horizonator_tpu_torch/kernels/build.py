@@ -100,9 +100,13 @@ def library() -> ctypes.CDLL:
     lib.hz_resolve_tex.argtypes = [vp, vp, ci, ci, ci, cf, cf, ci, vp, vp,
                                    vp, vp, vp]
     lib.hz_resolve_tex.restype = ci
-    lib.hz_roll_minmax.argtypes = [vp, vp, ci, ci, ci, vp]
-    lib.hz_roll_minmax.restype = ci
-    lib.hz_roll_kv.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
-    lib.hz_roll_kv.restype = ci
+    for name in ("hz_roll_minmax", "hz_roll_minmax_smem"):
+        getattr(lib, name).argtypes = [vp, vp, ci, ci, ci, vp]
+        getattr(lib, name).restype = ci
+    for name in ("hz_roll_kv", "hz_roll_kv_smem"):
+        getattr(lib, name).argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+        getattr(lib, name).restype = ci
+    lib.hz_roll_regs.argtypes = [ci]
+    lib.hz_roll_regs.restype = ci
     return lib
 
