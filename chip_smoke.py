@@ -65,7 +65,31 @@ Phases, in order; any failure raises and exits nonzero:
     a grid line, positions that reach n-1 exactly, zfar below the second
     step tile, znear above the first crossings), with cell and half-cell
     color planes: samples and colors bitwise, NEG_BIG and the 0 color at
-    the invalid samples included.
+    the invalid samples included;
+15. the LOD scene, suite config 3's per-viewpoint shape: a seeded 3601^2
+    grid of bench.py's formula at cpd 3600, lat 34, viewer at the centre at
+    1200 m, 2048x512, 360 deg, zfar 300 km, lod_plan's five levels: the
+    pyramid on the card bitwise equal to the CPU's, each level's march
+    launch (on its crop, geometry and budget) and the resolve at K 1140
+    bitwise equal to their plain versions, the render bitwise equal to the
+    plain versions' render; median ms over 20 camera-moved renders, each
+    level's march and the resolve on the device clock, their in-frame
+    times under --profile;
+16. the textured LOD scene (config 9's shape): phase 15 with seeded
+    colors through build_color_pyramid, from (3, n, n) cell planes and
+    from a half-cell ColorPlanes2x level 0: each level's textured march
+    and the render bitwise equal to the plain versions, ranges bitwise
+    equal to phase 15's;
+17. the API and the CLI on one synthetic SRTM1 tile (N34W118) from 34.5 N,
+    117.5 W at 4096x1024 and the default zfar, which takes LOD (3 levels):
+    each level's march on the API's pyramid, params and plan, the resolve
+    at the API's K (about 1300) -> H 1024, and the render, bitwise equal to
+    their plain versions; skyline() against degrees(arctan(horizon()))
+    within 1e-4 deg, and their full-budget march (K 1600 over the whole
+    grid) bitwise equal to the plain version; a
+    debug_fill='wireframe' render under the swap; the CLI with --SRTM1 to
+    .pdf + --horizon-out .geojson, and headless --horizon-out .csv.
+Each phase group prints its seconds ("[t]" lines).
 A kernel's "device ms" (the ``ms`` of its record) is the replay time of a
 CUDA graph of back-to-back launches over their count, so no Python runs in
 the timed region; the "host-loop ms" printed before it is the same wrapper
@@ -79,8 +103,12 @@ launches those of the entry point at m 1000.
 Each kernel's record carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s and
 its operations over the card's rate for their type (float32 67 TFLOP/s;
-int32 64 per SM per clock at clocks.max.sm). The last lines of standard
-output are the card, the kernels' JSON record and {"ok": true, ...}.
+int32 64 per SM per clock at clocks.max.sm). The four render entries add
+their LOD records: ``lod_launches`` per LOD render (phase 15 or 16),
+``lod_ms`` (each level's march, or the resolve at K 1140, on the device
+clock) and ``lod_in_frame_ms`` (the same from the profiler inside real
+renders, under --profile; else null). The last lines of standard output
+are the card, the kernels' JSON record and {"ok": true, ...}.
 """
 
 import json
@@ -128,6 +156,13 @@ PROBE_EDGE_M = (32, 96, 416, 1000, 1664, 2048)
 PROBE_EDGE_W = (1, 3, 4097)
 PROBE_EDGE_STAGES = (0, 1, 10, 13, 40, 45)
 PROBE_GENERAL_M = 1000        # the probe's entry point on the general path
+# phases 15-16: suite config 3's (and 9's, textured) per-viewpoint shape,
+# an SRTM1 tile (3601^2, cpd 3600) to 300 km at 2048x512
+LOD_N, LOD_CPD, LOD_LAT, LOD_ZFAR = 3601, 3600, 34.0, 300000.0
+LOD_W, LOD_H = 2048, 512
+LOD_VZ = 1200.0
+LOD_LEVELS = 5                # lod_plan's levels at that shape
+SRTM1_LEVELS = 3              # phase 17's: SRTM1 at 40 km over 4096 columns
 
 
 def fail(msg):
@@ -248,15 +283,6 @@ def bound(nbytes, ops, ops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def disk_cells(n, vi, vj, zfar, lat):
-    """DEM cells within zfar of the viewer: the cells a march must read."""
-    cell_n = 6371000.0 * math.pi / 180.0 / CPD
-    cell_e = cell_n * math.cos(math.radians(lat))
-    i = (np.arange(n) - vi) * cell_e
-    j = (np.arange(n) - vj) * cell_n
-    return int((j[:, None] ** 2 + i[None, :] ** 2 <= zfar * zfar).sum())
-
-
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  nbytes, ops, ops_per_s):
     b_ms, b_by = bound(nbytes, ops, ops_per_s)
@@ -292,17 +318,26 @@ def write_tiles(d, lat0, lon0):
                           np.round(np.maximum(z, 0.0)).astype(np.int16))
 
 
-def profile_renders(fn, n, card, out_path, title, kernel_names):
+def profile_renders(fn, n, card, out_path, title, kernel_names,
+                    per_launch=None):
     """torch.profiler over n calls of fn(i), its table written to out_path;
     returns the device's busy ms per call and, for each of ``kernel_names``
     (substrings of the CUDA kernels' names), the mean device ms of that
-    kernel's launches inside those calls."""
+    kernel's launches inside those calls. ``per_launch``: a dict whose
+    values, lists, receive each launch's device ms of the kernel named by
+    their key, in launch order."""
     from torch.profiler import ProfilerActivity, profile as tprof
     with tprof(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    for name, durations in (per_launch or {}).items():
+        launches = sorted((e.time_range.start, e.self_device_time_total)
+                          for e in prof.events()
+                          if e.device_type == cuda and name in e.name)
+        durations.extend(us / 1e3 for _, us in launches)
     averages = prof.key_averages()
     table = averages.table(sort_by="self_cuda_time_total", row_limit=100)
     in_frame = {}
@@ -1041,6 +1076,520 @@ def cli_phase(tiles):
         f"{lon:.6f}), projects to column {px:.3f}")
 
 
+def annulus_cells(n, vi, vj, d_lo, d_hi, cell_n, lat):
+    """Cells of an (n, n) grid with cell size cell_n (north) whose distance
+    from the viewer lies in [d_lo - one cell diagonal, d_hi]: the cells a
+    march of that band must read (d_lo 0: the disk within zfar)."""
+    cell_e = cell_n * math.cos(math.radians(lat))
+    i = ((np.arange(n) - vi) * cell_e) ** 2
+    j = ((np.arange(n) - vj) * cell_n) ** 2
+    d2 = j[:, None] + i[None, :]
+    lo = max(0.0, d_lo - math.hypot(cell_n, cell_e))
+    return int(((d2 <= d_hi * d_hi) & (d2 >= lo * lo)).sum())
+
+
+def lod_level_marches(pyr, p, plan, cpyr=None, *, width=LOD_W,
+                      cpd=LOD_CPD, lat_hint=LOD_LAT, lat=LOD_LAT):
+    """Each level's window-march launch of a LOD render, on the crop,
+    geometry and budget that march_lod gives it, against the plain version:
+    samples (and colors) bitwise. Returns per level a dict of its shape,
+    its valid share, the bytes and operations of its bound, and ``call``,
+    the wrapper call, for timing. ``lat``: the viewer's, for the bound's
+    cell count."""
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_plain,
+                                                            march_textured)
+    from horizonator_tpu_torch.render import lod
+    from horizonator_tpu_torch.render.texture import ColorPlanes2x
+    from horizonator_tpu_torch.render.window import step_budget
+    levels = []
+    for spec in plan:
+        dem_c, p_c, colors_c, geo = lod.level_inputs(
+            pyr, p, spec, width=width, cells_per_deg=cpd,
+            lat_hint_deg=lat_hint, color_pyramid=cpyr)
+        pcol, fscal = pcol_fscal(geo, p_c)
+        c = dem_c.shape[0]
+        k_lim = step_budget(spec.k_lo + spec.k_len, c)
+        cell_n = 6371000.0 * math.pi / 180.0 / (cpd / 2 ** spec.level)
+        cells = annulus_cells(c, float(p_c.viewer_cell_i),
+                              float(p_c.viewer_cell_j), spec.d_lo,
+                              spec.d_hi, cell_n, lat)
+        lanes = width * k_lim
+        if colors_c is None:
+            def call(d=dem_c, pc=pcol, fs=fscal, k=k_lim):
+                return march(d, pc, fs, k)
+            ref, got = march_plain(dem_c, pcol, fscal, k_lim), call()
+            torch.cuda.synchronize()
+            same, valid = torch.equal(got, ref), ref > -1e30
+            nbytes, ops = 4 * cells + 4 * lanes, MARCH_FLOPS * lanes
+        else:
+            plane, s = ((colors_c.full_packed, 2)
+                        if isinstance(colors_c, ColorPlanes2x)
+                        else (colors_c, 1))
+
+            def call(d=dem_c, pc=pcol, fs=fscal, k=k_lim, pl=plane, ss=s):
+                return march_textured(d, pc, fs, k, pl, ss)
+            ref, got = march_plain(dem_c, pcol, fscal, k_lim, plane, s), call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            valid = ref[0] > -1e30
+            if (ref[1][~valid] != 0).any():
+                fail(f"LOD level {spec.level}: an invalid sample has a color")
+            nbytes = 4 * (1 + s * s) * cells + 8 * lanes
+            ops = MARCH_TEX_FLOPS * lanes
+        if not same:
+            fail(f"LOD level {spec.level} march (crop {c}, K {k_lim}, "
+                 f"{'textured' if colors_c is not None else 'untextured'})"
+                 f" != plain")
+        levels.append(dict(level=spec.level, crop=c, grid=pyr[
+            spec.level].shape[0], k=k_lim, band=(spec.d_lo, spec.d_hi),
+            valid=float(valid.float().mean()), call=call, bytes=nbytes,
+            ops=ops))
+    return levels
+
+
+def lod_timings(levels, tag):
+    """Graph-replay device ms of each level's march launch against its
+    bound; logs them and returns the list of ms."""
+    out = []
+    for lv in levels:
+        ms = graph_ms(lv["call"], GRAPH_LAUNCHES)
+        b_ms, b_by = bound(lv["bytes"], lv["ops"], FP32_OPS_PER_S)
+        out.append(ms)
+        log(f"[{tag}] level {lv['level']}: grid {lv['grid']}, crop "
+            f"{lv['crop']}, K {lv['k']}, band {lv['band'][0]:.0f}-"
+            f"{lv['band'][1]:.0f} m, valid {lv['valid']:.3f}; device ms "
+            f"{ms:.4f}, bound {b_ms:.5f} ({b_by}), share "
+            f"{100 * b_ms / ms:.1f}%")
+    return out
+
+
+def lod_phases(dev, card, int32_rate, profile_dir=None):
+    """Phases 15 and 16: the LOD scene at suite config 3's and 9's
+    per-viewpoint shape; returns {kernel name: LOD record} for the JSON
+    line."""
+    from horizonator_tpu_torch.kernels.resolve import (resolve,
+                                                       resolve_plain,
+                                                       resolve_textured)
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_textured)
+    from horizonator_tpu_torch.render import lod, make_params, \
+        render_panorama
+    from horizonator_tpu_torch.render.raymarch import (horizon_rows,
+                                                       resolve_to_image)
+    from horizonator_tpu_torch.render.resolve_window import alpha_quantum
+    from horizonator_tpu_torch.render.texture import prepare_color_planes
+    counters = (march, resolve, march_textured, resolve_textured)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts(*fns):
+        return {fn.__name__: fn.launches for fn in fns}
+
+    # -- 15. the LOD scene ---------------------------------------------------
+    t0 = time.perf_counter()
+    n = LOD_N
+    dem_np = bench_dem(seed=15, n=n)
+    plan = lod.lod_plan(LOD_ZFAR, LOD_W, LOD_CPD, LOD_LAT, n)
+    nlev = 1 + max(s.level for s in plan)
+    k_tot = 4 + sum(s.k_len for s in plan)
+    if len(plan) != LOD_LEVELS:
+        fail(f"LOD plan has {len(plan)} levels, not {LOD_LEVELS}: {plan}")
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dem = torch.from_numpy(dem_np).to(dev)
+    pyr = lod.build_pyramid(dem, nlev)
+    torch.cuda.synchronize()
+    pyr_mb = sum(x.nbytes for x in pyr[1:]) / 1e6
+    pyr_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e6
+    pyr_cpu = lod.build_pyramid(torch.from_numpy(dem_np), nlev)
+    for lvl, (a, b) in enumerate(zip(pyr, pyr_cpu)):
+        if not torch.equal(a.cpu(), b):
+            fail(f"pyramid level {lvl} on the card != on the CPU")
+
+    def lod_params(i=0):
+        return make_params(
+            device=dev, viewer_cell_i=n / 2 + 3 * i, viewer_cell_j=n / 2 - i,
+            viewer_z=LOD_VZ, cos_viewer_lat=math.cos(math.radians(LOD_LAT)),
+            az_rad0=math.radians(-180.0), az_rad1=math.radians(180.0),
+            znear=100.0, zfar=LOD_ZFAR, znear_color=100.0,
+            zfar_color=LOD_ZFAR)
+
+    p = lod_params()
+    levels = lod_level_marches(pyr, p, plan)
+    log(f"[15] LOD plan {LOD_W}x{LOD_H}, zfar {LOD_ZFAR:.0f} m, SRTM1 "
+        f"{n}^2: {len(plan)} levels, {k_tot} lanes; pyramid on the card == "
+        f"on the CPU bitwise ({pyr_mb:.1f} MB above the DEM, peak "
+        f"{pyr_peak:.1f} MB with it); each level's march == plain bitwise: "
+        + ", ".join(f"L{lv['level']} crop {lv['crop']} of {lv['grid']} K "
+                    f"{lv['k']}" for lv in levels))
+    rkw = dict(width=LOD_W, height=LOD_H, nsteps=1, cells_per_deg=LOD_CPD,
+               lat_hint_deg=LOD_LAT, sampler="lod", lod_plan=plan)
+    reset()
+    img, rng, guard = render_panorama(pyr, p, with_dropped=True, **rkw)
+    torch.cuda.synchronize()
+    launches = counts(march, resolve)
+    if launches != {"march": nlev, "resolve": 1}:
+        fail(f"LOD render launches {launches}, want {nlev} marches and one "
+             f"resolve")
+    vis = float((rng > 0).float().mean())
+    if guard.tolist() != [0, 0] or not 0.05 < vis < 0.95 \
+            or img.shape != (LOD_H, LOD_W, 3):
+        fail(f"bad LOD render: guard {guard.tolist()}, visible {vis}, "
+             f"{tuple(img.shape)}")
+    if float(rng.max()) < plan[2].d_lo:
+        fail(f"LOD render sees nothing past level 1's band: max range "
+             f"{float(rng.max())}")
+    img_p, rng_p = render_panorama(pyr, p, plain=True, **rkw)
+    if not (torch.equal(img, img_p) and torch.equal(rng, rng_p)):
+        fail("LOD kernel render != plain render")
+    tanel, _, _ = lod.march_lod(pyr, p, width=LOD_W, plan=plan,
+                                cells_per_deg=LOD_CPD, lat_hint_deg=LOD_LAT)
+    y_lod = horizon_rows(tanel, p, width=LOD_W, height=LOD_H).contiguous()
+    amax, int_first = alpha_quantum(y_lod.shape[1], LOD_H)
+    out_k = resolve(y_lod, LOD_H, amax, int_first)
+    out_p = resolve_plain(y_lod, LOD_H, amax, int_first)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        fail(f"LOD resolve at K {y_lod.shape[1]} != plain")
+    log(f"[15] LOD render: visible {vis:.4f}, max range "
+        f"{float(rng.max()):.0f} m, launches per render {launches}, image "
+        f"and ranges == plain-version render bitwise; resolve at "
+        f"{tuple(y_lod.shape)} -> H {LOD_H} == plain bitwise")
+    params = [lod_params(i) for i in range(RENDERS + 2)]
+    ms_lod = cuda_ms(lambda i: render_panorama(pyr, params[i], **rkw),
+                     RENDERS)
+    ms_lod_p = cuda_ms(lambda i: render_panorama(pyr, params[i], plain=True,
+                                                 **rkw), 5, warmup=1)
+    log(f"[15] LOD ms/viewpoint (median, CUDA events): kernels {ms_lod:.3f} "
+        f"over {RENDERS} camera-moved renders, plain versions "
+        f"{ms_lod_p:.3f} over 5")
+    # where the LOD frame's time goes, step by step (kernel path)
+    lkw = dict(width=LOD_W, cells_per_deg=LOD_CPD, lat_hint_deg=LOD_LAT)
+    _, dists_lod, az_lod = lod.march_lod(pyr, p, plan=plan, **lkw)
+    steps = {
+        "level inputs (band, crop gather, geometry), all levels":
+            lambda i: [lod.level_inputs(pyr, p, s, **lkw) for s in plan],
+        "march_lod (inputs, kernels, near band, guards, concat)":
+            lambda i: lod.march_lod(pyr, p, plan=plan, **lkw),
+        "row map (atan)":
+            lambda i: horizon_rows(tanel, p, width=LOD_W, height=LOD_H),
+        "resolve + tail (resolve_to_image)":
+            lambda i: resolve_to_image(tanel, dists_lod.d_of, az_lod, p,
+                                       width=LOD_W, height=LOD_H),
+    }
+    for name, fn in steps.items():
+        log(f"[15] step {name}: {cuda_ms(fn, 20):.4f} ms")
+    march_ms = lod_timings(levels, 15)
+    r_bytes = y_lod.nbytes + 9 * LOD_W * LOD_H
+    r_ops = LOD_W * (4 * y_lod.shape[1] + 12 * LOD_H)
+    res_ms = graph_ms(lambda: resolve(y_lod, LOD_H, amax, int_first),
+                      GRAPH_LAUNCHES)
+    b_ms, b_by = bound(r_bytes, r_ops, int32_rate)
+    log(f"[15] LOD resolve {tuple(y_lod.shape)} -> H {LOD_H}: device ms "
+        f"{res_ms:.4f}, bound {b_ms:.5f} ({b_by}), share "
+        f"{100 * b_ms / res_ms:.1f}%")
+    in_frame = {"march": None, "resolve": None}
+    if profile_dir:
+        per = {"window_march_kernel<false": [], "resolve_kernel<false": []}
+        out = os.path.join(profile_dir, "profile_render_lod.txt")
+        busy, _ = profile_renders(
+            lambda i: render_panorama(pyr, params[i], **rkw), 5, card, out,
+            f"5 LOD renders {LOD_W}x{LOD_H}", tuple(per), per)
+        m = per["window_march_kernel<false"]
+        in_frame = {"march": [statistics.mean(m[lv::nlev])
+                              for lv in range(nlev)],
+                    "resolve": statistics.mean(per["resolve_kernel<false"])}
+        log(f"[15] profile: device busy {busy:.3f} ms per LOD render of "
+            f"{ms_lod:.3f} ms ({100 * busy / ms_lod:.1f}%); in-frame device "
+            f"ms per level's march "
+            + ", ".join(f"L{lv} {t:.4f}" for lv, t in
+                        enumerate(in_frame["march"]))
+            + f", resolve {in_frame['resolve']:.4f}; table in {out}")
+    log(f"[t] phase 15: {time.perf_counter() - t0:.1f} s")
+
+    # -- 16. the textured LOD scene ------------------------------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    cells = torch.randint(0, 256, (3, n, n), generator=gen, device=dev,
+                          dtype=torch.uint8).float()
+    half = prepare_color_planes(torch.randint(
+        0, 256, (3, 2 * n, 2 * n), generator=gen, device=dev,
+        dtype=torch.uint8).float())
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cpyr = {"cell": lod.build_color_pyramid(cells, nlev, n),
+            "half-cell": lod.build_color_pyramid(half, nlev, n)}
+    torch.cuda.synchronize()
+    cpyr_peak = (torch.cuda.max_memory_allocated() - mem0) / 1e6
+    cpyr_mb = {k: sum(x.nbytes for x in v[1:]) / 1e6 for k, v in cpyr.items()}
+    del cells
+    tkw = dict(rkw, textured=True)
+    tex_levels = {}
+    for name, cp in cpyr.items():
+        tex_levels[name] = lod_level_marches(pyr, p, plan, cp)
+        reset()
+        img_t, rng_t, guard_t = render_panorama(pyr, p, color_planes=cp,
+                                                with_dropped=True, **tkw)
+        torch.cuda.synchronize()
+        t_launches = counts(march_textured, resolve_textured)
+        if t_launches != {"march_textured": nlev, "resolve_textured": 1}:
+            fail(f"textured LOD render ({name}) launches {t_launches}")
+        img_tp, rng_tp = render_panorama(pyr, p, color_planes=cp, plain=True,
+                                         **tkw)
+        if not (torch.equal(img_t, img_tp) and torch.equal(rng_t, rng_tp)):
+            fail(f"textured LOD kernel render ({name}) != plain render")
+        if not torch.equal(rng_t, rng) or guard_t.tolist() != [0, 0]:
+            fail(f"textured LOD ranges ({name}) != untextured, or guard "
+                 f"{guard_t.tolist()}")
+        if int(img_t[..., 1][rng_t > 0].to(torch.int64).sum()) == 0:
+            fail(f"textured LOD render ({name}) carries no green")
+        log(f"[16] textured LOD render ({name} level 0): launches "
+            f"{t_launches}, each level's textured march == plain bitwise, "
+            f"image and ranges == plain-version render bitwise, ranges == "
+            f"phase 15 bitwise")
+    cp = cpyr["half-cell"]
+    ms_tex = cuda_ms(lambda i: render_panorama(pyr, params[i],
+                                               color_planes=cp, **tkw),
+                     RENDERS)
+    ms_tex_p = cuda_ms(lambda i: render_panorama(
+        pyr, params[i], color_planes=cp, plain=True, **tkw), 5, warmup=1)
+    log(f"[16] textured LOD ms/viewpoint (half-cell level 0, median, CUDA "
+        f"events): kernels {ms_tex:.3f} over {RENDERS}, plain versions "
+        f"{ms_tex_p:.3f} over 5; color pyramids above level 0: cell "
+        f"{cpyr_mb['cell']:.1f} MB, half-cell {cpyr_mb['half-cell']:.1f} "
+        f"MB (peak {cpyr_peak:.1f} MB building both); half-cell level 0 "
+        f"{half.full_packed.nbytes / 1e6:.1f} MB")
+    tex_ms = lod_timings(tex_levels["half-cell"], 16)
+    tanel_t, _, _, tex = lod.march_lod(pyr, p, width=LOD_W, plan=plan,
+                                       cells_per_deg=LOD_CPD,
+                                       lat_hint_deg=LOD_LAT, color_pyramid=cp)
+    if not torch.equal(tanel_t, tanel):
+        fail("textured LOD tangents != untextured")
+    tres_ms = graph_ms(lambda: resolve_textured(y_lod, tex, LOD_H, amax,
+                                                int_first), GRAPH_LAUNCHES)
+    b_ms, b_by = bound(r_bytes + tex.nbytes + 4 * LOD_W * LOD_H,
+                       r_ops + LOD_W * LOD_H, int32_rate)
+    log(f"[16] textured LOD resolve {tuple(y_lod.shape)} -> H {LOD_H}: "
+        f"device ms {tres_ms:.4f}, bound {b_ms:.5f} ({b_by}), share "
+        f"{100 * b_ms / tres_ms:.1f}%")
+    t_in_frame = {"march": None, "resolve": None}
+    if profile_dir:
+        per = {"window_march_kernel<true": [], "resolve_kernel<true": []}
+        out = os.path.join(profile_dir, "profile_render_lod_textured.txt")
+        busy, _ = profile_renders(
+            lambda i: render_panorama(pyr, params[i], color_planes=cp,
+                                      **tkw), 5, card, out,
+            f"5 textured LOD renders {LOD_W}x{LOD_H}", tuple(per), per)
+        m = per["window_march_kernel<true"]
+        t_in_frame = {"march": [statistics.mean(m[lv::nlev])
+                                for lv in range(nlev)],
+                      "resolve": statistics.mean(per["resolve_kernel<true"])}
+        log(f"[16] profile: device busy {busy:.3f} ms per textured LOD "
+            f"render of {ms_tex:.3f} ms ({100 * busy / ms_tex:.1f}%); "
+            f"in-frame device ms per level's march "
+            + ", ".join(f"L{lv} {t:.4f}" for lv, t in
+                        enumerate(t_in_frame["march"]))
+            + f", resolve {t_in_frame['resolve']:.4f}; table in {out}")
+    log(f"[t] phase 16: {time.perf_counter() - t0:.1f} s")
+    del cpyr, cp, half, pyr, dem, tex
+    return {
+        "window_march": dict(lod_launches=launches["march"],
+                             lod_ms=march_ms,
+                             lod_in_frame_ms=in_frame["march"]),
+        "resolve": dict(lod_launches=launches["resolve"], lod_ms=res_ms,
+                        lod_in_frame_ms=in_frame["resolve"]),
+        "window_march_textured": dict(
+            lod_launches=t_launches["march_textured"], lod_ms=tex_ms,
+            lod_in_frame_ms=t_in_frame["march"]),
+        "resolve_textured": dict(
+            lod_launches=t_launches["resolve_textured"], lod_ms=tres_ms,
+            lod_in_frame_ms=t_in_frame["resolve"]),
+    }
+
+
+def write_srtm1_tile(d):
+    """One synthetic SRTM1 tile, N34W118: ridges and a peak NE of 34.5 N,
+    117.5 W."""
+    from horizonator_tpu_torch.dem import hgt
+    edge = hgt.SRTM1_EDGE
+    la = (35.0 - np.arange(edge) / (edge - 1))[:, None]
+    lo = (-118.0 + np.arange(edge) / (edge - 1))[None, :]
+    z = (700.0 + 600.0 * np.sin(lo * 9.1) * np.cos(la * 7.3)
+         + 250.0 * np.sin(lo * 41.0 + 0.7) * np.cos(la * 37.0)
+         + 1500.0 * np.exp(-((la - 34.62) ** 2 + (lo + 117.35) ** 2)
+                           / 0.004))
+    hgt.write_hgt(os.path.join(d, hgt.hgt_filename(34, -118)),
+                  np.round(np.maximum(z, 0.0)).astype(np.int16))
+
+
+def srtm1_phase(dev, int32_rate):
+    """Phase 17: the API and the CLI on an SRTM1 tile at the default zfar,
+    which needs the LOD march: each level's march, the resolve and the
+    render against their plain versions at the API's shapes; skyline
+    against horizon and its full-budget march against the plain version,
+    debug_fill, and --horizon-out with and without --image."""
+    import csv
+    from horizonator_tpu_torch import cli, horizonator
+    from horizonator_tpu_torch.kernels.resolve import (resolve,
+                                                       resolve_plain,
+                                                       resolve_textured)
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_plain,
+                                                            march_textured)
+    from horizonator_tpu_torch.render import lod, render_panorama
+    from horizonator_tpu_torch.render.crossing import crossing_geometry
+    from horizonator_tpu_torch.render.raymarch import horizon_rows
+    from horizonator_tpu_torch.render.resolve_window import alpha_quantum
+    from horizonator_tpu_torch.render.window import step_budget
+    t0 = time.perf_counter()
+    lat, lon = 34.5, -117.5
+    with tempfile.TemporaryDirectory() as td:
+        write_srtm1_tile(td)
+        h = horizonator(lat, lon, W, H, SRTM1=True, dir_dems=td, device=dev)
+        march.launches = resolve.launches = 0
+        img, rng = h.render(-180, 180)
+        launches = {"march": march.launches, "resolve": resolve.launches}
+        _, sampler, nsteps, plan, _ = h._batch_render_plan(100.0, 40000.0)
+        if sampler != "lod" or h._pyramid is None \
+                or len(plan) != SRTM1_LEVELS:
+            fail(f"SRTM1 API render at the default zfar did not take LOD: "
+                 f"{sampler}, {nsteps} steps, plan {plan}")
+        if launches != {"march": len(plan), "resolve": 1}:
+            fail(f"SRTM1 API render launches {launches}")
+        vis = float((rng > 0).mean())
+        if img.shape != (H, W, 3) or not 0.05 < vis < 0.95:
+            fail(f"bad SRTM1 API render {img.shape}, visible {vis}")
+        # the render's kernels against their plain versions, on the API's
+        # pyramid, params and plan
+        cpd = h.mosaic.cells_per_deg
+        p_api = h._params(-180.0, 180.0, 100.0, 40000.0, 100.0, 40000.0)
+        akw = dict(width=W, cells_per_deg=cpd, lat_hint_deg=h._lat_hint())
+        levels = lod_level_marches(h._pyramid, p_api, plan, width=W, cpd=cpd,
+                                   lat_hint=h._lat_hint(), lat=lat)
+        img_p, rng_p = render_panorama(
+            h._pyramid, p_api, height=H, nsteps=nsteps, surface=h.surface,
+            refine=h.refine, sampler="lod", lod_plan=plan,
+            znear_hint_m=h._znear_hint(100.0), plain=True, **akw)
+        if not (np.array_equal(img, img_p.cpu().numpy())
+                and np.array_equal(rng, rng_p.cpu().numpy())):
+            fail("SRTM1 API render != plain-version render")
+        tanel = lod.march_lod(h._pyramid, p_api, plan=plan, **akw)[0]
+        y_api = horizon_rows(tanel, p_api, width=W, height=H).contiguous()
+        amax, int_first = alpha_quantum(y_api.shape[1], H)
+        out_k = resolve(y_api, H, amax, int_first)
+        out_p = resolve_plain(y_api, H, amax, int_first)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+            fail(f"SRTM1 API resolve at {tuple(y_api.shape)} -> H {H} != "
+                 f"plain")
+        ms = cuda_ms(lambda i: h.render(-180 + i, 180 + i), 10, warmup=1)
+        pyr_mb = sum(x.nbytes for x in h._pyramid[1:]) / 1e6
+        log(f"[17] SRTM1 API render {W}x{H} of {h.mosaic.grid.shape} grid "
+            f"at the default zfar ({nsteps} crossing steps): LOD, "
+            f"{len(plan)} levels (" + ", ".join(
+                f"L{s.level} {s.d_lo:.0f}-{s.d_hi:.0f} m" for s in plan)
+            + f"), launches {launches}, visible {vis:.4f}; each level's "
+            f"march == plain bitwise (" + ", ".join(
+                f"L{lv['level']} crop {lv['crop']} of {lv['grid']} K "
+                f"{lv['k']}" for lv in levels)
+            + f"), resolve {tuple(y_api.shape)} -> H {H} == plain bitwise, "
+            f"image and ranges == plain-version render bitwise; {ms:.3f} ms "
+            f"per render (median of 10, outputs copied to the host); "
+            f"pyramid {pyr_mb:.1f} MB above the DEM")
+        lod_timings(levels, 17)
+        res_ms = graph_ms(lambda: resolve(y_api, H, amax, int_first),
+                          GRAPH_LAUNCHES)
+        b_ms, b_by = bound(y_api.nbytes + 9 * W * H,
+                           W * (4 * y_api.shape[1] + 12 * H), int32_rate)
+        log(f"[17] API resolve {tuple(y_api.shape)} -> H {H}: device ms "
+            f"{res_ms:.4f}, bound {b_ms:.5f} ({b_by}), share "
+            f"{100 * b_ms / res_ms:.1f}%")
+        march.launches = 0
+        sky = h.skyline(-180, 180)
+        _, tan_el = h.horizon(-180, 180)
+        el_err = float(np.abs(sky["el_deg"]
+                              - np.degrees(np.arctan(tan_el))).max())
+        if march.launches != 2:
+            fail(f"skyline and horizon launches {march.launches}, want 2")
+        if el_err > 1e-4 or not np.isfinite(sky["lat"]).all():
+            fail(f"skyline el_deg vs horizon: {el_err} deg")
+        # the skyline's march, the full budget over the whole grid
+        geo = crossing_geometry(p_api, width=W, cells_per_deg=cpd)
+        pcol, fscal = pcol_fscal(geo, p_api)
+        n = h._dem.shape[0]
+        k_sky = step_budget(nsteps, n)
+        got = march(h._dem, pcol, fscal, k_sky)
+        ref = march_plain(h._dem, pcol, fscal, k_sky)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"skyline march (grid {n}, K {k_sky}) != plain")
+        sky_ms = graph_ms(lambda: march(h._dem, pcol, fscal, k_sky),
+                          GRAPH_LAUNCHES)
+        cell_n = 6371000.0 * math.pi / 180.0 / cpd
+        ci, cj = h.mosaic.viewer_cell(lat, lon)
+        b_ms, b_by = bound(
+            4 * annulus_cells(n, ci, cj, 0.0, 40000.0, cell_n, lat)
+            + 4 * W * k_sky, MARCH_FLOPS * W * k_sky, FP32_OPS_PER_S)
+        log(f"[17] skyline(-180, 180) and horizon(): {W} columns, el_deg "
+            f"within {el_err:.2e} deg of degrees(arctan(tan_el)); horizon "
+            f"at {float(np.median(sky['dist_m'])):.0f} m (median); their "
+            f"march (grid {n}, K {k_sky}) == plain bitwise, valid "
+            f"{float((ref > -1e30).float().mean()):.3f}, device ms "
+            f"{sky_ms:.4f}, bound {b_ms:.5f} ({b_by}), share "
+            f"{100 * b_ms / sky_ms:.1f}%")
+        del got, ref, tanel, y_api, out_k, out_p, img_p, rng_p
+        march_textured.launches = resolve_textured.launches = 0
+        img_d, rng_d = h.render(-180, 180, zfar=30000.0,
+                                debug_fill="wireframe")
+        d_launches = {"march_textured": march_textured.launches,
+                      "resolve_textured": resolve_textured.launches}
+        g = img_d[rng_d > 0][:, 1].astype(np.int64)
+        if min(d_launches.values()) < 1 or g.max() < 150 or g.min() > 60:
+            fail(f"debug_fill render: launches {d_launches}, green "
+                 f"{g.min()}-{g.max()}")
+        log(f"[17] render(zfar 30 km, debug_fill='wireframe'): window "
+            f"sampler, launches {d_launches}, lattice green {g.max()} over "
+            f"terrain {g.min()}")
+        pdf, gj = os.path.join(td, "x.pdf"), os.path.join(td, "x.geojson")
+        march.launches = resolve.launches = 0
+        t1 = time.perf_counter()
+        rc = cli.main(["--SRTM1", "--dirdems", td, "--width", str(W),
+                       "--height", str(H), "--image", pdf, "--horizon-out",
+                       gj, str(lat), str(lon), "0", "180"])
+        cli_s = time.perf_counter() - t1
+        c_launches = {"march": march.launches, "resolve": resolve.launches}
+        with open(gj) as f:
+            coords = json.load(f)["features"][0]["geometry"]["coordinates"]
+        with open(pdf, "rb") as f:
+            head = f.read(5)
+        if rc != 0 or len(coords) != W or head != b"%PDF-":
+            fail(f"CLI --SRTM1 --image .pdf --horizon-out .geojson: rc {rc},"
+                 f" {len(coords)} coordinates, {head!r}")
+        if c_launches != {"march": len(plan) + 1, "resolve": 1}:
+            fail(f"CLI launches {c_launches}: want the LOD render's and the "
+                 f"skyline's")
+        csv_path = os.path.join(td, "x.csv")
+        rc2 = cli.main(["--SRTM1", "--dirdems", td, "--width", "1024",
+                        "--horizon-out", csv_path, str(lat), str(lon), "0",
+                        "180"])
+        with open(csv_path) as f:
+            rows = list(csv.reader(f))
+        if rc2 != 0 or len(rows) != 1025 or rows[0][0] != "az_deg":
+            fail(f"headless CLI --horizon-out .csv: rc {rc2}, {len(rows)} "
+                 f"rows")
+        log(f"[17] CLI --SRTM1 {W}x{H} -> .pdf + --horizon-out .geojson in "
+            f"{cli_s:.2f} s: rc 0, launches {c_launches} (LOD render + "
+            f"skyline), {len(coords)} coordinates; headless --horizon-out "
+            f".csv: rc 0, {len(rows) - 1} rows")
+    log(f"[t] phase 17: {time.perf_counter() - t0:.1f} s")
+
+
 def main(profile_dir=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1064,7 +1613,7 @@ def main(profile_dir=None):
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. build ---------------------------------------------------------
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     path, nvcc_s, nvcc_log = build.build()
     build.library()
     build_s = time.perf_counter() - t0
@@ -1268,7 +1817,8 @@ def main(profile_dir=None):
     # tangents; the resolve reads (W, K) rows and writes (W, H) idx,
     # alpha and ok (9 bytes), its operations those of a merge of K keys
     # against H thresholds per column (~4 per key, ~12 per row)
-    cells = disk_cells(N, N / 2, N / 2, ZFAR, LAT)
+    cells = annulus_cells(N, N / 2, N / 2, 0.0, ZFAR,
+                          6371000.0 * math.pi / 180.0 / CPD, LAT)
     march_bytes = 4 * cells + pcol.nbytes + fscal.nbytes + 4 * W * k_lim
     resolve_bytes = y_k.nbytes + 9 * W * H
     resolve_ops = W * (4 * y_k.shape[1] + 12 * H)
@@ -1282,12 +1832,26 @@ def main(profile_dir=None):
                disk_cells=cells, march_bytes=march_bytes,
                resolve_bytes=resolve_bytes, resolve_ops=resolve_ops,
                int32_rate=int32_rate)
+    log(f"[t] phases 1-6: {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
     tex_kernels = textured_phases(ctx, tiles, profile_dir)
+    log(f"[t] phases 7-10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     probe_kernels = probe_phase(int32_rate, t_res, nvcc_log)
+    log(f"[t] phase 11: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     cli_phase(tiles)
     tiles_dir.cleanup()
+    log(f"[t] phase 12: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     edge_phase(dev)
+    log(f"[t] phase 13: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     march_edge_phase(dev)
+    log(f"[t] phase 14: {time.perf_counter() - t0:.1f} s")
+    del ctx, dem, tan_k, tan_p, y_k, img, rng, img_p, rng_p
+    lod_records = lod_phases(dev, card, int32_rate, profile_dir)
+    srtm1_phase(dev, int32_rate)
 
     kernels = [
         kernel_entry("window_march",
@@ -1303,6 +1867,9 @@ def main(profile_dir=None):
         *tex_kernels,
         *probe_kernels,
     ]
+    for entry in kernels:     # the LOD render's launches of the same entry
+        entry.update(lod_records.get(entry["name"], {}))
+    log(f"[t] all phases: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,10 @@ the constructor loads the DEM window (and, for textured renders, the tile
 atlas and its color planes) and puts it on ``device``; render() is the
 repeatable path with a movable camera; pick() reads the last render's
 range image back to lat/lon, and horizon() gives the per-column horizon
-without an image. This port covers the window sampler, untextured,
-textured (``render_texture``) and hillshaded; cast shadows, debug fill
-modes, region sharding and long-clip LOD renders raise
+without an image, and skyline() the geolocated horizon ridgeline. This
+port covers the window sampler, untextured, textured (``render_texture``)
+and hillshaded, the debug lattice views (``debug_fill``), and the LOD march
+that long clip ranges swap to; cast shadows and region sharding raise
 NotImplementedError.
 """
 
@@ -23,15 +24,15 @@ import torch
 
 from . import geometry
 from .dem import load_mosaic, RADIUS_CELLS_DEFAULT_PY
-from .render import make_params, render_panorama
+from .render import lod, make_params, render_panorama
 from .render.crossing import k_cross_for
 from .render import texture
 from .render.window import march_window
 
 ZNEAR_DEFAULT = 100.0     # horizonator.h:9
 ZFAR_DEFAULT = 40000.0    # horizonator.h:10
-# the JAX package swaps renders needing more crossing steps than this to its
-# LOD march (api.py:648), which is not ported
+# render() swaps renders needing more crossing steps than this to the LOD
+# march, as the JAX package does (api.py:648)
 LOD_SWAP_NSTEPS = 1536
 
 
@@ -152,6 +153,11 @@ class horizonator:
         self.viewer_z = self.mosaic.auto_viewer_z(lat, lon)
         self.strict_coverage = bool(strict_coverage)
         self._last = None    # the last render's ranges and window, for pick()
+        # the LOD mip chains, built on the first render that swaps to LOD
+        self._pyramid = None
+        self._color_pyramid = None
+        self._debug_cp = None           # (mode, lattice planes)
+        self._warned_lod_hybrid = False
 
     def _put_color_planes(self, planes, scale):
         """Half-cell planes are packed once per scene (ColorPlanes2x);
@@ -163,11 +169,13 @@ class horizonator:
 
     # -- coverage guard -----------------------------------------------------
 
-    def _check_dropped(self, guard, what="render"):
+    def _check_dropped(self, guard, what="render", sampler="window"):
         """Warn (raise under strict_coverage) when the march reports
         ``dropped`` near-band samples outside the static patch or
         ``truncated`` columns whose march stopped short of zfar/the grid
-        edge (a manual nsteps= below k_cross_for's budget)."""
+        edge (a manual nsteps= below k_cross_for's budget; under the LOD
+        march, a plan or crop sized for a lat_hint_deg below the viewer's
+        latitude)."""
         n_drop, n_trunc = guard.tolist()
         if not (n_drop or n_trunc):
             return
@@ -177,7 +185,13 @@ class horizonator:
                 f"{n_drop} march samples exceeded the static window/patch "
                 f"and were masked (undersized lat_hint_deg/znear_hint_m "
                 f"for this scene)")
-        if n_trunc:
+        if n_trunc and sampler == "lod":
+            parts.append(
+                f"{n_trunc} image columns stopped marching short of their "
+                f"LOD bands, so their far samples were masked (lod_plan "
+                f"budgets and level crops sized for a lat_hint_deg below "
+                f"the viewer's latitude)")
+        elif n_trunc:
             parts.append(
                 f"{n_trunc} image columns stopped marching short of zfar/"
                 f"the grid edge, so their far samples were masked (manual "
@@ -206,6 +220,12 @@ class horizonator:
         # 10-degree buckets, as the JAX package's static hint
         return round(self.viewer_lat / 10.0) * 10.0
 
+    def _lat_plan_hint(self):
+        # the LOD plan's step budgets scale with 1/cell_e(lat): the
+        # bucket's worst-case |lat| can only over-budget them, and keeps
+        # the plan the same while the viewer stays in its bucket
+        return min(abs(self._lat_hint()) + 5.0, 85.0)
+
     @staticmethod
     def _znear_hint(znear):
         """znear rounded UP to a power of two (floor 128): sizes the static
@@ -229,6 +249,55 @@ class horizonator:
         return k_cross_for(zfar, self.mosaic.cells_per_deg, self.viewer_lat,
                            n=self.mosaic.grid.shape[0])
 
+    def _batch_render_plan(self, znear, zfar):
+        """(dem, sampler, nsteps, lod_plan, color_planes): renders that
+        need more than LOD_SWAP_NSTEPS crossing steps (e.g. SRTM1 at the
+        default 40 km) swap to the LOD march, whose step count grows with
+        log(zfar). Its DEM and colour mip chains are built on the first
+        such render and kept on the device; textured and hillshade renders
+        march their colour pyramid (api.py:635-669)."""
+        nsteps = self._auto_nsteps(znear, zfar)
+        cp = self._color_planes
+        if nsteps <= LOD_SWAP_NSTEPS:
+            return self._dem, "window", nsteps, None, cp
+        n = self.mosaic.grid.shape[0]
+        plan = lod.lod_plan(zfar, self.width, self.mosaic.cells_per_deg,
+                            self._lat_plan_hint(), n)
+        nlev = 1 + max(s.level for s in plan)
+        if self._pyramid is None or len(self._pyramid) < nlev:
+            self._pyramid = lod.build_pyramid(self._dem, nlev)
+        if cp is not None:
+            if self._color_pyramid is None or len(self._color_pyramid) < nlev:
+                self._color_pyramid = lod.build_color_pyramid(cp, nlev, n)
+            cp = self._color_pyramid
+        return self._pyramid, "lod", nsteps, plan, cp
+
+    _DEBUG_FILL_PITCH = 4
+
+    def _debug_planes(self, mode):
+        """(3, n, n) float32 B/G/R cell planes that draw the DEM lattice,
+        the reference's GLUT wireframe/point fill modes (standalone.c:
+        68-97): bright green grid lines ('wireframe') or nodes ('point')
+        every _DEBUG_FILL_PITCH cells over dark terrain, through the
+        textured path (api.py:456-486). Cached per mode."""
+        if mode not in ("wireframe", "point"):
+            raise ValueError(
+                f"debug_fill must be 'wireframe' or 'point', got {mode!r}")
+        if self._debug_cp is not None and self._debug_cp[0] == mode:
+            return self._debug_cp[1]
+        nj, ni = self._dem.shape
+        pitch = self._DEBUG_FILL_PITCH
+        jj = (np.arange(nj) % pitch) == 0
+        ii = (np.arange(ni) % pitch) == 0
+        on = (jj[:, None] | ii[None, :] if mode == "wireframe"
+              else jj[:, None] & ii[None, :])
+        base = np.full((nj, ni), 40.0, np.float32)
+        g = np.where(on, 255.0, base).astype(np.float32)
+        b = np.where(on, 0.0, base).astype(np.float32)
+        planes = torch.from_numpy(np.stack([b, g, b])).to(self.device)
+        self._debug_cp = (mode, planes)
+        return planes
+
     # -- the main entry point -------------------------------------------------
 
     def render(self, az_deg0, az_deg1, lat=None, lon=None,
@@ -241,10 +310,9 @@ class horizonator:
         (horizonator-pywrap.c:158-279). Returns (image, ranges) as numpy
         arrays, or one of them, or () if neither is asked for. image:
         (H, W, 3) uint8 BGR top-row-first; ranges: (H, W) float32 slant
-        meters, invisible = -1. ``debug_fill`` (the lattice debug views) is
-        not ported."""
-        if debug_fill is not None:
-            raise NotImplementedError("debug_fill is not ported")
+        meters, invisible = -1. ``debug_fill``: 'wireframe' or 'point'
+        renders the DEM lattice in place of the scene's colors (see
+        _debug_planes); window sampler only."""
         if znear_color < 0.0:
             znear_color = znear
         if zfar_color < 0.0:
@@ -269,24 +337,40 @@ class horizonator:
         elif ele_m is not None:
             self.viewer_z = float(ele_m)
 
-        nsteps = self._auto_nsteps(znear, zfar)
-        if nsteps > LOD_SWAP_NSTEPS:
-            raise NotImplementedError(
-                f"this render needs {nsteps} crossing steps; the JAX package "
-                f"renders it with the LOD march, which is not ported "
-                f"(shorten zfar or pass nsteps<={LOD_SWAP_NSTEPS})")
+        dem, sampler, nsteps, plan, cp = self._batch_render_plan(znear, zfar)
+        textured = self.render_texture
+        atlas, atlas_params = self._atlas, self._atlas_params
+        exact_near = self._exact_near_m
+        if sampler == "lod" and exact_near is not None:
+            # the LOD march has no hybrid near field, as in the JAX package
+            # (api.py:570), which drops it without a word
+            exact_near = None
+            if not self._warned_lod_hybrid:
+                self._warned_lod_hybrid = True
+                warnings.warn(
+                    f"render(): this clip range needs {nsteps} crossing "
+                    f"steps, so it renders through the LOD march, which has "
+                    f"no hybrid near field: near colors come from the "
+                    f"half-cell planes, not the z12 atlas (shorten zfar for "
+                    f"atlas-true near texels)", RuntimeWarning, stacklevel=2)
+        if debug_fill is not None:
+            if sampler != "window":
+                raise ValueError(
+                    f"debug_fill requires the window sampler (this render "
+                    f"planned sampler={sampler!r}, the auto-LOD long-clip "
+                    f"swap; shorten zfar for the debug view)")
+            cp = self._debug_planes(debug_fill)
+            textured, atlas, atlas_params, exact_near = True, None, None, None
         params = self._params(az_deg0, az_deg1, znear, zfar, znear_color,
                               zfar_color)
         image, ranges, guard = render_panorama(
-            self._dem, params, width=self.width, height=self.height,
+            dem, params, width=self.width, height=self.height,
             nsteps=nsteps, cells_per_deg=self.mosaic.cells_per_deg,
-            surface=self.surface, refine=self.refine,
-            textured=self.render_texture, atlas=self._atlas,
-            atlas_params=self._atlas_params,
-            lat_hint_deg=self._lat_hint(),
-            color_planes=self._color_planes,
+            surface=self.surface, refine=self.refine, textured=textured,
+            atlas=atlas, atlas_params=atlas_params, sampler=sampler,
+            lat_hint_deg=self._lat_hint(), lod_plan=plan, color_planes=cp,
             znear_hint_m=self._znear_hint(znear), with_dropped=True,
-            exact_near_m=self._exact_near_m)
+            exact_near_m=exact_near)
         # pick() reads the ranges; the host copy is made only when asked for
         ranges_np = ranges.cpu().numpy() if return_range else None
         self._last = dict(ranges=ranges_np, ranges_dev=ranges,
@@ -297,7 +381,7 @@ class horizonator:
             out.append(image.cpu().numpy())
         if return_range:
             out.append(ranges_np)
-        self._check_dropped(guard)
+        self._check_dropped(guard, sampler=sampler)
         return tuple(out) if len(out) > 1 else out[0]
 
     def _last_ranges(self):
@@ -342,6 +426,45 @@ class horizonator:
         self._check_dropped(torch.stack([dists.dropped, dists.truncated]),
                             "horizon")
         return out
+
+    def skyline(self, az_deg0, az_deg1, *, width=None,
+                znear=ZNEAR_DEFAULT, zfar=ZFAR_DEFAULT):
+        """The geolocated horizon ridgeline (api.py:858-940): a dict of
+        per-column float64 numpy arrays ``az_deg`` (pixel-centre
+        azimuths), ``el_deg`` (apparent elevation of the horizon),
+        ``dist_m`` (horizontal range to the horizon point) and ``lat`` /
+        ``lon`` (its position). Export with :mod:`..geojson` or the CLI's
+        ``--horizon-out``.
+
+        The horizon point is the march sample of greatest apparent
+        elevation at the full crossing budget (no LOD swap); among equal
+        ones the first, i.e. the nearest, as torch.argmax and jnp.argmax
+        both keep. It maps back through the march's distance table and
+        the tangent-plane geometry that pick() uses."""
+        width = self.width if width is None else int(width)
+        params = self._params(float(az_deg0), float(az_deg1), znear, zfar,
+                              znear, zfar)
+        tanel, _, dists, az = march_window(
+            self._dem, params, width=width,
+            k_cross=self._auto_nsteps(znear, zfar),
+            cells_per_deg=self.mosaic.cells_per_deg,
+            lat_hint_deg=self._lat_hint(),
+            znear_hint_m=self._znear_hint(znear))
+        idx = torch.argmax(tanel, dim=1)
+        tan_el = torch.take_along_dim(tanel, idx[:, None], dim=1)[:, 0]
+        d = dists.d_of(idx[:, None])[:, 0]
+        viewer = torch.tensor(
+            [self.viewer_lat, math.cos(math.radians(self.viewer_lat)),
+             self.viewer_lon], dtype=torch.float32, device=self.device)
+        lat, lon = geometry.en_to_latlon(d * torch.sin(az),
+                                         d * torch.cos(az), *viewer.unbind())
+        # one stacked device-to-host copy
+        out = torch.stack([az, torch.atan(tan_el), d, lat, lon]).cpu().numpy(
+            ).astype(np.float64)
+        self._check_dropped(torch.stack([dists.dropped, dists.truncated]),
+                            "skyline")
+        return {"az_deg": np.degrees(out[0]), "el_deg": np.degrees(out[1]),
+                "dist_m": out[2], "lat": out[3], "lon": out[4]}
 
     def __str__(self):
         return f"Looking out from {self.viewer_lat:.4f},{self.viewer_lon:.4f}"

@@ -14,12 +14,15 @@ validation messages and exit codes, and the reference tool's conventions
 - ``.png`` -> plain render; ``.pdf``/``.svg`` -> annotated render;
   ``--ranges`` also writes the range image.
 
+``--horizon-out`` also writes the geolocated skyline as .csv or GeoJSON;
+without ``--image`` it is the only output (the headless GIS mode).
+
 ``--device`` (default ``cuda``) picks where the render runs; the JAX CLI
 takes its backend from JAX_PLATFORMS instead. Flags whose code is not
-ported yet (``--viewshed``, ``--horizon-out``, ``--pois-out``,
-``--shadows``, ``--surface triangulated``, ``--allow-dem-downloads``, and
-the interactive viewer) exit with status 1 and a message naming the
-missing module.
+ported yet (``--viewshed``, ``--pois-out``, ``--shadows``, ``--surface
+triangulated``, ``--allow-dem-downloads``, ``--dem-url``, and the
+interactive viewer) exit with status 1 and a message naming the missing
+module.
 
 Usage: python -m horizonator_tpu_torch.cli [options] LAT LON AZ_C AZ_R
 """
@@ -89,8 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "f32 for any other extension")
     p.add_argument("--horizon-out", type=str, default=None,
                    dest="horizon_out", metavar="FILE",
-                   help="the geolocated skyline as .csv or GeoJSON (not "
-                        "ported: needs skyline)")
+                   help="also write the geolocated skyline ridgeline "
+                        "(per-column azimuth, apparent elevation, range, "
+                        "lat/lon of the horizon point) as .csv, or GeoJSON "
+                        "for any other extension. Works with --image or "
+                        "standalone (with --width)")
     p.add_argument("--pois", type=str, default=None,
                    help="peak list for .pdf/.svg annotation: a JSON file of "
                         "[{name, lat, lon, ele_m}] (replaces the reference's "
@@ -152,14 +158,14 @@ def _unported(args) -> str | None:
     """The first requested feature whose code the port lacks, as a message."""
     missing = [
         (args.viewshed is not None, "--viewshed", "ops/viewshed"),
-        (args.horizon_out is not None, "--horizon-out", "skyline"),
         (args.pois_out is not None, "--pois-out", "visible_peaks"),
         (args.shadows, "--shadows", "ops/shadows"),
         (args.surface == "triangulated", "--surface triangulated",
          "the uniform-step sampler"),
         (args.allow_dem_downloads, "--allow-dem-downloads",
          "the DEM downloader"),
-        (args.image is None, "interactive mode (no --image)", "viewer.py"),
+        (args.image is None and args.horizon_out is None,
+         "interactive mode (no --image)", "viewer.py"),
     ]
     for wanted, flag, module in missing:
         if wanted:
@@ -168,13 +174,64 @@ def _unported(args) -> str | None:
     return None
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    msg = _validate(args) or _unported(args)
-    if msg:
-        print(msg, file=sys.stderr)
-        return 1
+def _write_horizon(h, args, az_deg0, az_deg1) -> None:
+    """--horizon-out: the geolocated skyline as CSV or GeoJSON."""
+    from . import geojson as gj
+    sky = h.skyline(az_deg0, az_deg1, znear=args.znear, zfar=args.zfar)
+    if args.horizon_out.lower().endswith(".csv"):
+        gj.skyline_csv(sky, args.horizon_out)
+    else:
+        gj.skyline_geojson(sky, args.horizon_out, properties={
+            "viewer_lat": round(float(h.viewer_lat), 7),
+            "viewer_lon": round(float(h.viewer_lon), 7),
+            "viewer_ele_m": round(float(h.viewer_z), 1)})
 
+
+def _az_radius(args, width: int) -> float:
+    """AZ_RADIUS_DEG widened from pixel centres to the viewport's edges,
+    half a pixel on each side (standalone.c:400-404). AZ_RADIUS_DEG == 180
+    stays a FULL circle: the widened span would pass 360 deg, which the
+    azimuth window rewraps to a half-pixel-wide window facing
+    az_center+180, so it is clamped at exactly 360. Radii > 180 keep the
+    reference's rewrap."""
+    az_radius = args.az_radius_deg
+    az_radius += 2.0 * az_radius / (width - 1) / 2.0
+    if args.az_radius_deg <= 180.0:
+        az_radius = min(az_radius, 180.0)
+    return az_radius
+
+
+def _horizonator(args, width: int, height: int, **kw):
+    """The API instance for the flags, or None (after a message) where the
+    constructor reaches a code path that is not ported, e.g. --dem-url."""
+    from .api import horizonator
+    try:
+        return horizonator(args.lat, args.lon, width, height,
+                           SRTM1=args.SRTM1, dir_dems=args.dirdems,
+                           render_radius_m=args.zfar,   # standalone.c:437
+                           nsteps=args.nsteps, curvature=args.curvature,
+                           dem_url_fmt=args.dem_url_fmt, device=args.device,
+                           **kw)
+    except NotImplementedError as e:
+        print(f"not ported to horizonator_tpu_torch: {e}", file=sys.stderr)
+        return None
+
+
+def _gis_only(args) -> int:
+    """--horizon-out without --image: the vector output and no panorama."""
+    width = args.width if args.width > 0 else 1024
+    az_radius = _az_radius(args, width)
+    h = _horizonator(args, width,
+                     max(1, int(round(width * 20.0 / az_radius))))
+    if h is None:
+        return 1
+    _write_horizon(h, args, args.az_center_deg - az_radius,
+                   args.az_center_deg + az_radius)
+    return 0
+
+
+def _render_image(args) -> int:
+    """--image: one render to .png/.pdf/.svg (+ --ranges, --horizon-out)."""
     suffix = args.image.lower()[-4:]
     if suffix not in (".png", ".pdf", ".svg"):
         print("--image MUST be given a '.png' or '.pdf' or '.svg' filename",
@@ -191,16 +248,7 @@ def main(argv=None) -> int:
     znear_color = args.znear_color if args.znear_color > 0 else args.znear
     zfar_color = args.zfar_color if args.zfar_color > 0 else args.zfar
 
-    # pixel-center -> viewport-edge azimuths (standalone.c:400-404)
-    az_radius = args.az_radius_deg
-    az_per_pixel = 2.0 * az_radius / (args.width - 1)
-    az_radius += az_per_pixel / 2.0
-    # AZ_RADIUS_DEG == 180 stays a FULL circle: the half-pixel widening
-    # would push the span past 360 deg, which the azimuth window rewraps to
-    # a half-pixel-wide window facing az_center+180, so the widened span is
-    # clamped at exactly 360. Radii > 180 keep the reference's rewrap.
-    if args.az_radius_deg <= 180.0:
-        az_radius = min(az_radius, 180.0)
+    az_radius = _az_radius(args, args.width)
     az_deg0 = args.az_center_deg - az_radius
     az_deg1 = args.az_center_deg + az_radius
 
@@ -212,28 +260,17 @@ def main(argv=None) -> int:
         fovy_deg = 20.0
         height = int(round(args.width * fovy_deg / az_radius))
 
-    from .api import horizonator
-
-    try:
-        h = horizonator(args.lat, args.lon, args.width, height,
-                        render_texture=args.texture, SRTM1=args.SRTM1,
-                        dir_dems=args.dirdems, dir_tiles=args.dirtiles,
-                        tiles_name=tiles_name, tiles_url_fmt=tiles_url_fmt,
-                        allow_downloads=args.allow_downloads,
-                        render_radius_m=args.zfar,     # standalone.c:437
-                        nsteps=args.nsteps, curvature=args.curvature,
-                        dem_url_fmt=args.dem_url_fmt,
-                        hillshade=args.hillshade, sun_az_deg=args.sun_az,
-                        sun_alt_deg=args.sun_alt, sun_time=args.sun_time,
-                        device=args.device)
-        image, ranges = h.render(az_deg0, az_deg1,
-                                 znear=args.znear, zfar=args.zfar,
-                                 znear_color=znear_color,
-                                 zfar_color=zfar_color)
-    except NotImplementedError as e:
-        # e.g. SRTM1 at the default zfar needs the LOD march
-        print(f"not ported to horizonator_tpu_torch: {e}", file=sys.stderr)
+    h = _horizonator(args, args.width, height, render_texture=args.texture,
+                     dir_tiles=args.dirtiles, tiles_name=tiles_name,
+                     tiles_url_fmt=tiles_url_fmt,
+                     allow_downloads=args.allow_downloads,
+                     hillshade=args.hillshade, sun_az_deg=args.sun_az,
+                     sun_alt_deg=args.sun_alt, sun_time=args.sun_time)
+    if h is None:
         return 1
+    image, ranges = h.render(az_deg0, az_deg1, znear=args.znear,
+                             zfar=args.zfar, znear_color=znear_color,
+                             zfar_color=zfar_color)
 
     crop = args.cut_off_bottom_px
     if args.ranges:
@@ -257,7 +294,18 @@ def main(argv=None) -> int:
                  lat=h.viewer_lat, lon=h.viewer_lon,
                  az_deg0=az_deg0, az_deg1=az_deg1,
                  ele_m=h.viewer_z, curv=h._curv)
+    if args.horizon_out is not None:
+        _write_horizon(h, args, az_deg0, az_deg1)
     return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    msg = _validate(args) or _unported(args)
+    if msg:
+        print(msg, file=sys.stderr)
+        return 1
+    return _gis_only(args) if args.image is None else _render_image(args)
 
 
 if __name__ == "__main__":

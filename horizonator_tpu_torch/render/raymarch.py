@@ -72,7 +72,7 @@ def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
                     sampler: str = "window", lat_hint_deg: float = 45.0,
                     color_planes=None, znear_hint_m=100.0,
                     with_dropped: bool = False, exact_near_m=None,
-                    plain: bool = False):
+                    lod_plan=None, plain: bool = False):
     """Render one panorama from a square (n, n) float32 DEM tensor
     (dem[j, i], row 0 = SOUTH edge) on its device.
 
@@ -85,27 +85,56 @@ def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
     per-pixel gather of the packed ``atlas``. ``plain`` runs the kernels'
     plain PyTorch versions on any device.
 
+    ``sampler="lod"`` marches the bands of ``lod_plan`` (lod.lod_plan) on a
+    mip chain: ``dem`` is lod.build_pyramid's tuple or a grid (pooled
+    here), ``color_planes`` lod.build_color_pyramid's tuple or planes
+    (pooled here); ``nsteps`` and ``exact_near_m`` are not read.
+
     Returns (image (H, W, 3) uint8 BGR, ranges (H, W) float32), plus the
     (2,) int32 guard [dropped, truncated] under ``with_dropped``."""
-    if sampler != "window":
+    if sampler not in ("window", "lod"):
         raise NotImplementedError(f"sampler={sampler!r} is not ported; "
-                                  "only 'window' is")
+                                  "only 'window' and 'lod' are")
     if surface not in ("bilinear", "triangulated"):
         raise ValueError(f"unknown surface mode {surface!r}")
-    from .window import march_from_geometry
-    from .crossing import crossing_geometry
-    geo = crossing_geometry(params, width=width, cells_per_deg=cells_per_deg)
-    mkw = dict(k_cross=nsteps, cells_per_deg=cells_per_deg,
-               lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
-               plain=plain)
     tex_samples = None
-    if textured and color_planes is not None:
-        tanel, dists, tex_samples = march_from_geometry(
-            dem, params, geo, color_planes=color_planes, atlas=atlas,
-            atlas_params=atlas_params, exact_near_m=exact_near_m, **mkw)
+    if sampler == "lod":
+        from . import lod
+        from .texture import ColorPlanes2x
+        pyramid = (tuple(dem) if isinstance(dem, (tuple, list)) else
+                   lod.build_pyramid(dem, 1 + max(s.level for s in lod_plan)))
+        cpyr = None
+        if textured and color_planes is not None:
+            # a ColorPlanes2x is a (named) tuple too, but one level
+            cpyr = (tuple(color_planes)
+                    if isinstance(color_planes, (tuple, list))
+                    and not isinstance(color_planes, ColorPlanes2x) else
+                    lod.build_color_pyramid(color_planes, len(pyramid),
+                                            pyramid[0].shape[0]))
+        out = lod.march_lod(pyramid, params, width=width, plan=lod_plan,
+                            cells_per_deg=cells_per_deg,
+                            lat_hint_deg=lat_hint_deg,
+                            znear_hint_m=znear_hint_m, color_pyramid=cpyr,
+                            plain=plain)
+        tanel, dists, az = out[:3]
+        if cpyr is not None:
+            tex_samples = out[3]
     else:
-        tanel, dists = march_from_geometry(dem, params, geo, **mkw)
-    out = resolve_to_image(tanel, dists.d_of, geo.az, params, width=width,
+        from .window import march_from_geometry
+        from .crossing import crossing_geometry
+        geo = crossing_geometry(params, width=width,
+                                cells_per_deg=cells_per_deg)
+        az = geo.az
+        mkw = dict(k_cross=nsteps, cells_per_deg=cells_per_deg,
+                   lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
+                   plain=plain)
+        if textured and color_planes is not None:
+            tanel, dists, tex_samples = march_from_geometry(
+                dem, params, geo, color_planes=color_planes, atlas=atlas,
+                atlas_params=atlas_params, exact_near_m=exact_near_m, **mkw)
+        else:
+            tanel, dists = march_from_geometry(dem, params, geo, **mkw)
+    out = resolve_to_image(tanel, dists.d_of, az, params, width=width,
                            height=height, cells_per_deg=cells_per_deg,
                            refine=refine, textured=textured, atlas=atlas,
                            atlas_params=atlas_params,

@@ -393,7 +393,8 @@ def test_cli_validation_matches_jax(tmp_path, capsys, argv):
 
 UNPORTED = [
     (["--viewshed", "v.tif"], "ops/viewshed"),
-    (["--horizon-out", "h.csv"], "skyline"),
+    (["--horizon-out", "h.csv", "--dem-url", "http://example.invalid/%s"],
+     "dem_url_fmt"),
     (["--pois-out", "p.geojson", "--pois", "p.json"], "visible_peaks"),
     (["--hillshade", "--shadows"], "ops/shadows"),
     (["--surface", "triangulated"], "step sampler"),
@@ -417,24 +418,46 @@ def test_cli_unported_flags_exit(dem_dir, tmp_path, capsys, extra, module):
 
 
 def test_cli_not_ported_render_exits(dem_dir, tmp_path, capsys):
-    """A render that needs the LOD march exits with the API's message."""
+    """A render whose scene set-up is not ported (a DEM download URL) exits
+    with the API's message and writes nothing."""
     rc = tcli.main(["--device", "cpu", "--width", "64", "--image",
                     str(tmp_path / "x.png"), "--dirdems", dem_dir,
-                    "--nsteps", "2048", "34.40", "-117.45", "0", "60"])
-    assert rc == 1 and "LOD" in capsys.readouterr().err
+                    "--dem-url", "http://example.invalid/%s", "34.40",
+                    "-117.45", "0", "60"])
+    err = capsys.readouterr().err
+    assert rc == 1 and "not ported" in err and "dem_url_fmt" in err
+    assert not (tmp_path / "x.png").exists()
+
+
+def test_cli_lod_render_matches_jax(dem_dir, tmp_path):
+    """A render that needs more than LOD_SWAP_NSTEPS crossing steps swaps
+    to the LOD march in both CLIs (it exited 1 before the port had one)."""
+    res = _run_both(tmp_path, "lod.png", [
+        "--width", "300", "--height", "100", "--image", "{out}", "--ranges",
+        "{out}.npy", "--dirdems", dem_dir, "--nsteps", "2048", "34.40",
+        "-117.45", "0", "60"])
+    (rj, dj, _), (rt, dt, _) = res["jax"], res["torch"]
+    assert rj == rt == 0
+    _compare(_png_bgr(dj / "lod.png"), np.load(dj / "lod.png.npy"),
+             _png_bgr(dt / "lod.png"), np.load(dt / "lod.png.npy"))
 
 
 def test_cli_runs_without_jax(dem_dir, tmp_path):
-    """The port's CLI, annotator and probe import no JAX and nothing of
-    horizonator_tpu, as `python -m horizonator_tpu_torch.cli` runs them."""
+    """The port's CLI, annotator, LOD march, geojson writer and probe import
+    no JAX and nothing of horizonator_tpu, as `python -m
+    horizonator_tpu_torch.cli` runs them."""
     code = f"""
 import sys
 from horizonator_tpu_torch import cli
 from horizonator_tpu_torch.benchmarks import profile_roll_ceiling
 rc = cli.main(["--device", "cpu", "--width", "96", "--height", "32",
                "--image", {str(tmp_path / "p.pdf")!r}, "--dirdems",
-               {dem_dir!r}, "--zfar", "20000", "34.40", "-117.45", "0", "60"])
+               {dem_dir!r}, "--zfar", "20000", "--nsteps", "2048",
+               "--horizon-out", {str(tmp_path / "h.geojson")!r}, "34.40",
+               "-117.45", "0", "60"])
 assert rc == 0
+assert "horizonator_tpu_torch.render.lod" in sys.modules
+assert "horizonator_tpu_torch.geojson" in sys.modules
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m.startswith("horizonator_tpu.") or m == "horizonator_tpu"
                for m in sys.modules)
@@ -450,3 +473,4 @@ print("ok")
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
     assert (tmp_path / "p.pdf").read_bytes().startswith(b"%PDF")
+    assert json.loads((tmp_path / "h.geojson").read_text())["features"]

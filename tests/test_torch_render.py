@@ -191,10 +191,10 @@ def test_api_guard_and_unported(dem_dir):
                 {"region_mesh": "auto"}):
         with pytest.raises(NotImplementedError):
             THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, **kw, **bad)
-    # a long clip that the JAX package would send to its LOD march
-    with pytest.raises(NotImplementedError, match="LOD"):
-        THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, nsteps=2048,
-                     **kw).render(-60, 60)
+    # a long clip swaps to the LOD march, as in the JAX package
+    hl = THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, nsteps=2048, **kw)
+    _, rng = hl.render(-60, 60)
+    assert hl._pyramid is not None and (rng > 0).any()
     with pytest.raises(NotImplementedError):
         render_panorama(torch.zeros(8, 8), None, width=8, height=8,
                         nsteps=64, cells_per_deg=CPD, sampler="step")

@@ -428,8 +428,10 @@ def test_api_textured_options(dem_dir, tmp_path):  # noqa: F811
     assert vis.any()
     # flat gray placeholder tiles: 0.7 * 200 in B and G
     assert (np.abs(img[vis][:, :2].astype(int) - 140) <= 1).all()
-    with pytest.raises(NotImplementedError):
-        h.render(-60, 60, debug_fill="wireframe")
+    with pytest.raises(ValueError, match="debug_fill"):
+        h.render(-60, 60, debug_fill="solid")
+    img_d, rng_d = h.render(-60, 60, zfar=8000.0, debug_fill="wireframe")
+    assert np.array_equal(rng_d, rng) and not np.array_equal(img_d, img)
     hs = THorizonator(*args, hillshade=True, sun_time="2024-06-21T19:30:00",
                       **kw)
     assert 0.0 < hs.sun_alt_deg < 90.0
