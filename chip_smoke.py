@@ -4,6 +4,11 @@ then drive the main render path and the API on the card.
     python3 chip_smoke.py                 # one CUDA card; exit 0 = all pass
     python3 chip_smoke.py --profile DIR   # also write a torch.profiler table
                                           # of the render into DIR
+    python3 chip_smoke.py --time-march ROOT TAG
+        # only: time both march entries of the package under the tree ROOT
+        # at the bench shape (64-launch graphs, median of 7) and print
+        # ptxas's lines for them; run twice per tree (parent, change,
+        # change, parent) to compare two trees in one call
 
 Phases, in order; any failure raises and exits nonzero:
  1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the card;
@@ -88,7 +93,36 @@ Phases, in order; any failure raises and exits nonzero:
     within 1e-4 deg, and their full-budget march (K 1600 over the whole
     grid) bitwise equal to the plain version; a
     debug_fill='wireframe' render under the swap; the CLI with --SRTM1 to
-    .pdf + --horizon-out .geojson, and headless --horizon-out .csv.
+    .pdf + --horizon-out .geojson, and headless --horizon-out .csv;
+18. both march entries with a batch axis against the batched plain version
+    at B 1, 2, 3 and 65 (W 37, K 129; one DEM shared by the batch and one
+    per viewpoint; cell and half-cell planes, shared and per viewpoint;
+    viewpoints that differ in position, window, viewer_z, znear, zfar and
+    curvature), bitwise, and each viewpoint against its unbatched launch;
+    a batch of 330 at (4096, 1600), whose outputs pass 2^31 elements, its
+    last viewpoints against unbatched launches;
+19. suite config 4 (benchmarks/suite.py:145): a 60-frame path at
+    1920x480 (az -60+0.5i..60+0.5i, viewer (1700+3i, 1700+2i), zfar 40 km)
+    over the bench scene through render_path: one launch of each kernel
+    for the batch, the batch bitwise equal to the plain versions' batch and
+    to the 60 single renders; ms per frame batched and in a loop of single
+    renders; the batched march and resolve on the device clock against
+    bounds that count the batch's own bytes (the DEM cells as the union
+    that the batch reaches, read once); peak memory, chunks;
+20. suite config 8 (suite.py:288): phase 19 with seeded half-cell colours,
+    ranges bitwise equal to phase 19's;
+21. suite configs 3 and 9 (suite.py:122, :323): 64 LOD viewpoints (3601^2,
+    cpd 3600, lat 34, 1200 m, 2048x512, zfar 300 km, viewer_cell_i = n/2 +
+    13i) through render_path(sampler="lod"), untextured and with seeded
+    cell colours: each level's batched march on the viewpoints' crops and
+    the resolve at (64 * 2048, 1144) -> 512 bitwise against their plain
+    versions, the batch against its plain versions and 64 single renders;
+    times, bounds, memory as phase 19;
+22. the API's render_batch on phase 6's tiles (window) and phase 17's
+    SRTM1 tile (LOD), each viewpoint bitwise its own render(); fly over a
+    seeded 6000^2 host grid in a 2048 window (margin 256), 32 frames in
+    segments of 8, each frame bitwise its render on a window placed at the
+    same origin, the uploads logged.
 Each phase group prints its seconds ("[t]" lines).
 A kernel's "device ms" (the ``ms`` of its record) is the replay time of a
 CUDA graph of back-to-back launches over their count, so no Python runs in
@@ -107,8 +141,15 @@ int32 64 per SM per clock at clocks.max.sm). The four render entries add
 their LOD records: ``lod_launches`` per LOD render (phase 15 or 16),
 ``lod_ms`` (each level's march, or the resolve at K 1140, on the device
 clock) and ``lod_in_frame_ms`` (the same from the profiler inside real
-renders, under --profile; else null). The last lines of standard output
-are the card, the kernels' JSON record and {"ok": true, ...}.
+renders, under --profile; else null). The same four carry ``batch``: a
+list of the batch cells' records (phases 19-21), each with its cell,
+``batch`` (viewpoints), ``launches`` (per batch), ``ms`` and ``bound_ms``
+of the batched launch (configs 3 and 9: the sum over the levels, with
+``levels`` itemized), ``ms_per_frame``, ``ms_per_frame_single_loop``,
+``device_busy`` (under --profile; else null), ``peak_mb`` and ``chunks``.
+Every number printed stands beside the card's name and power limit
+(phase 1's line and the line before the last). The last lines of standard
+output are the card, the kernels' JSON record and {"ok": true, ...}.
 """
 
 import json
@@ -137,6 +178,7 @@ PROBE_M, PROBE_STAGES = 1664, 40
 HOST_LOOP = 100               # wrapper calls of a host-loop timing
 GRAPH_LAUNCHES = 64           # render-kernel launches in a timed CUDA graph
 PROBE_GRAPH_LAUNCHES = 16
+DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # float32 operations per march sample (FMA = 2), counted from
@@ -163,6 +205,17 @@ LOD_W, LOD_H = 2048, 512
 LOD_VZ = 1200.0
 LOD_LEVELS = 5                # lod_plan's levels at that shape
 SRTM1_LEVELS = 3              # phase 17's: SRTM1 at 40 km over 4096 columns
+# phases 19-21: the suite's batch cells (benchmarks/suite.py): configs 4 and
+# 8, a 60-frame path at 1920x480; configs 3 and 9, 64 LOD viewpoints
+PATH_FRAMES, PATH_W, PATH_H, PATH_LAT = 60, 1920, 480, 34.3
+LOD_BATCH = 64
+BATCH_GRAPH_LAUNCHES = 8      # batched launches in a timed CUDA graph
+SINGLE_LOOPS = 3              # timed loops of single renders
+# phase 18's batch whose outputs pass 2^31 elements: (B, W, K, n)
+BIG_BATCH = (330, 4096, 1600, 1210)
+# phase 22's fly-through: host grid edge, window, margin, frames a segment,
+# frames
+FLY_N, FLY_WINDOW, FLY_MARGIN, FLY_CHUNK, FLY_FRAMES = 6000, 2048, 256, 8, 32
 
 
 def fail(msg):
@@ -903,11 +956,12 @@ def edge_phase(dev):
 
 def pcol_fscal(geo, p):
     """The march wrappers' inputs from a crossing geometry: (W, 8) float32
-    per-column constants and the (4,) scalars."""
+    per-column constants and the (4,) scalars ((B, W, 8) and (B, 4) for a
+    batch)."""
     pcol = torch.stack([geo.a, geo.t, geo.e, geo.scale, geo.axis0.float(),
                         geo.sign.float(), geo.j_dom.float(),
-                        torch.zeros_like(geo.a)], 1).contiguous()
-    return pcol, torch.stack([p.viewer_z, p.znear, p.zfar, p.curv])
+                        torch.zeros_like(geo.a)], -1).contiguous()
+    return pcol, torch.stack([p.viewer_z, p.znear, p.zfar, p.curv], -1)
 
 
 def march_edge_cases():
@@ -1590,6 +1644,670 @@ def srtm1_phase(dev, int32_rate):
     log(f"[t] phase 17: {time.perf_counter() - t0:.1f} s")
 
 
+def batch_params(dev, vi, vj, vz, lat, az0_deg, az1_deg, znear, zfar,
+                 curv=0.0):
+    """A (B,) RenderParams batch from per-viewpoint sequences (or shared
+    numbers), the colour ramp at the clip range."""
+    from horizonator_tpu_torch.render import make_params
+
+    def seq(x):
+        return np.asarray(x, np.float64).tolist()
+    return make_params(
+        device=dev, viewer_cell_i=seq(vi), viewer_cell_j=seq(vj),
+        viewer_z=seq(vz), cos_viewer_lat=math.cos(math.radians(lat)),
+        az_rad0=np.radians(az0_deg).tolist(),
+        az_rad1=np.radians(az1_deg).tolist(), znear=seq(znear),
+        zfar=seq(zfar), znear_color=seq(znear), zfar_color=seq(zfar),
+        curv=seq(curv))
+
+
+def batch_march_edge_phase(dev):
+    """Phase 18: both march entries with a batch axis against the batched
+    plain version, bitwise, at B 1, 2, 3 and 65: one DEM shared by the
+    batch and one per viewpoint, W 37, K 129, cell and half-cell planes
+    (shared and per viewpoint), viewpoints that differ in position,
+    azimuth window, viewer_z, znear, zfar and curvature; every viewpoint
+    against its own unbatched launch. Then a batch whose outputs pass 2^31
+    elements (330 viewpoints at 4096 x 1600), its last viewpoints against
+    unbatched launches."""
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_plain,
+                                                            march_textured)
+    from horizonator_tpu_torch.render.crossing import crossing_geometry
+    rng = np.random.default_rng(18)
+    n, w, k = 100, 37, 129
+    names = []
+
+    def params(b, nn):
+        i = np.arange(b)
+        return batch_params(
+            dev, 20.3 + (i * 7.1) % (nn - 40), 25.6 + (i * 5.3) % (nn - 50),
+            700.0 + 37.0 * i, LAT, -180.0 + 23.0 * i,
+            -90.0 + 23.0 * i + 13.0 * (i % 7),
+            np.array([10.0, 100.0, 1000.0])[i % 3],
+            np.array([8000.0, 2500.0, 20000.0])[i % 3],
+            np.array([0.0, 6.8e-8])[i % 2])
+
+    for b in (1, 2, 3, 65):
+        p = params(b, n)
+        pcol, fscal = pcol_fscal(crossing_geometry(p, width=w,
+                                                   cells_per_deg=CPD), p)
+        dems = {"shared DEM": torch.from_numpy((2000.0 * rng.random(
+                    (n, n))).astype(np.float32)).to(dev),
+                "a DEM per viewpoint": torch.from_numpy((2000.0 * rng.random(
+                    (b, n, n))).astype(np.float32)).to(dev)}
+        for kind, dem in dems.items():
+            per = dem.dim() == 3
+            ref = march_plain(dem, pcol, fscal, k)
+            got = march(dem, pcol, fscal, k)
+            torch.cuda.synchronize()
+            valid = ref > -1e30
+            if got.shape != (b, w, k) or not torch.equal(got, ref):
+                fail(f"batched march (B {b}, {kind}) != plain")
+            if not valid.any():
+                fail(f"batched march edge case (B {b}) has no valid sample")
+            for v in range(b):
+                one = march(dem[v] if per else dem, pcol[v], fscal[v], k)
+                if not torch.equal(one, got[v]):
+                    fail(f"batched march (B {b}, {kind}) viewpoint {v} != "
+                         f"its unbatched launch")
+            for s in (1, 2):
+                shape = ((b,) if per else ()) + (s * n, s * n)
+                colors = torch.from_numpy(rng.integers(
+                    0, 1 << 24, shape, dtype=np.int32)).to(dev)
+                ref_t, ref_c = march_plain(dem, pcol, fscal, k, colors, s)
+                got_t, got_c = march_textured(dem, pcol, fscal, k, colors, s)
+                torch.cuda.synchronize()
+                if not (torch.equal(got_t, ref) and torch.equal(ref_t, ref)
+                        and torch.equal(got_c, ref_c)):
+                    fail(f"batched textured march (B {b}, {kind}, s {s}) != "
+                         f"plain")
+                if (got_c[~valid] != 0).any():
+                    fail(f"batched textured march (B {b}) colors an invalid "
+                         f"sample")
+                for v in range(b):
+                    one = march_textured(dem[v] if per else dem, pcol[v],
+                                         fscal[v], k,
+                                         colors[v] if per else colors, s)
+                    if not (torch.equal(one[0], got_t[v])
+                            and torch.equal(one[1], got_c[v])):
+                        fail(f"batched textured march (B {b}, {kind}, s {s})"
+                             f" viewpoint {v} != its unbatched launch")
+            names.append(f"B {b} {kind} {float(valid.float().mean()):.2f} "
+                         f"valid")
+    log(f"[18] batched window march and textured march (cell and half-cell "
+        f"planes, shared and per viewpoint) == batched plain bitwise and == "
+        f"each viewpoint's unbatched launch at (W {w}, K {k}): "
+        + "; ".join(names))
+    # the 64-bit batch offsets: outputs past 2^31 elements
+    b, w, k, n = BIG_BATCH
+    p = params(b, n)
+    pcol, fscal = pcol_fscal(crossing_geometry(p, width=w,
+                                               cells_per_deg=CPD), p)
+    dem = torch.from_numpy((2000.0 * rng.random((n, n))).astype(
+        np.float32)).to(dev)
+    colors = torch.from_numpy(rng.integers(0, 1 << 24, (2 * n, 2 * n),
+                                           dtype=np.int32)).to(dev)
+    check = sorted({0, b // 2, b - 3, b - 2, b - 1})
+    got = march(dem, pcol, fscal, k)
+    for v in check:
+        if not torch.equal(got[v], march(dem, pcol[v], fscal[v], k)):
+            fail(f"march at B {b} (outputs past 2^31): viewpoint {v} != "
+                 f"its unbatched launch")
+    del got
+    got_t, got_c = march_textured(dem, pcol, fscal, k, colors, 2)
+    for v in check:
+        one = march_textured(dem, pcol[v], fscal[v], k, colors, 2)
+        if not (torch.equal(got_t[v], one[0]) and torch.equal(got_c[v],
+                                                              one[1])):
+            fail(f"textured march at B {b}: viewpoint {v} != its unbatched "
+                 f"launch")
+    del got_t, got_c
+    torch.cuda.synchronize()
+    log(f"[18] batch of {b} at (W {w}, K {k}) = {b * w * k} samples (2^31 = "
+        f"{1 << 31}): viewpoints {list(check)} == their unbatched launches, "
+        f"both entries")
+
+
+def reached_cells(n, vi, vj, d_lo, d_hi, cell_n, lat, az0=None, az1=None):
+    """How many cells of an (n, n) grid a batch's marches of the band
+    [d_lo, d_hi] reach, each cell counted once however many viewpoints
+    reach it: the union over the viewpoints (sequences vi, vj; az0, az1 in
+    radians, or the full circle) of the cells at a distance in [d_lo - one
+    cell diagonal, d_hi] whose bearing lies in the viewpoint's window.
+    Counted on the card."""
+    cell_e = cell_n * math.cos(math.radians(lat))
+    x = torch.arange(n, device=DEV, dtype=torch.float64)
+    seen = torch.zeros((n, n), dtype=torch.bool, device=DEV)
+    lo = max(0.0, d_lo - math.hypot(cell_n, cell_e))
+    for b in range(len(vi)):
+        de = ((x - vi[b]) * cell_e)[None, :]
+        dn = ((x - vj[b]) * cell_n)[:, None]
+        d2 = de * de + dn * dn
+        m = (d2 <= d_hi * d_hi) & (d2 >= lo * lo)
+        if az0 is not None:
+            span = (az1[b] - az0[b]) % (2 * math.pi) or 2 * math.pi
+            rel = torch.remainder(torch.atan2(de, dn) - az0[b], 2 * math.pi)
+            m &= rel <= span
+        seen |= m
+    return int(seen.sum())
+
+
+def batch_render_checks(tag, render, singles, launches_want, counters,
+                        est_mb, extra_check=None):
+    """Drive one batch through ``render(plain)`` (returns (image, ranges,
+    guard)) with every counter at 0 just before it: launches, guards, the
+    visible share, the plain versions' batch and each viewpoint's single
+    render (``singles``, callables), all bitwise; the peak device memory
+    above what was held before within ``est_mb``, the chunk's estimate.
+    Returns (image, ranges, launches, peak MB, visible share)."""
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    img, rng, guard = render(False)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if launches != launches_want:
+        fail(f"{tag}: launches {launches}, want {launches_want}")
+    if peak_mb > est_mb:
+        fail(f"{tag}: peak device memory {peak_mb:.1f} MB above the chunk's "
+             f"estimate {est_mb:.1f} MB")
+    vis = float((rng > 0).float().mean())
+    if (guard != 0).any() or not 0.05 < vis < 0.95:
+        fail(f"{tag}: guards {guard.sum(0).tolist()}, visible {vis}")
+    img_p, rng_p, _ = render(True)
+    if not (torch.equal(img, img_p) and torch.equal(rng, rng_p)):
+        fail(f"{tag}: batch != the plain versions' batch")
+    del img_p, rng_p
+    for v, one in enumerate(singles):
+        img1, rng1 = one()
+        if not (torch.equal(img[v], img1) and torch.equal(rng[v], rng1)):
+            fail(f"{tag}: viewpoint {v} != its single render")
+    if extra_check is not None:
+        extra_check(img, rng)
+    return img, rng, launches, peak_mb, vis
+
+
+def busy_text(busy):
+    return "not measured" if busy is None else f"{100 * busy:.1f}%"
+
+
+def batch_record(cell, batch, launches, ms, plain_ms, nbytes, ops, rate,
+                 per_frame, loop, busy, peak_mb, chunks):
+    b_ms, b_by = bound(nbytes, ops, rate)
+    return dict(cell=cell, batch=batch, launches=launches, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                ms_per_frame=per_frame, ms_per_frame_single_loop=loop,
+                device_busy=busy, peak_mb=peak_mb, chunks=chunks)
+
+
+def batch_window_phases(dev, card, int32_rate, profile_dir=None):
+    """Phases 19 and 20: suite configs 4 and 8 (benchmarks/suite.py:145,
+    :288), a 60-frame camera path through render_path on the bench scene,
+    untextured and with seeded half-cell colours. Returns {kernel name:
+    batch record}."""
+    from horizonator_tpu_torch.kernels.resolve import (resolve,
+                                                       resolve_plain,
+                                                       resolve_textured)
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_plain,
+                                                            march_textured)
+    from horizonator_tpu_torch.parallel import render_path, sharding
+    from horizonator_tpu_torch.render import RenderParams, render_panorama
+    from horizonator_tpu_torch.render.crossing import (N_NEAR,
+                                                       crossing_geometry,
+                                                       k_cross_for)
+    from horizonator_tpu_torch.render.raymarch import horizon_rows
+    from horizonator_tpu_torch.render.resolve_window import alpha_quantum
+    from horizonator_tpu_torch.render.texture import prepare_color_planes
+    from horizonator_tpu_torch.render.window import (march_from_geometry,
+                                                     step_budget)
+    n, fr, w, h = N, PATH_FRAMES, PATH_W, PATH_H
+    dem = torch.from_numpy(bench_dem(n=n)).to(dev)
+    k = k_cross_for(ZFAR, CPD, PATH_LAT, n=n)
+    f = np.arange(fr)
+    vi, vj = n / 2 + 3.0 * f, n / 2 + 2.0 * f        # 1700 + 3i, 1700 + 2i
+    a0, a1 = -60.0 + 0.5 * f, 60.0 + 0.5 * f
+    p = batch_params(dev, vi, vj, 900.0, PATH_LAT, a0, a1, 100.0, ZFAR)
+    singles = [RenderParams(*(x[v] for x in p)) for v in range(fr)]
+    rkw = dict(width=w, height=h, nsteps=k, cells_per_deg=CPD,
+               sampler="window", lat_hint_deg=PATH_LAT)
+    geo = crossing_geometry(p, width=w, cells_per_deg=CPD)
+    pcol, fscal = pcol_fscal(geo, p)
+    cell_n = 6371000.0 * math.pi / 180.0 / CPD
+    cells = reached_cells(n, vi, vj, 0.0, ZFAR, cell_n, PATH_LAT,
+                          np.radians(a0), np.radians(a1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    cp = prepare_color_planes(torch.randint(
+        0, 255, (3, 2 * n, 2 * n), generator=gen, device=dev,
+        dtype=torch.uint8).float())
+    out, untextured_rng = {}, None
+    for tag, phase, extra in (("config 4", 19, {}),
+                              ("config 8", 20, dict(textured=True,
+                                                    color_planes=cp))):
+        t0 = time.perf_counter()
+        tex = bool(extra)
+        mk, rs = (march_textured, resolve_textured) if tex else (march,
+                                                                  resolve)
+        k_tot = N_NEAR + step_budget(k, n)
+        chunks = -(-fr // sharding.chunk_size(fr, w, h, k_tot, tex))
+        est_mb = sharding.chunk_bytes(min(fr, sharding.chunk_size(
+            fr, w, h, k_tot, tex)), w, h, k_tot, tex) / 1e6
+
+        def render(plain, extra=extra):
+            return render_path(dem, p, with_dropped=True, plain=plain,
+                               **rkw, **extra)
+
+        def same_ranges(img, rng):
+            if untextured_rng is not None and not torch.equal(
+                    rng, untextured_rng):
+                fail(f"{tag}: textured ranges != config 4's")
+        img, rng, launches, peak_mb, vis = batch_render_checks(
+            tag, render, [lambda v=v: render_panorama(dem, singles[v], **rkw,
+                                                       **extra)
+                          for v in range(fr)],
+            {mk.__name__: chunks, rs.__name__: chunks}, (mk, rs), est_mb,
+            same_ranges)
+        if not tex:
+            untextured_rng = rng
+        ms_batch = cuda_ms(lambda i: render_path(dem, p, **rkw, **extra),
+                           5) / fr
+        ms_loop = cuda_ms(lambda i: [render_panorama(dem, q, **rkw, **extra)
+                                     for q in singles], SINGLE_LOOPS,
+                          warmup=0) / fr     # warm from the checks
+        # the batched launches alone, on the device clock
+        march_out = march_from_geometry(
+            dem, p, geo, k_cross=k, cells_per_deg=CPD,
+            lat_hint_deg=PATH_LAT, color_planes=cp if tex else None)
+        k_lim = march_out[0].shape[-1] - N_NEAR
+        if tex:
+            plane = cp.full_packed
+
+            def m_call(plain=False):
+                return (march_plain if plain else march_textured)(
+                    dem, pcol, fscal, k_lim, plane, 2)
+            same = all(torch.equal(a, b) for a, b in zip(m_call(),
+                                                         m_call(True)))
+        else:
+            def m_call(plain=False):
+                return (march_plain if plain else march)(dem, pcol, fscal,
+                                                         k_lim)
+            same = torch.equal(m_call(), m_call(True))
+        if not same:
+            fail(f"{tag}: batched march launch != plain")
+        m_ms = graph_ms(m_call, BATCH_GRAPH_LAUNCHES)
+        m_plain = cuda_ms_run(lambda i: m_call(True), 2, warmup=0)
+        lanes = fr * w * k_lim
+        m_bytes = (4 * cells * (5 if tex else 1) + pcol.nbytes + fscal.nbytes
+                   + (8 if tex else 4) * lanes)
+        m_ops = (MARCH_TEX_FLOPS if tex else MARCH_FLOPS) * lanes
+        y = horizon_rows(march_out[0], p, width=w, height=h).reshape(
+            -1, k_tot).contiguous()
+        amax, int_first = alpha_quantum(k_tot, h)
+        if tex:
+            tx = march_out[2].reshape(-1, k_tot).contiguous()
+
+            def r_call():
+                return resolve_textured(y, tx, h, amax, int_first)
+
+            def r_plain(i):
+                return resolve_plain(y, h, amax, int_first, tex=tx)
+        else:
+            def r_call():
+                return resolve(y, h, amax, int_first)
+
+            def r_plain(i):
+                return resolve_plain(y, h, amax, int_first)
+        if not all(torch.equal(a, b) for a, b in zip(r_call(), r_plain(0))):
+            fail(f"{tag}: batched resolve {tuple(y.shape)} != plain")
+        del march_out
+        r_ms = graph_ms(r_call, BATCH_GRAPH_LAUNCHES)
+        r_plain_ms = cuda_ms_run(r_plain, 2, warmup=0)
+        r_bytes = y.nbytes + (13 if tex else 9) * fr * w * h + (
+            y.nbytes if tex else 0)
+        r_ops = fr * w * (4 * k_tot + 12 * h) + (fr * w * h if tex else 0)
+        busy = None
+        if profile_dir:
+            pout = os.path.join(profile_dir, f"profile_{tag.replace(' ', '')}"
+                                f".txt")
+            b_ms, _ = profile_renders(
+                lambda i: render_path(dem, p, **rkw, **extra), 2, card, pout,
+                f"2 batches of {fr} frames {w}x{h} ({tag})",
+                (f"window_march_kernel<{'true' if tex else 'false'}",
+                 f"resolve_kernel<{'true' if tex else 'false'}"))
+            busy = b_ms / (ms_batch * fr)
+        mb = batch_record(tag, fr, launches[mk.__name__], m_ms, m_plain,
+                          m_bytes, m_ops, FP32_OPS_PER_S, ms_batch, ms_loop,
+                          busy, peak_mb, chunks)
+        rb = batch_record(tag, fr, launches[rs.__name__], r_ms, r_plain_ms,
+                          r_bytes, r_ops, int32_rate, ms_batch, ms_loop, busy,
+                          peak_mb, chunks)
+        out[mk.__name__.replace("march", "window_march")] = mb
+        out[rs.__name__] = rb
+        log(f"[{phase}] {tag}: render_path of {fr} frames {w}x{h} (K "
+            f"{k_tot}), chunks {chunks}, launches {launches}: == plain "
+            f"versions' batch and == {fr} single renders bitwise, guards 0, "
+            f"visible {vis:.4f}" + (", ranges == config 4's" if tex else ""))
+        log(f"[{phase}] {tag}: ms per frame batched {ms_batch:.4f} (median "
+            f"of 5 batches), single-render loop {ms_loop:.4f} (median of "
+            f"{SINGLE_LOOPS} loops of {fr}), {ms_loop / ms_batch:.2f}x; "
+            f"device busy {busy_text(busy)}; peak device memory "
+            f"{peak_mb:.1f} MB (estimate {est_mb:.1f} MB, budget "
+            f"{sharding.BATCH_BYTES / 1e6:.0f} MB)")
+        log(f"[{phase}] {tag}: batched march ({fr}, {w}, {k_lim}) device ms "
+            f"{m_ms:.4f}, bound {mb['bound_ms']:.5f} ({mb['bound_by']}: "
+            f"{cells} DEM cells, the union the batch reaches, read once"
+            f"{' with 4 texels each' if tex else ''}), share "
+            f"{100 * mb['bound_ms'] / m_ms:.1f}% (plain {m_plain:.3f}); "
+            f"batched resolve {tuple(y.shape)} -> H {h} device ms "
+            f"{r_ms:.4f}, bound {rb['bound_ms']:.5f} ({rb['bound_by']}), "
+            f"share {100 * rb['bound_ms'] / r_ms:.1f}% (plain "
+            f"{r_plain_ms:.3f})")
+        log(f"[t] phase {phase}: {time.perf_counter() - t0:.1f} s")
+        del img, rng, y
+    del cp, dem
+    return out
+
+
+def batch_lod_phase(dev, card, int32_rate, profile_dir=None):
+    """Phase 21: suite configs 3 and 9 (benchmarks/suite.py:122, :323),
+    64-viewpoint LOD batches through render_path(sampler="lod"),
+    untextured and with seeded cell colours. Returns {kernel name: batch
+    record}."""
+    from horizonator_tpu_torch.kernels.resolve import (resolve,
+                                                       resolve_plain,
+                                                       resolve_textured)
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_plain,
+                                                            march_textured)
+    from horizonator_tpu_torch.parallel import render_path, sharding
+    from horizonator_tpu_torch.render import (RenderParams, lod,
+                                              render_panorama)
+    from horizonator_tpu_torch.render.raymarch import horizon_rows
+    from horizonator_tpu_torch.render.resolve_window import alpha_quantum
+    from horizonator_tpu_torch.render.texture import ColorPlanes2x
+    from horizonator_tpu_torch.render.window import step_budget
+    t0 = time.perf_counter()
+    n, bsz, w, h = LOD_N, LOD_BATCH, LOD_W, LOD_H
+    dem = torch.from_numpy(bench_dem(seed=7, n=n)).to(dev)
+    plan = lod.lod_plan(LOD_ZFAR, w, LOD_CPD, LOD_LAT, n)
+    nlev = 1 + max(s.level for s in plan)
+    pyr = lod.build_pyramid(dem, nlev)
+    i = np.arange(bsz)
+    p = batch_params(dev, n / 2 + 13.0 * i, n / 2, LOD_VZ, LOD_LAT,
+                     np.full(bsz, -180.0), np.full(bsz, 180.0), 100.0,
+                     LOD_ZFAR)
+    singles = [RenderParams(*(x[v] for x in p)) for v in range(bsz)]
+    rkw = dict(width=w, height=h, nsteps=1, cells_per_deg=LOD_CPD,
+               lat_hint_deg=LOD_LAT, sampler="lod", lod_plan=plan)
+    lkw = dict(width=w, cells_per_deg=LOD_CPD, lat_hint_deg=LOD_LAT)
+    k_tot = 4 + sum(s.k_len for s in plan)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    cpyr = lod.build_color_pyramid(torch.randint(
+        0, 255, (3, n, n), generator=gen, device=dev,
+        dtype=torch.uint8).float(), nlev, n)
+    out, untextured_rng = {}, None
+    for tag, cp in (("config 3", None), ("config 9", cpyr)):
+        tex = cp is not None
+        extra = dict(textured=True, color_planes=cp) if tex else {}
+        mk, rs = (march_textured, resolve_textured) if tex else (march,
+                                                                  resolve)
+        step = sharding.chunk_size(bsz, w, h, k_tot, tex)
+        chunks = -(-bsz // step)
+        est_mb = sharding.chunk_bytes(min(bsz, step), w, h, k_tot, tex) / 1e6
+
+        def render(plain, extra=extra):
+            return render_path(pyr, p, with_dropped=True, plain=plain,
+                               **rkw, **extra)
+
+        def same_ranges(img, rng):
+            if untextured_rng is not None and not torch.equal(
+                    rng, untextured_rng):
+                fail(f"{tag}: textured ranges != config 3's")
+        img, rng, launches, peak_mb, vis = batch_render_checks(
+            tag, render, [lambda v=v: render_panorama(pyr, singles[v], **rkw,
+                                                       **extra)
+                          for v in range(bsz)],
+            {mk.__name__: nlev * chunks, rs.__name__: chunks}, (mk, rs),
+            est_mb, same_ranges)
+        if not tex:
+            untextured_rng = rng
+        if float(rng.max()) < plan[2].d_lo:
+            fail(f"{tag}: nothing seen past level 1's band")
+        ms_batch = cuda_ms(lambda i: render_path(pyr, p, **rkw, **extra),
+                           3, warmup=1) / bsz
+        ms_loop = cuda_ms(lambda i: [render_panorama(pyr, q, **rkw, **extra)
+                                     for q in singles], SINGLE_LOOPS,
+                          warmup=0) / bsz    # warm from the checks
+        # each level's batched march launch and the resolve, alone
+        levels = []
+        for spec in plan:
+            dem_c, p_c, colors_c, geo = lod.level_inputs(
+                pyr, p, spec, color_pyramid=cp, **lkw)
+            pcol, fscal = pcol_fscal(geo, p_c)
+            k_lim = step_budget(spec.k_lo + spec.k_len, dem_c.shape[-1])
+            if tex:
+                plane, s = ((colors_c.full_packed, 2)
+                            if isinstance(colors_c, ColorPlanes2x)
+                            else (colors_c, 1))
+
+                def m_call(plain=False, d=dem_c, pc=pcol, fs=fscal, kk=k_lim,
+                           pl=plane, ss=s):
+                    return (march_plain if plain else march_textured)(
+                        d, pc, fs, kk, pl, ss)
+                same = all(torch.equal(a, b) for a, b in zip(m_call(),
+                                                             m_call(True)))
+            else:
+                s = 1
+
+                def m_call(plain=False, d=dem_c, pc=pcol, fs=fscal,
+                           kk=k_lim):
+                    return (march_plain if plain else march)(d, pc, fs, kk)
+                same = torch.equal(m_call(), m_call(True))
+            if not same:
+                fail(f"{tag}: level {spec.level} batched march (crops "
+                     f"{tuple(dem_c.shape)}, K {k_lim}) != plain")
+            ms = graph_ms(m_call, BATCH_GRAPH_LAUNCHES)
+            plain_ms = cuda_ms_run(lambda i: m_call(True), 2, warmup=0)
+            p_l = lod._scaled_params(p, spec.level)
+            cells = reached_cells(
+                pyr[spec.level].shape[0], p_l.viewer_cell_i.tolist(),
+                p_l.viewer_cell_j.tolist(), spec.d_lo, spec.d_hi,
+                6371000.0 * math.pi / 180.0 / (LOD_CPD / 2 ** spec.level),
+                LOD_LAT)
+            lanes = bsz * w * k_lim
+            nbytes = 4 * cells * ((1 + s * s) if tex else 1) + (
+                8 if tex else 4) * lanes
+            b_ms, b_by = bound(nbytes, (MARCH_TEX_FLOPS if tex
+                                        else MARCH_FLOPS) * lanes,
+                               FP32_OPS_PER_S)
+            levels.append(dict(level=spec.level, crops=tuple(dem_c.shape),
+                               k=k_lim, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, cells=cells))
+        mo = lod.march_lod(pyr, p, plan=plan, color_pyramid=cp, **lkw)
+        y = horizon_rows(mo[0], p, width=w, height=h).reshape(
+            -1, k_tot).contiguous()
+        amax, int_first = alpha_quantum(k_tot, h)
+        if tex:
+            tx = mo[3].reshape(-1, k_tot).contiguous()
+
+            def r_call():
+                return resolve_textured(y, tx, h, amax, int_first)
+
+            def r_plain(i):
+                return resolve_plain(y, h, amax, int_first, tex=tx)
+        else:
+            def r_call():
+                return resolve(y, h, amax, int_first)
+
+            def r_plain(i):
+                return resolve_plain(y, h, amax, int_first)
+        if not all(torch.equal(a, b) for a, b in zip(r_call(), r_plain(0))):
+            fail(f"{tag}: batched resolve {tuple(y.shape)} != plain")
+        del mo
+        r_ms = graph_ms(r_call, BATCH_GRAPH_LAUNCHES)
+        r_plain_ms = cuda_ms_run(r_plain, 2, warmup=0)
+        r_bytes = y.nbytes * (2 if tex else 1) + (13 if tex else 9) * (
+            bsz * w * h)
+        r_ops = bsz * w * (4 * k_tot + 12 * h) + (bsz * w * h if tex else 0)
+        busy = None
+        if profile_dir:
+            pout = os.path.join(profile_dir, f"profile_{tag.replace(' ', '')}"
+                                f".txt")
+            b_busy, _ = profile_renders(
+                lambda i: render_path(pyr, p, **rkw, **extra), 2, card, pout,
+                f"2 batches of {bsz} LOD viewpoints {w}x{h} ({tag})",
+                (f"window_march_kernel<{'true' if tex else 'false'}",
+                 f"resolve_kernel<{'true' if tex else 'false'}"))
+            busy = b_busy / (ms_batch * bsz)
+        mb = batch_record(tag, bsz, launches[mk.__name__],
+                          sum(lv["ms"] for lv in levels),
+                          sum(lv["plain_ms"] for lv in levels), 0, 0,
+                          FP32_OPS_PER_S, ms_batch, ms_loop, busy, peak_mb,
+                          chunks)
+        mb.update(bound_ms=sum(lv["bound_ms"] for lv in levels),
+                  bound_by="per level", levels=levels)
+        rb = batch_record(tag, bsz, launches[rs.__name__], r_ms, r_plain_ms,
+                          r_bytes, r_ops, int32_rate, ms_batch, ms_loop, busy,
+                          peak_mb, chunks)
+        out[mk.__name__.replace("march", "window_march")] = mb
+        out[rs.__name__] = rb
+        log(f"[21] {tag}: render_path of {bsz} LOD viewpoints {w}x{h} ({nlev}"
+            f" levels, K {k_tot}), chunks {chunks}, launches {launches}: == "
+            f"plain versions' batch and == {bsz} single renders bitwise, "
+            f"guards 0, visible {vis:.4f}, max range {float(rng.max()):.0f} m"
+            + (", ranges == config 3's" if tex else ""))
+        log(f"[21] {tag}: ms per viewpoint batched {ms_batch:.4f} (median of "
+            f"3 batches), single-render loop {ms_loop:.4f} (median of "
+            f"{SINGLE_LOOPS} loops of {bsz}), {ms_loop / ms_batch:.2f}x; "
+            f"device busy {busy_text(busy)}; peak device memory "
+            f"{peak_mb:.1f} MB (estimate {est_mb:.1f} MB, budget "
+            f"{sharding.BATCH_BYTES / 1e6:.0f} MB)")
+        for lv in levels:
+            log(f"[21] {tag}: level {lv['level']} batched march (crops "
+                f"{lv['crops']}, K {lv['k']}) device ms {lv['ms']:.4f}, bound "
+                f"{lv['bound_ms']:.5f} ({lv['bound_by']}: {lv['cells']} "
+                f"cells, the union of the batch's annuli, read once), share "
+                f"{100 * lv['bound_ms'] / lv['ms']:.1f}% (plain "
+                f"{lv['plain_ms']:.3f})")
+        log(f"[21] {tag}: batched resolve {tuple(y.shape)} -> H {h} device ms "
+            f"{r_ms:.4f}, bound {rb['bound_ms']:.5f} ({rb['bound_by']}), "
+            f"share {100 * rb['bound_ms'] / r_ms:.1f}% (plain "
+            f"{r_plain_ms:.3f})")
+        del img, rng, y
+    del cpyr, pyr, dem
+    log(f"[t] phase 21: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def api_paging_phase(dev):
+    """Phase 22: the API's render_batch on phase 6's tiles (window) and on
+    phase 17's SRTM1 tile (auto-LOD), each viewpoint bitwise its own
+    render(); fly over a seeded 6000^2 host grid in a 2048 window (margin
+    256), its frames bitwise renders on windows placed at the same
+    origins."""
+    from horizonator_tpu_torch import horizonator
+    from horizonator_tpu_torch.dem.paging import PagedWindow, fly
+    from horizonator_tpu_torch.kernels.resolve import resolve
+    from horizonator_tpu_torch.kernels.window_march import march
+    from horizonator_tpu_torch.render import make_params, render_panorama
+    from horizonator_tpu_torch.render.crossing import k_cross_for
+    t0 = time.perf_counter()
+    for name, writer, lat, lon, kw in (
+            ("3x3 SRTM3 tiles", lambda d: write_tiles(d, 34, -118), 34.4,
+             -117.6, {}),
+            ("an SRTM1 tile (LOD)", write_srtm1_tile, 34.5, -117.5,
+             dict(SRTM1=True))):
+        with tempfile.TemporaryDirectory() as td:
+            writer(td)
+            h = horizonator(lat, lon, W, H, dir_dems=td, device=dev, **kw)
+            lats = [lat, lat + 0.02, lat - 0.015, lat + 0.03]
+            lons = [lon, lon + 0.02, lon - 0.03, lon + 0.035]
+            march.launches = resolve.launches = 0
+            t1 = time.perf_counter()
+            imgs, rngs = h.render_batch(-180, 180, lats, lons)
+            batch_s = time.perf_counter() - t1
+            launches = {"march": march.launches, "resolve": resolve.launches}
+            _, sampler, _, plan, _ = h._batch_render_plan(100.0, 40000.0)
+            want = {"march": len(plan) if plan else 1, "resolve": 1}
+            if launches != want or imgs.shape != (4, H, W, 3):
+                fail(f"API render_batch on {name}: launches {launches}, want "
+                     f"{want}; {imgs.shape}")
+            t1 = time.perf_counter()
+            for b in range(4):
+                img1, rng1 = h.render(-180, 180, lat=lats[b], lon=lons[b])
+                if not (np.array_equal(imgs[b], img1)
+                        and np.array_equal(rngs[b], rng1)):
+                    fail(f"API render_batch on {name}: viewpoint {b} != its "
+                         f"render()")
+            single_s = time.perf_counter() - t1
+            log(f"[22] API render_batch of 4 viewpoints {W}x{H} on {name} "
+                f"({sampler}): launches {launches}, each viewpoint == its "
+                f"render() bitwise; {1e3 * batch_s / 4:.2f} ms a viewpoint "
+                f"batched, {1e3 * single_s / 4:.2f} ms a render() (host "
+                f"clock, host copies included, first batch)")
+    # paging: a fly-through over a host grid three windows wide
+    n, wc, margin = FLY_N, FLY_WINDOW, FLY_MARGIN
+    chunk, fr = FLY_CHUNK, FLY_FRAMES
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    x = torch.arange(n, device=dev, dtype=torch.float32)
+    host = torch.clamp(
+        600.0 + 500.0 * torch.sin(x / 223.0)[None, :]
+        * torch.cos(x / 181.0)[:, None]
+        + 30.0 * torch.randn((n, n), generator=gen, device=dev),
+        min=0.0).cpu().numpy()
+    path = np.stack([np.linspace(0.18 * n, 0.82 * n, fr),
+                     np.linspace(0.25 * n, 0.67 * n, fr)], axis=1)
+    fkw = dict(width=PATH_W, height=PATH_H, zfar_m=ZFAR, cells_per_deg=CPD,
+               lat_deg=PATH_LAT)
+    march.launches = 0
+    t1 = time.perf_counter()
+    imgs, rngs, uploads = fly(host, path, window_cells=wc,
+                              margin_cells=margin, chunk=chunk, device=dev,
+                              **fkw)
+    fly_s = time.perf_counter() - t1
+    fly_launches = march.launches
+    if uploads < 2 or fly_launches != fr // chunk:
+        fail(f"fly: {uploads} uploads, {fly_launches} march launches")
+    win = PagedWindow(host, wc, margin, device=dev)
+    k = k_cross_for(ZFAR, CPD, PATH_LAT, n=wc)
+    for s in range(0, fr, chunk):
+        win.ensure(*path[s + chunk // 2])
+        for f in range(s, s + chunk):
+            li, lj = win.local_cell(*path[f])
+            j0, i0 = (int(math.floor(v)) + o for v, o in zip((lj, li),
+                                                             win.origin))
+            p = make_params(
+                device=dev, viewer_cell_i=li, viewer_cell_j=lj,
+                viewer_z=float(host[j0:j0 + 2, i0:i0 + 2].max()) + 50.0,
+                cos_viewer_lat=math.cos(math.radians(PATH_LAT)),
+                az_rad0=math.radians(-60.0), az_rad1=math.radians(60.0),
+                znear=100.0, zfar=ZFAR, znear_color=100.0, zfar_color=ZFAR)
+            img, rng = render_panorama(win.dem, p, width=PATH_W,
+                                       height=PATH_H, nsteps=k,
+                                       cells_per_deg=CPD,
+                                       lat_hint_deg=PATH_LAT)
+            if not (np.array_equal(imgs[f], img.cpu().numpy())
+                    and np.array_equal(rngs[f], rng.cpu().numpy())):
+                fail(f"fly frame {f} != its render on the window at "
+                     f"{win.origin}")
+    if win.uploads != uploads:
+        fail(f"fly uploads {uploads} != the replayed window's {win.uploads}")
+    log(f"[22] fly over a {n}^2 host grid, window {wc} (margin {margin}), "
+        f"{fr} frames {PATH_W}x{PATH_H} in segments of {chunk}: {uploads} "
+        f"uploads, {fly_launches} march launches, every frame == its "
+        f"render on a window at the same origin bitwise; "
+        f"{1e3 * fly_s / fr:.2f} ms a frame (host clock, uploads and host "
+        f"copies included)")
+    log(f"[t] phase 22: {time.perf_counter() - t0:.1f} s")
+
+
 def main(profile_dir=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1849,9 +2567,17 @@ def main(profile_dir=None):
     t0 = time.perf_counter()
     march_edge_phase(dev)
     log(f"[t] phase 14: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    batch_march_edge_phase(dev)
+    log(f"[t] phase 18: {time.perf_counter() - t0:.1f} s")
     del ctx, dem, tan_k, tan_p, y_k, img, rng, img_p, rng_p
     lod_records = lod_phases(dev, card, int32_rate, profile_dir)
     srtm1_phase(dev, int32_rate)
+    batch_records = batch_window_phases(dev, card, int32_rate, profile_dir)
+    batch_records = {k: [v] for k, v in batch_records.items()}
+    for k, v in batch_lod_phase(dev, card, int32_rate, profile_dir).items():
+        batch_records.setdefault(k, []).append(v)
+    api_paging_phase(dev)
 
     kernels = [
         kernel_entry("window_march",
@@ -1869,6 +2595,8 @@ def main(profile_dir=None):
     ]
     for entry in kernels:     # the LOD render's launches of the same entry
         entry.update(lod_records.get(entry["name"], {}))
+        if entry["name"] in batch_records:  # and the batches' (19-21)
+            entry["batch"] = batch_records[entry["name"]]
     log(f"[t] all phases: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -1878,7 +2606,58 @@ def main(profile_dir=None):
     return 0
 
 
+def time_march(root, tag):
+    """--time-march: both march entries of the package under ``root`` at
+    the bench shape, on the device clock, with ptxas's lines for them."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from horizonator_tpu_torch.kernels import build
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_textured)
+    from horizonator_tpu_torch.render import make_params
+    from horizonator_tpu_torch.render.crossing import (crossing_geometry,
+                                                       k_cross_for)
+    from horizonator_tpu_torch.render.window import step_budget
+    _, _, nvcc_log = build.build()
+    build.library()
+    dev = torch.device("cuda")
+    dem = torch.from_numpy(bench_dem()).to(dev)
+    p = make_params(device=dev, viewer_cell_i=N / 2, viewer_cell_j=N / 2,
+                    viewer_z=900.0, cos_viewer_lat=math.cos(math.radians(
+                        LAT)), az_rad0=-math.pi, az_rad1=math.pi,
+                    znear=100.0, zfar=ZFAR, znear_color=100.0,
+                    zfar_color=ZFAR)
+    geo = crossing_geometry(p, width=W, cells_per_deg=CPD)
+    pcol = torch.stack([geo.a, geo.t, geo.e, geo.scale, geo.axis0.float(),
+                        geo.sign.float(), geo.j_dom.float(),
+                        torch.zeros_like(geo.a)], 1).contiguous()
+    fscal = torch.stack([p.viewer_z, p.znear, p.zfar, p.curv])
+    k = step_budget(k_cross_for(ZFAR, CPD, LAT, n=N), N)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    plane = torch.randint(0, 1 << 24, (2 * N, 2 * N), generator=gen,
+                          device=dev, dtype=torch.int32)
+    times = {name: [graph_ms(fn, GRAPH_LAUNCHES) for _ in range(7)]
+             for name, fn in (
+                 ("march", lambda: march(dem, pcol, fscal, k)),
+                 ("textured", lambda: march_textured(dem, pcol, fscal, k,
+                                                     plane, 2)))}
+    log(f"{tag}: " + ", ".join(
+        f"{name} {statistics.median(t):.5f} ({min(t):.5f}-{max(t):.5f})"
+        for name, t in times.items())
+        + f" ms at ({W}, {k}); {card_line()}")
+    for name, (regs, st, ld) in ptxas_table(nvcc_log).items():
+        if "window_march" in name:
+            log(f"    {name}: {regs} registers, spills {st} / {ld} bytes")
+    return 0
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
+    if "--time-march" in args:
+        i = args.index("--time-march")
+        sys.exit(time_march(args[i + 1], args[i + 2]))
     sys.exit(main(profile_dir=args[args.index("--profile") + 1]
                   if "--profile" in args else None))

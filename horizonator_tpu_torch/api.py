@@ -7,11 +7,12 @@ the constructor loads the DEM window (and, for textured renders, the tile
 atlas and its color planes) and puts it on ``device``; render() is the
 repeatable path with a movable camera; pick() reads the last render's
 range image back to lat/lon, and horizon() gives the per-column horizon
-without an image, and skyline() the geolocated horizon ridgeline. This
-port covers the window sampler, untextured, textured (``render_texture``)
-and hillshaded, the debug lattice views (``debug_fill``), and the LOD march
-that long clip ranges swap to; cast shadows and region sharding raise
-NotImplementedError.
+without an image, and skyline() the geolocated horizon ridgeline;
+render_batch() renders many viewpoints in one pass. This port covers the
+window sampler, untextured, textured (``render_texture``) and hillshaded,
+the debug lattice views (``debug_fill``), and the LOD march that long
+clip ranges swap to; cast shadows, region sharding and multi-device
+batches raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -175,10 +176,13 @@ class horizonator:
         ``truncated`` columns whose march stopped short of zfar/the grid
         edge (a manual nsteps= below k_cross_for's budget; under the LOD
         march, a plan or crop sized for a lat_hint_deg below the viewer's
-        latitude)."""
-        n_drop, n_trunc = guard.tolist()
-        if not (n_drop or n_trunc):
+        latitude). A (B, 2) guard is a batch's: one host copy, the counts
+        summed, the viewpoints at fault named by index."""
+        counts = np.asarray(guard.tolist(), dtype=np.int64).reshape(-1, 2)
+        bad = np.flatnonzero(counts.any(axis=1))
+        if not len(bad):
             return
+        n_drop, n_trunc = (int(v) for v in counts.sum(axis=0))
         parts = []
         if n_drop:
             parts.append(
@@ -197,7 +201,9 @@ class horizonator:
                 f"the grid edge, so their far samples were masked (manual "
                 f"nsteps= below k_cross_for's latitude-scaled budget -- "
                 f"raise nsteps or drop the override)")
-        msg = (f"{what}(): " + "; ".join(parts)
+        where = (f" (viewpoints {bad.tolist()} of {len(counts)})"
+                 if guard.dim() == 2 else "")
+        msg = (f"{what}(){where}: " + "; ".join(parts)
                + " -- horizons may be silently low.")
         if self.strict_coverage:
             raise RuntimeError(msg)
@@ -272,6 +278,24 @@ class horizonator:
             cp = self._color_pyramid
         return self._pyramid, "lod", nsteps, plan, cp
 
+    def _render_plan(self, znear, zfar, what):
+        """_batch_render_plan plus the hybrid near field's exact_near_m:
+        the LOD march has none, as in the JAX package (api.py:570), which
+        drops it without a word; here the drop warns once per instance."""
+        dem, sampler, nsteps, plan, cp = self._batch_render_plan(znear, zfar)
+        exact_near = self._exact_near_m
+        if sampler == "lod" and exact_near is not None:
+            exact_near = None
+            if not self._warned_lod_hybrid:
+                self._warned_lod_hybrid = True
+                warnings.warn(
+                    f"{what}(): this clip range needs {nsteps} crossing "
+                    f"steps, so it renders through the LOD march, which has "
+                    f"no hybrid near field: near colors come from the "
+                    f"half-cell planes, not the z12 atlas (shorten zfar for "
+                    f"atlas-true near texels)", RuntimeWarning, stacklevel=3)
+        return dem, sampler, nsteps, plan, cp, exact_near
+
     _DEBUG_FILL_PITCH = 4
 
     def _debug_planes(self, mode):
@@ -337,22 +361,10 @@ class horizonator:
         elif ele_m is not None:
             self.viewer_z = float(ele_m)
 
-        dem, sampler, nsteps, plan, cp = self._batch_render_plan(znear, zfar)
+        dem, sampler, nsteps, plan, cp, exact_near = self._render_plan(
+            znear, zfar, "render")
         textured = self.render_texture
         atlas, atlas_params = self._atlas, self._atlas_params
-        exact_near = self._exact_near_m
-        if sampler == "lod" and exact_near is not None:
-            # the LOD march has no hybrid near field, as in the JAX package
-            # (api.py:570), which drops it without a word
-            exact_near = None
-            if not self._warned_lod_hybrid:
-                self._warned_lod_hybrid = True
-                warnings.warn(
-                    f"render(): this clip range needs {nsteps} crossing "
-                    f"steps, so it renders through the LOD march, which has "
-                    f"no hybrid near field: near colors come from the "
-                    f"half-cell planes, not the z12 atlas (shorten zfar for "
-                    f"atlas-true near texels)", RuntimeWarning, stacklevel=2)
         if debug_fill is not None:
             if sampler != "window":
                 raise ValueError(
@@ -383,6 +395,66 @@ class horizonator:
             out.append(ranges_np)
         self._check_dropped(guard, sampler=sampler)
         return tuple(out) if len(out) > 1 else out[0]
+
+    def render_batch(self, az_deg0, az_deg1, lats, lons, *, ele_m=None,
+                     znear=ZNEAR_DEFAULT, zfar=ZFAR_DEFAULT,
+                     znear_color=-1.0, zfar_color=-1.0, mesh=None):
+        """Render many viewpoints in one pass (api.py:671-758, one
+        device): ``lats``/``lons`` are sequences of viewer positions, with
+        auto elevation unless ``ele_m`` gives them. The clip and colour
+        ramp, texture, hillshade and the LOD swap of long clip ranges are
+        render()'s, for every viewpoint; the viewer state that render()
+        keeps for pick() is left as it is.
+
+        The coverage guard is one host copy for the whole batch: it warns
+        (raises under strict_coverage) naming the viewpoints at fault, where
+        the JAX package drops them silently. ``mesh``: multi-device batches
+        are not ported (scale-out) and raise.
+
+        Returns (images (B, H, W, 3) uint8 BGR, ranges (B, H, W) float32)
+        as numpy arrays, one device-to-host copy each."""
+        from .parallel import render_batch as _rb
+        if mesh is not None:
+            raise NotImplementedError(
+                "render_batch(mesh=): multi-device batches need the "
+                "scale-out slice (make_sharded_renderer), which is not "
+                "ported; pass mesh=None")
+        if znear_color < 0.0:
+            znear_color = znear
+        if zfar_color < 0.0:
+            zfar_color = zfar
+        lats = [float(v) for v in lats]
+        lons = [float(v) for v in lons]
+        if len(lats) != len(lons) or not lats:
+            raise ValueError(f"render_batch needs as many lats as lons, at "
+                             f"least one: got {len(lats)} and {len(lons)}")
+        cells = [self.mosaic.viewer_cell(la, lo) for la, lo in zip(lats,
+                                                                    lons)]
+        vz = ([float(v) for v in ele_m] if ele_m is not None else
+              [self.mosaic.auto_viewer_z(la, lo)
+               for la, lo in zip(lats, lons)])
+        params = make_params(
+            device=self.device,
+            viewer_cell_i=[c[0] for c in cells],
+            viewer_cell_j=[c[1] for c in cells], viewer_z=vz,
+            cos_viewer_lat=[math.cos(math.radians(la)) for la in lats],
+            az_rad0=math.radians(az_deg0), az_rad1=math.radians(az_deg1),
+            znear=znear, zfar=zfar, znear_color=znear_color,
+            zfar_color=zfar_color, curv=self._curv)
+        dem, sampler, nsteps, plan, cp, exact_near = self._render_plan(
+            znear, zfar, "render_batch")
+        images, ranges, guard = _rb(
+            dem, params, width=self.width, height=self.height,
+            nsteps=nsteps, cells_per_deg=self.mosaic.cells_per_deg,
+            surface=self.surface, refine=self.refine,
+            textured=self.render_texture, atlas=self._atlas,
+            atlas_params=self._atlas_params, sampler=sampler,
+            lat_hint_deg=self._lat_hint(), lod_plan=plan, color_planes=cp,
+            znear_hint_m=self._znear_hint(znear), with_dropped=True,
+            exact_near_m=exact_near)
+        out = images.cpu().numpy(), ranges.cpu().numpy()
+        self._check_dropped(guard, "render_batch", sampler=sampler)
+        return out
 
     def _last_ranges(self):
         """Host copy of the last render's range image (made on first use)."""

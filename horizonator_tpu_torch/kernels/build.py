@@ -90,10 +90,11 @@ def library() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hz_window_march.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp]
+    cll = ctypes.c_longlong
+    lib.hz_window_march.argtypes = [vp, ci, cll, vp, vp, ci, ci, ci, vp, vp]
     lib.hz_window_march.restype = ci
-    lib.hz_window_march_tex.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, vp,
-                                        vp, vp]
+    lib.hz_window_march_tex.argtypes = [vp, ci, cll, vp, ci, cll, vp, vp, ci,
+                                        ci, ci, vp, vp, vp]
     lib.hz_window_march_tex.restype = ci
     lib.hz_resolve.argtypes = [vp, ci, ci, ci, cf, cf, ci, vp, vp, vp, vp]
     lib.hz_resolve.restype = ci

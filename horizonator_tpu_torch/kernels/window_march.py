@@ -70,9 +70,14 @@ def _taps(plane: torch.Tensor, r: torch.Tensor, ax: torch.Tensor,
           jd: torch.Tensor):
     """The two values of a square plane at cross positions r and r + 1 on
     line ``ax`` (a row for j-dominant rays, else a column); the upper one
-    is 0 where r + 1 lies outside (its weight is 0 there)."""
-    rows = plane.shape[0]
+    is 0 where r + 1 lies outside (its weight is 0 there). A plane of
+    shape (B, rows, rows) holds one plane per viewpoint of (B, W, k)
+    positions; a 2-D plane is shared by all."""
+    rows = plane.shape[-1]
     i_lo = torch.where(jd, ax * rows + r, r * rows + ax)
+    if plane.dim() == 3:
+        b = torch.arange(plane.shape[0], device=plane.device)[:, None, None]
+        i_lo = i_lo + b * (rows * rows)
     has_hi = r + 1 < rows
     i_hi = torch.where(has_hi, i_lo + torch.where(jd, 1, rows), i_lo)
     flat = plane.reshape(-1)
@@ -82,10 +87,13 @@ def _taps(plane: torch.Tensor, r: torch.Tensor, ax: torch.Tensor,
 def march_plain(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
                 k: int, colors: torch.Tensor | None = None, scale: int = 1):
     """(W, k) float32 samples, plus their (W, k) int32 packed colors when
-    ``colors`` is given; the gather form of the kernel's math."""
-    n = dem.shape[0]
-    a, t, e, dscale, axis0, sgn, jdom = (pcol[:, c:c + 1] for c in range(7))
-    vz, znear, zfar, curv = fscal
+    ``colors`` is given; the gather form of the kernel's math. Batched as
+    the kernel's wrappers are: pcol (B, W, 8) and fscal (B, 4) give (B, W,
+    k), from a shared (n, n) DEM or one (B, n, n) per viewpoint (colors
+    likewise)."""
+    n = dem.shape[-1]
+    a, t, e, dscale, axis0, sgn, jdom = (pcol[..., c:c + 1] for c in range(7))
+    vz, znear, zfar, curv = (fscal[..., c, None, None] for c in range(4))
     mf = torch.arange(k, dtype=torch.float32, device=dem.device)[None, :]
     pos = fma32(mf, t, a)
     axis_m = axis0 + mf * sgn
@@ -102,7 +110,7 @@ def march_plain(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
     if colors is None:
         return tanel
     flc, hc_lo, hc_hi = _hats(pos * float(scale))
-    c_lo, c_hi = _taps(colors, flc.clamp(0, colors.shape[0] - 1).to(
+    c_lo, c_hi = _taps(colors, flc.clamp(0, colors.shape[-1] - 1).to(
         torch.int64), ax * scale, jd)
     packed = torch.zeros_like(c_lo)
     for sh in (0, 8, 16):                                     # B, G, R
@@ -121,14 +129,35 @@ def _check(fn: str, name: str, x: torch.Tensor, shape, dtype, device):
                          f"{tuple(x.shape)} on {x.device}")
 
 
+def _plane_stride(fn: str, name: str, x: torch.Tensor, edge: int, b: int,
+                  batched: bool, dtype, device) -> int:
+    """Checks a shared (edge, edge) plane or, in a batch, one (b, edge,
+    edge) plane per viewpoint; returns its batch stride in elements (0:
+    shared)."""
+    per_view = batched and x.dim() == 3
+    _check(fn, name, x, (b, edge, edge) if per_view else (edge, edge), dtype,
+           device)
+    return edge * edge if per_view else 0
+
+
 def _check_march(fn: str, dem, pcol, fscal):
+    """(B, W, n, DEM batch stride, batched) of a launch: pcol (W, 8) and
+    fscal (4,) march one viewpoint of a 2-D DEM; pcol (B, W, 8) and fscal
+    (B, 4) a batch, of a shared (n, n) DEM or one (B, n, n) each."""
     if dem.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {dem.device}")
-    n = dem.shape[0]
-    _check(fn, "dem", dem, (n, n), torch.float32, dem.device)
-    _check(fn, "pcol", pcol, (pcol.shape[0], PCOL_WIDTH), torch.float32,
+    batched = pcol.dim() == 3
+    b, w = (pcol.shape[0], pcol.shape[1]) if batched else (1, pcol.shape[0])
+    n = dem.shape[-1]
+    stride = _plane_stride(fn, "dem", dem, n, b, batched, torch.float32,
+                           dem.device)
+    _check(fn, "pcol", pcol, (b, w, PCOL_WIDTH) if batched
+           else (w, PCOL_WIDTH), torch.float32, dem.device)
+    _check(fn, "fscal", fscal, (b, 4) if batched else (4,), torch.float32,
            dem.device)
-    _check(fn, "fscal", fscal, (4,), torch.float32, dem.device)
+    if b >= 1 << 31:
+        raise ValueError(f"{fn}: batch {b} exceeds the launch's int32 count")
+    return b, w, n, stride, batched
 
 
 def march(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
@@ -136,15 +165,18 @@ def march(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
     """(W, k) float32 far-field samples of a square (n, n) float32 DEM.
 
     ``pcol``: (W, 8) float32 per-column geometry (see PCOL_WIDTH);
-    ``fscal``: (4,) float32 [viewer z, znear, zfar, curvature]."""
+    ``fscal``: (4,) float32 [viewer z, znear, zfar, curvature]. A batch of
+    B viewpoints is one launch: pcol (B, W, 8), fscal (B, 4) and a shared
+    (n, n) DEM or one (B, n, n) per viewpoint give (B, W, k)."""
     if dem.device.type == "cpu":
         return march_plain(dem, pcol, fscal, k)
-    _check_march("march", dem, pcol, fscal)
-    n, w = dem.shape[0], pcol.shape[0]
-    out = torch.empty((w, k), dtype=torch.float32, device=dem.device)
+    b, w, n, stride, batched = _check_march("march", dem, pcol, fscal)
+    out = torch.empty((b, w, k) if batched else (w, k), dtype=torch.float32,
+                      device=dem.device)
     rc = build.library().hz_window_march(
-        dem.data_ptr(), n, pcol.data_ptr(), fscal.data_ptr(), w, k,
-        out.data_ptr(), torch.cuda.current_stream(dem.device).cuda_stream)
+        dem.data_ptr(), n, stride, pcol.data_ptr(), fscal.data_ptr(), b, w,
+        k, out.data_ptr(),
+        torch.cuda.current_stream(dem.device).cuda_stream)
     if rc:
         raise RuntimeError(f"window march launch failed: CUDA error {rc}")
     march.launches += 1
@@ -159,21 +191,23 @@ def march_textured(dem: torch.Tensor, pcol: torch.Tensor,
                    scale: int):
     """(tanel (W, k) float32, tex (W, k) int32): ``march`` plus each
     sample's packed 0x00RRGGBB color from the (scale*n, scale*n) int32
-    plane ``colors`` (scale 1: cell resolution, 2: half-cell)."""
+    plane ``colors`` (scale 1: cell resolution, 2: half-cell). Batched as
+    ``march``; in a batch ``colors`` is shared or (B, scale*n, scale*n)."""
     if dem.device.type == "cpu":
         return march_plain(dem, pcol, fscal, k, colors, scale)
-    _check_march("march_textured", dem, pcol, fscal)
-    n, w = dem.shape[0], pcol.shape[0]
+    b, w, n, stride, batched = _check_march("march_textured", dem, pcol,
+                                            fscal)
     if scale not in (1, 2):
         raise ValueError(f"march_textured: scale must be 1 or 2, got {scale}")
-    _check("march_textured", "colors", colors, (scale * n, scale * n),
-           torch.int32, dem.device)
-    out = torch.empty((w, k), dtype=torch.float32, device=dem.device)
-    tex = torch.empty((w, k), dtype=torch.int32, device=dem.device)
+    cstride = _plane_stride("march_textured", "colors", colors, scale * n, b,
+                            batched, torch.int32, dem.device)
+    shape = (b, w, k) if batched else (w, k)
+    out = torch.empty(shape, dtype=torch.float32, device=dem.device)
+    tex = torch.empty(shape, dtype=torch.int32, device=dem.device)
     rc = build.library().hz_window_march_tex(
-        dem.data_ptr(), n, colors.data_ptr(), scale, pcol.data_ptr(),
-        fscal.data_ptr(), w, k, out.data_ptr(), tex.data_ptr(),
-        torch.cuda.current_stream(dem.device).cuda_stream)
+        dem.data_ptr(), n, stride, colors.data_ptr(), scale, cstride,
+        pcol.data_ptr(), fscal.data_ptr(), b, w, k, out.data_ptr(),
+        tex.data_ptr(), torch.cuda.current_stream(dem.device).cuda_stream)
     if rc:
         raise RuntimeError(f"textured window march launch failed: CUDA "
                            f"error {rc}")

@@ -1,0 +1,110 @@
+"""Many viewpoints on one device: the batch axis of the render.
+
+Counterpart of horizonator_tpu.parallel.sharding's single-device entries.
+The JAX package renders a batch as ``lax.map`` over ``render_panorama``,
+one dispatch for the whole batch. Here the batch is an axis of the render
+itself: RenderParams with (B,) fields go through one pass of the glue, and
+each kernel launches once per chunk of viewpoints (the march with the
+viewpoint on its grid's z axis, the resolve over B*W columns), so the
+host's per-launch cost is paid once per chunk, not once per viewpoint.
+
+Working memory stays bounded as under ``lax.map``: a batch runs in chunks
+whose estimated working set (``chunk_bytes``, from B, W, H and the sample
+count K) stays under ``BATCH_BYTES``. Each viewpoint's output is bitwise
+its single render's, whatever the chunk size.
+
+Not ported here: ``horizon_batch`` (it needs the step sampler's
+``march_tanel``) and the multi-device ``make_sharded_*`` (scale-out).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..render.crossing import N_NEAR
+from ..render.raymarch import (RenderParams, broadcast_params_batch,
+                               render_panorama, stack_params)
+from ..render.window import step_budget
+
+# the most device memory one chunk's render is estimated to hold
+BATCH_BYTES = 16 << 30
+# its estimate: bytes a viewpoint holds per march sample (the samples, their
+# rows, the near band's and the levels' concatenations; textured, their
+# colors) and per output pixel (the resolve's idx, alpha, ok and colors, the
+# tail's distances, ranges and image)
+SAMPLE_BYTES, SAMPLE_BYTES_TEX = 32, 48
+PIXEL_BYTES, PIXEL_BYTES_TEX = 64, 96
+
+__all__ = ["BATCH_BYTES", "broadcast_params_batch", "chunk_bytes",
+           "chunk_size", "render_batch", "render_path", "stack_params"]
+
+
+def _samples(dem, sampler: str, nsteps: int, lod_plan) -> int:
+    """K, the march samples a column of the render holds."""
+    if sampler == "lod":
+        return N_NEAR + sum(s.k_len for s in lod_plan)
+    return N_NEAR + step_budget(nsteps, dem.shape[-1])
+
+
+def chunk_bytes(b: int, width: int, height: int, k: int,
+                textured: bool = False) -> int:
+    """Estimated device bytes of rendering b viewpoints at once: W*K
+    samples and W*H pixels each."""
+    per_sample = SAMPLE_BYTES_TEX if textured else SAMPLE_BYTES
+    per_pixel = PIXEL_BYTES_TEX if textured else PIXEL_BYTES
+    return b * width * (k * per_sample + height * per_pixel)
+
+
+def chunk_size(b: int, width: int, height: int, k: int,
+               textured: bool = False) -> int:
+    """The most viewpoints of a batch of b that one chunk renders under
+    ``BATCH_BYTES`` (at least one)."""
+    one = chunk_bytes(1, width, height, k, textured)
+    return max(1, min(b, BATCH_BYTES // one))
+
+
+def render_batch(dem, params: RenderParams, *, width, height, nsteps,
+                 cells_per_deg, surface="bilinear", refine=True,
+                 sampler="step", lat_hint_deg=45.0, lod_plan=None,
+                 textured=False, color_planes=None, znear_hint_m=100.0,
+                 atlas=None, atlas_params=None, exact_near_m=None,
+                 with_dropped=False, plain=False):
+    """Batch render over a stacked RenderParams batch ((B,) fields; 0-d
+    fields broadcast): (images (B, H, W, 3) uint8, ranges (B, H, W)
+    float32), plus the (B, 2) int32 guard [dropped, truncated] per
+    viewpoint under ``with_dropped``.
+
+    The DEM (or LOD pyramid), ``color_planes``, the atlas and the LOD plan
+    are shared by the batch; the arguments are render_panorama's. Only
+    the 'window' and 'lod' samplers are ported. ``plain`` runs the
+    kernels' plain PyTorch versions (for comparisons)."""
+    if sampler not in ("window", "lod"):
+        raise NotImplementedError(f"sampler={sampler!r} is not ported; "
+                                  "only 'window' and 'lod' are")
+    params = broadcast_params_batch(params)
+    if params.viewer_cell_i.dim() != 1 or not len(params.viewer_cell_i):
+        raise ValueError(f"render_batch takes RenderParams with (B,) fields, "
+                         f"B >= 1; got {tuple(params.viewer_cell_i.shape)}")
+    b = params.viewer_cell_i.shape[0]
+    step = chunk_size(b, width, height,
+                      _samples(dem, sampler, nsteps, lod_plan), textured)
+    kw = dict(width=width, height=height, nsteps=nsteps,
+              cells_per_deg=cells_per_deg, surface=surface, refine=refine,
+              sampler=sampler, lat_hint_deg=lat_hint_deg, lod_plan=lod_plan,
+              textured=textured, color_planes=color_planes,
+              znear_hint_m=znear_hint_m, atlas=atlas,
+              atlas_params=atlas_params, exact_near_m=exact_near_m,
+              with_dropped=True, plain=plain)
+    parts = [render_panorama(dem, RenderParams(*(x[s:s + step]
+                                                 for x in params)), **kw)
+             for s in range(0, b, step)]
+    out = parts[0] if len(parts) == 1 else tuple(
+        torch.cat(xs) for xs in zip(*parts))
+    return out if with_dropped else out[:2]
+
+
+def render_path(dem, params_path: RenderParams, **kw):
+    """Fly-through: render a camera path (stacked RenderParams, leading
+    axis = frames) as one batch. Returns (images (F, H, W, 3), ranges (F,
+    H, W)); keywords as render_batch's."""
+    return render_batch(dem, params_path, **kw)

@@ -8,7 +8,8 @@ ones at integer columns. The crossing at step m has cross-axis position
 sample is a 2-tap lerp along one grid line: exact on the bilinear and the
 reference's triangulated surface alike (horizonator-lib.c:496-507).
 
-All arithmetic is float32 in the JAX package's operation order.
+All arithmetic is float32 in the JAX package's operation order. With
+(B,) RenderParams fields every per-column array is (B, W).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from .. import geometry
 from ..geometry import const, recip
-from .raymarch import RenderParams
+from .raymarch import RenderParams, cols, samples
 
 DEG = math.pi / 180.0
 NEG_BIG = -3.0e38
@@ -28,7 +29,8 @@ N_NEAR = 4
 
 
 class CrossingGeom(NamedTuple):
-    """Per-column crossing parameterization, all (W,) float32 unless noted."""
+    """Per-column crossing parameterization, all (W,) float32 unless noted
+    ((B, W) for a batch)."""
     az: torch.Tensor        # column azimuth, rad
     j_dom: torch.Tensor     # bool: row-dominant (sample at integer j)
     axis0: torch.Tensor     # int32 first integer row (j-dom) / column
@@ -37,8 +39,8 @@ class CrossingGeom(NamedTuple):
     scale: torch.Tensor     # meters of horizontal distance per step
     a: torch.Tensor         # cross-axis position at m=0
     t: torch.Tensor         # cross-axis position increment per step
-    cell_m_north: torch.Tensor
-    cell_m_east: torch.Tensor
+    cell_m_north: torch.Tensor   # 0-d
+    cell_m_east: torch.Tensor    # per viewpoint: 0-d, or (B,)
 
 
 def crossing_geometry(params: RenderParams, *, width: int,
@@ -48,16 +50,18 @@ def crossing_geometry(params: RenderParams, *, width: int,
     _, az_center, az_ndc_per_rad = geometry.az_window_rad(p.az_rad0, p.az_rad1)
     x = torch.arange(width, dtype=torch.float32, device=az_center.device)
     az_ndc = (x + 0.5) * recip(width) * 2.0 - 1.0
-    az = az_center + az_ndc / az_ndc_per_rad
+    az = cols(az_center) + az_ndc / cols(az_ndc_per_rad)
     return crossing_geometry_at(params, az, cells_per_deg)
 
 
 def crossing_geometry_at(params: RenderParams, az: torch.Tensor,
                          cells_per_deg: int) -> CrossingGeom:
-    """crossing_geometry for explicit azimuths (any shape)."""
+    """crossing_geometry for explicit azimuths: (W,) for 0-d params, (B,
+    W) for (B,) params."""
     p = params
     cell_n = const(geometry.EARTH_RADIUS_M * DEG / cells_per_deg, az)
-    cell_e = cell_n * p.cos_viewer_lat
+    cell_e_v = cell_n * p.cos_viewer_lat
+    cell_e = cols(cell_e_v)
     sin_az = torch.sin(az)
     cos_az = torch.cos(az)
 
@@ -75,7 +79,7 @@ def crossing_geometry_at(params: RenderParams, az: torch.Tensor,
     sign_j = torch.where(cos_az >= 0, one, -one)
     sign_i = torch.where(sin_az >= 0, one, -one)
 
-    ci, cj = p.viewer_cell_i, p.viewer_cell_j
+    ci, cj = cols(p.viewer_cell_i), cols(p.viewer_cell_j)
     # first crossing strictly beyond the viewer (a viewer exactly on a grid
     # line skips its own line)
     r0 = torch.where(sign_j > 0, torch.floor(cj) + 1.0, torch.ceil(cj) - 1.0)
@@ -99,7 +103,7 @@ def crossing_geometry_at(params: RenderParams, az: torch.Tensor,
         scale=torch.where(j_dom, scale_j, scale_i),
         a=torch.where(j_dom, a_j, a_i),
         t=torch.where(j_dom, t_j, t_i),
-        cell_m_north=cell_n, cell_m_east=cell_e)
+        cell_m_north=cell_n, cell_m_east=cell_e_v)
 
 
 def k_cross_for(zfar_m: float, cells_per_deg: int, lat_deg: float,
@@ -129,12 +133,15 @@ class CrossingDists(NamedTuple):
     # int32 0-d: columns whose valid crossing interval extends past the
     # step budget (a manual nsteps below k_cross_for's); 0 == none
     truncated: torch.Tensor | None = None
+    # (a batch: (B, W) columns, (B,) znear and guards)
 
     def d_of(self, idx: torch.Tensor) -> torch.Tensor:
-        """Sample distance for (W, ...) integer sample indices."""
+        """Sample distance for (W, X) integer sample indices ((B, W, X) in
+        a batch)."""
         q = self.n_near
         idxf = idx.to(torch.float32)
-        d_near = self.znear + idxf * (
-            (self.near_hi[:, None] - self.znear) * recip(q))
-        d_crossing = (idxf - q + self.e[:, None]) * self.scale[:, None]
+        znear = samples(self.znear)
+        d_near = znear + idxf * (
+            (self.near_hi[..., None] - znear) * recip(q))
+        d_crossing = (idxf - q + self.e[..., None]) * self.scale[..., None]
         return torch.where(idxf < q, d_near, d_crossing)

@@ -15,6 +15,11 @@ package's float32 operation order (its levels are bitwise the JAX
 package's). The crop origin stays on the device: the crop is one gather
 with index vectors built there, so a frame makes no host sync per level.
 
+A batch ((B,) RenderParams fields) shares the plan, the crop sizes and
+the pyramids; each level's crop is one gather at every viewpoint's own
+origin, (B, c, c), and the level marches the batch in one launch over
+those crops.
+
 Where the JAX package is silent this module fails loudly:
 - a 2D packed plane given to ``build_color_pyramid`` raises (the JAX
   package reads its rows as colour channels);
@@ -35,7 +40,7 @@ import torch.nn.functional as F
 from .. import geometry
 from ..geometry import const, recip
 from .crossing import N_NEAR, NEG_BIG, crossing_geometry
-from .raymarch import RenderParams
+from .raymarch import RenderParams, samples
 from .texture import ColorPlanes2x, pack_cell_colors, unpack_color_planes
 from .window import march_from_geometry
 
@@ -187,7 +192,10 @@ def _crop_level(dem_l: torch.Tensor, p_l: RenderParams, colors_l,
 
     The origin is floor(viewer cell) - c//2, clipped into the grid; the
     crop is one gather. Rebasing by an integer is exact in float32, so
-    every crossing distance is bitwise the uncropped march's."""
+    every crossing distance is bitwise the uncropped march's. A batch
+    crops each viewpoint at its own origin in the same gather: (B, c, c)
+    grids, packed (B, c, c) and ColorPlanes2x (B, 2c, 2c) colours, (3, B,
+    c, c) float planes, (B,) origins."""
     nj, ni = dem_l.shape
     c = level_crop_size(spec, cells_per_deg_l, lat_hint_deg)
     if nj != ni or c >= ni:
@@ -198,7 +206,8 @@ def _crop_level(dem_l: torch.Tensor, p_l: RenderParams, colors_l,
 
     def crop(a, o_j, o_i, size):
         r = torch.arange(size, device=a.device)
-        rows, cols = (o_j + r)[:, None], (o_i + r)[None, :]
+        rows = (o_j[..., None] + r)[..., :, None]
+        cols = (o_i[..., None] + r)[..., None, :]
         return a[..., rows, cols]
 
     dem_c = crop(dem_l, oj, oi, c)
@@ -220,6 +229,7 @@ class LodDists(NamedTuple):
     scale: torch.Tensor      # (L, W) per-level meters per step
     znear: torch.Tensor
     near_hi: torch.Tensor    # (W,)
+    # (a batch: (L, B, W), (B,) znear and guards, (B, W) near_hi)
     n_near: int
     k_lo: tuple              # static per-level
     seg_len: tuple
@@ -232,15 +242,17 @@ class LodDists(NamedTuple):
     truncated: torch.Tensor | None = None
 
     def d_of(self, idx: torch.Tensor) -> torch.Tensor:
-        """Sample distance for (W, ...) integer sample indices."""
+        """Sample distance for (W, X) integer sample indices ((B, W, X) in
+        a batch)."""
         q = self.n_near
         idxf = idx.to(torch.float32)
-        d = self.znear + idxf * ((self.near_hi[:, None] - self.znear)
-                                 * recip(max(q, 1)))
+        znear = samples(self.znear)
+        d = znear + idxf * ((self.near_hi[..., None] - znear)
+                            * recip(max(q, 1)))
         off = q
         for li, (klo, slen) in enumerate(zip(self.k_lo, self.seg_len)):
             m = idxf - off + klo
-            d_l = (m + self.e[li][:, None]) * self.scale[li][:, None]
+            d_l = (m + self.e[li][..., None]) * self.scale[li][..., None]
             d = torch.where((idx >= off) & (idx < off + slen), d_l, d)
             off += slen
         return d
@@ -279,7 +291,8 @@ def march_lod(pyramid, params: RenderParams, *, width: int, plan,
     dists (LodDists), az), plus tex (W, same) int32 packed sample colours
     when ``color_pyramid`` is given. That is horizonator_tpu's march_lod
     without its run_max: the resolve takes the raw tangents
-    (``torch.cummax(tanel, 1)`` gives it).
+    (``torch.cummax(tanel, -1)`` gives it). A batch of (B,) params gives
+    (B, W, ...), one launch a level.
 
     ``pyramid``: build_pyramid's tuple (at least max level + 1 entries);
     ``plan``: lod_plan's tuple; ``color_pyramid``: build_color_pyramid's
@@ -289,7 +302,8 @@ def march_lod(pyramid, params: RenderParams, *, width: int, plan,
     textured = color_pyramid is not None
     segs, tex_segs, es, scales = [], [], [], []
     near_hi = az = None
-    dropped = torch.zeros((), dtype=torch.int32, device=p.znear.device)
+    dropped = torch.zeros(p.znear.shape, dtype=torch.int32,
+                          device=p.znear.device)
     truncated = torch.zeros_like(dropped)
     for si, spec in enumerate(plan):
         first = si == 0
@@ -305,23 +319,23 @@ def march_lod(pyramid, params: RenderParams, *, width: int, plan,
             znear_hint_m=znear_hint_m if first else None,
             color_planes=colors_c, plain=plain)
         tanel_l, dists_l = out[0], out[1]
-        k_avail = tanel_l.shape[1] - nn
+        k_avail = tanel_l.shape[-1] - nn
         hi = min(k_cross, k_avail)
         pad_k = spec.k_len - (hi - spec.k_lo)   # the grid capped K (tiny DEM)
-        seg = tanel_l[:, nn + spec.k_lo: nn + hi]
+        seg = tanel_l[..., nn + spec.k_lo: nn + hi]
         if pad_k > 0:
             seg = F.pad(seg, (0, pad_k), value=NEG_BIG)
         if first:
-            segs.append(tanel_l[:, :nn])
+            segs.append(tanel_l[..., :nn])
             near_hi, az = dists_l.near_hi, geo.az
         segs.append(seg)
         if textured:
             tex_l = out[2]
-            tseg = tex_l[:, nn + spec.k_lo: nn + hi]
+            tseg = tex_l[..., nn + spec.k_lo: nn + hi]
             if pad_k > 0:       # padded lanes are NEG_BIG: never a pixel's
                 tseg = F.pad(tseg, (0, pad_k))
             if first:
-                tex_segs.append(tex_l[:, :nn])
+                tex_segs.append(tex_l[..., :nn])
             tex_segs.append(tseg)
         es.append(dists_l.e)
         scales.append(dists_l.scale)
@@ -333,7 +347,7 @@ def march_lod(pyramid, params: RenderParams, *, width: int, plan,
                      k_lo=tuple(s.k_lo for s in plan),
                      seg_len=tuple(s.k_len for s in plan),
                      dropped=dropped, truncated=truncated)
-    tanel = torch.cat(segs, dim=1)
+    tanel = torch.cat(segs, dim=-1)
     if textured:
-        return tanel, dists, az, torch.cat(tex_segs, dim=1)
+        return tanel, dists, az, torch.cat(tex_segs, dim=-1)
     return tanel, dists, az

@@ -17,6 +17,10 @@ equal quantized keys is the network's; where a later sample raised the
 horizon by less than 1/512 px it can deliver that sample's color. The port
 keeps the first-crossing color there too (tests/test_torch_textured.py
 counts those pixels).
+
+A batch's rows (B, W, K) resolve as B*W columns of one launch: the kernel
+takes one block a column, and the alpha quantum depends on (K, H) alone,
+so one ``amax`` serves the whole batch.
 """
 
 from __future__ import annotations
@@ -68,13 +72,18 @@ def resolve_window(y_k: torch.Tensor, height: int, *,
     raw or already monotone (the running min of a non-increasing row is
     itself). ``tex`` (W, K) int32: the samples' packed colors; adds each
     pixel's first-crossing color. ``plain`` runs the plain PyTorch version
-    on any device (for comparisons with the kernel)."""
-    amax, int_first = alpha_quantum(y_k.shape[1], height)
-    y_k = y_k.contiguous()
+    on any device (for comparisons with the kernel). Leading batch axes,
+    (B, W, K) -> (B, W, height), fold into the columns."""
+    lead, k = y_k.shape[:-1], y_k.shape[-1]
+    amax, int_first = alpha_quantum(k, height)
+    y_k = y_k.reshape(-1, k).contiguous()
     if tex is not None:
-        tex = tex.to(torch.int32).contiguous()
+        tex = tex.to(torch.int32).reshape(-1, k).contiguous()
         if plain:
-            return resolve_plain(y_k, height, amax, int_first, tex=tex)
-        return resolve_textured(y_k, tex, height, amax, int_first)
-    return (resolve_plain if plain else _resolve)(y_k, height, amax,
-                                                  int_first)
+            out = resolve_plain(y_k, height, amax, int_first, tex=tex)
+        else:
+            out = resolve_textured(y_k, tex, height, amax, int_first)
+    else:
+        out = (resolve_plain if plain else _resolve)(y_k, height, amax,
+                                                     int_first)
+    return tuple(o.view(*lead, height) for o in out)

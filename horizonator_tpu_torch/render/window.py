@@ -22,6 +22,15 @@ k_limit) int32 packed 0x00RRGGBB per sample: the far field from the
 kernel's textured entry, the near band bilinear at the planes' own
 resolution, and, with an atlas and ``exact_near_m`` (the API's "hybrid"
 quality), atlas-true z12 colors for the samples nearer than exact_near_m.
+
+Batch: with (B,) RenderParams fields every array gains a leading B, (B, W)
+per column and (B, W, N_NEAR + k_limit) per sample, the guards come back
+per viewpoint as (B,) counts, and the kernel marches the whole batch in
+one launch. The DEM is one (n, n) grid that every viewpoint marches, or
+one (B, n, n) grid per viewpoint (the LOD levels' crops), and color planes
+likewise: packed (B, s*n, s*n) int32, a ColorPlanes2x of (B, 2n, 2n), or
+(3, B, n, n) float planes. The near patches and the hybrid near field's
+atlas patch take each viewpoint's own origin.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from ..kernels.window_march import (fma32, march, march_plain,
                                     march_textured)
 from .crossing import (CrossingDists, CrossingGeom, N_NEAR, NEG_BIG,
                        crossing_geometry)
-from .raymarch import RenderParams
+from .raymarch import RenderParams, cols, samples
 from .texture import (AtlasParams, ColorPlanes2x, atlas_px_from_grid,
                       pack_cell_colors, unpack_color_planes)
 
@@ -87,11 +96,12 @@ def _truncated(geo: CrossingGeom, p: RenderParams, n: int,
         geo.t == 0.0, -big,
         torch.where(geo.t > 0, lo - geo.a, geo.a - hi) / abs_t)
     m_hi = torch.minimum(torch.minimum(ax_hi_m, pos_hi_m),
-                         p.zfar / geo.scale - geo.e)
+                         cols(p.zfar) / geo.scale - geo.e)
     m_lo = torch.maximum(torch.maximum(ax_lo_m, pos_lo_m),
-                         torch.clamp(p.znear / geo.scale - geo.e, min=0.0))
+                         torch.clamp(cols(p.znear) / geo.scale - geo.e,
+                                     min=0.0))
     reach = torch.maximum(torch.ceil(m_lo), const(float(k_limit), geo.a))
-    return (torch.floor(m_hi) >= reach).sum().to(torch.int32)
+    return (torch.floor(m_hi) >= reach).sum(dim=-1).to(torch.int32)
 
 
 def _hat(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -131,12 +141,24 @@ def _bgr_of(src: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(3, ...) float32 B, G, R of values gathered from a color source: the
     bytes of a packed int32 plane, or (3, ...) float planes as they are
     (the JAX near band contracts float planes unrounded)."""
-    return unpack_color_planes(v) if src.dim() == 2 else v
+    return unpack_color_planes(v) if src.dtype == torch.int32 else v
 
 
-def _gather(src: torch.Tensor, rows, cols):
-    """src[..., rows, cols] of a packed plane or (3, ...) float planes."""
-    return src[rows, cols] if src.dim() == 2 else src[:, rows, cols]
+def _take(plane: torch.Tensor, rows, columns, per_view: bool):
+    """plane[rows, columns] of a shared 2-D plane, or with ``per_view``
+    each viewpoint's own plane of a (B, m, m) stack at (B, ...) indices."""
+    if not per_view:
+        return plane[rows, columns]
+    b = torch.arange(plane.shape[0], device=plane.device)
+    return plane[b.view(-1, *([1] * (rows.dim() - 1))), rows, columns]
+
+
+def _gather(src: torch.Tensor, rows, columns, per_view: bool = False):
+    """Values of a packed plane, or (3, ...) B/G/R of float planes, at
+    (rows, columns); ``per_view``: src holds one plane per viewpoint."""
+    if src.dtype == torch.int32:
+        return _take(src, rows, columns, per_view)
+    return torch.stack([_take(c, rows, columns, per_view) for c in src])
 
 
 def _near_samples(p: RenderParams, geo: CrossingGeom, n_near: int,
@@ -145,26 +167,28 @@ def _near_samples(p: RenderParams, geo: CrossingGeom, n_near: int,
     [znear, near_hi) and their grid positions (window.py:1027-1038)."""
     q = torch.arange(n_near, dtype=torch.float32, device=near_hi.device)[
         None, :]
+    znear = samples(p.znear)
     # 1 mm floor: znear == 0 would put the first sample at d = 0
     dq = torch.clamp(
-        p.znear + q * ((near_hi[:, None] - p.znear) * recip(n_near)),
+        znear + q * ((near_hi[..., None] - znear) * recip(n_near)),
         min=1e-3)
     return (dq,) + _grid_pos(p, geo, dq)
 
 
 def _grid_pos(p: RenderParams, geo: CrossingGeom, d: torch.Tensor):
     """Grid coordinates (i, j) at horizontal distance d along each column."""
-    sin_az = torch.sin(geo.az)[:, None]
-    cos_az = torch.cos(geo.az)[:, None]
-    iq = p.viewer_cell_i + d * sin_az / geo.cell_m_east
+    sin_az = torch.sin(geo.az)[..., None]
+    cos_az = torch.cos(geo.az)[..., None]
+    iq = samples(p.viewer_cell_i) + d * sin_az / samples(geo.cell_m_east)
     # cell_m_north is a Python constant in the JAX package: XLA multiplies
     # by its float32 reciprocal
-    jq = p.viewer_cell_j + d * cos_az * (1.0 / geo.cell_m_north)
+    jq = samples(p.viewer_cell_j) + d * cos_az * (1.0 / geo.cell_m_north)
     return iq, jq
 
 
 def _patch_origin(p: RenderParams, patch_n: int, n: int):
-    """(oi, oj) int32: the viewer-centered near patch's corner."""
+    """(oi, oj) int32: the viewer-centered near patch's corner, per
+    viewpoint."""
     return tuple(
         torch.clamp(torch.floor(v).to(torch.int32) - (patch_n // 2 - 1),
                     0, n - patch_n)
@@ -174,25 +198,28 @@ def _patch_origin(p: RenderParams, patch_n: int, n: int):
 def _near_band(dem: torch.Tensor, p: RenderParams, dq, iq, jq, near_hi, *,
                n_real: int, patch_n: int | None):
     """(tanel_q (W, n_near), dropped) -- window.py:1039-1114 for a square
-    grid. ``dem`` is the (zero-padded) march grid, ``n_real`` the loaded
-    grid's edge."""
-    n = dem.shape[0]
+    grid. ``dem`` is the (zero-padded) march grid, or (B, n, n) one per
+    viewpoint; ``n_real`` the loaded grid's edge."""
+    n = dem.shape[-1]
+    per_view = dem.dim() == 3
     edge = float(n_real - 1)
     vq = ((iq >= 0) & (iq <= edge) & (jq >= 0) & (jq <= edge)
-          & (dq >= p.znear) & (dq <= p.zfar) & (dq < near_hi[:, None]))
-    dropped = torch.zeros((), dtype=torch.int32, device=dem.device)
+          & (dq >= samples(p.znear)) & (dq <= samples(p.zfar))
+          & (dq < near_hi[..., None]))
+    dropped = torch.zeros(p.znear.shape, dtype=torch.int32,
+                          device=dem.device)
     if patch_n is not None:
         # the viewer-centered patch at 0.5 m elevation resolution
-        oi, oj = _patch_origin(p, patch_n, n)
+        oi, oj = (samples(o) for o in _patch_origin(p, patch_n, n))
         ir = iq - oi.to(torch.float32)
         jr = jq - oj.to(torch.float32)
-        u0, v0, rows, cols = _corners(ir, jr, patch_n)
-        c = [[torch.round(dem[oj + r, oi + cc] * 2.0) * 0.5 for cc in cols]
-             for r in rows]
+        u0, v0, rows, columns = _corners(ir, jr, patch_n)
+        c = [[torch.round(_take(dem, oj + r, oi + cc, per_view) * 2.0) * 0.5
+              for cc in columns] for r in rows]
         zq = _bilerp(c, ir, jr, u0, v0)
         last = float(patch_n - 1)
         in_patch = (ir >= 0.0) & (ir <= last) & (jr >= 0.0) & (jr <= last)
-        dropped = (vq & ~in_patch).sum().to(torch.int32)
+        dropped = (vq & ~in_patch).sum(dim=(-2, -1)).to(torch.int32)
         vq = vq & in_patch
     else:
         # patch too large for its cap (or the grid): bilinear from four
@@ -203,30 +230,33 @@ def _near_band(dem: torch.Tensor, p: RenderParams, dq, iq, jq, near_hi, *,
         fj = torch.clamp(jq - j0, 0.0, 1.0)
         zq16 = torch.clamp(torch.round(dem * 2.0), -32768, 32767) * 0.5
         i0, j0 = i0.long(), j0.long()
-        z00, z01 = zq16[j0, i0], zq16[j0, i0 + 1]
-        z10, z11 = zq16[j0 + 1, i0], zq16[j0 + 1, i0 + 1]
+        z00, z01, z10, z11 = (_take(zq16, j, i, per_view) for j, i in (
+            (j0, i0), (j0, i0 + 1), (j0 + 1, i0), (j0 + 1, i0 + 1)))
         ztop = z00 + (z01 - z00) * fi
         zbot = z10 + (z11 - z10) * fi
         zq = ztop + (zbot - ztop) * fj
-    tanel_q = torch.where(vq, fma32(-dq, p.curv.expand_as(dq),
-                                    (zq - p.viewer_z) / dq),
+    tanel_q = torch.where(vq, fma32(-dq, samples(p.curv).expand_as(dq),
+                                    (zq - samples(p.viewer_z)) / dq),
                           const(NEG_BIG, zq))
     return tanel_q, dropped
 
 
 def _near_colors(src: torch.Tensor, s: int, p: RenderParams, iq, jq, *,
-                 n_real: int, patch_n: int | None) -> torch.Tensor:
+                 n_real: int, patch_n: int | None,
+                 per_view: bool = False) -> torch.Tensor:
     """(W, n_near) packed near-band colors at the planes' own resolution s
     (window.py:1115-1201). ``src``: the zero-padded packed (s*n, s*n)
-    plane, or (3, n, n) float planes at s = 1."""
+    plane, or (3, n, n) float planes at s = 1; with ``per_view`` one per
+    viewpoint, (B, s*n, s*n) or (3, B, n, n)."""
     if patch_n is not None:
         # the same viewer patch as the elevation, s times finer
-        oi, oj = _patch_origin(p, patch_n, src.shape[-1] // s)
+        oi, oj = (samples(o) for o in
+                  _patch_origin(p, patch_n, src.shape[-1] // s))
         irc = iq * s - (s * oi).to(torch.float32)
         jrc = jq * s - (s * oj).to(torch.float32)
-        u0, v0, rows, cols = _corners(irc, jrc, s * patch_n)
-        c = [[_bgr_of(src, _gather(src, s * oj + r, s * oi + cc))
-              for cc in cols] for r in rows]
+        u0, v0, rows, columns = _corners(irc, jrc, s * patch_n)
+        c = [[_bgr_of(src, _gather(src, s * oj + r, s * oi + cc, per_view))
+              for cc in columns] for r in rows]
         return _pack_u8(_bilerp(c, irc, jrc, u0, v0))
     # gather form: bilinear from four corners, clamped to the real planes
     iqs, jqs = iq * s, jq * s
@@ -235,7 +265,8 @@ def _near_colors(src: torch.Tensor, s: int, p: RenderParams, iq, jq, *,
     fi = torch.clamp(iqs - i0, 0.0, 1.0)
     fj = torch.clamp(jqs - j0, 0.0, 1.0)
     i0, j0 = i0.long(), j0.long()
-    g00, g01, g10, g11 = (_bgr_of(src, _gather(src, j, i)) for j, i in (
+    g00, g01, g10, g11 = (_bgr_of(src, _gather(src, j, i, per_view))
+                          for j, i in (
         (j0, i0), (j0, i0 + 1), (j0 + 1, i0), (j0 + 1, i0 + 1)))
     top = g00 + (g01 - g00) * fi
     bot = g10 + (g11 - g10) * fi
@@ -267,18 +298,19 @@ def _exact_near_colors(atlas: torch.Tensor, ap: AtlasParams,
     int32, replace mask): samples outside the patch or beyond exact_near_m
     keep their plane colors."""
     mm = torch.arange(k_x, dtype=torch.float32, device=atlas.device)[None, :]
-    d = (mm + geo.e[:, None]) * geo.scale[:, None]
+    d = (mm + geo.e[..., None]) * geo.scale[..., None]
     iq, jq = _grid_pos(p, geo, d)
     if near is not None:
-        d, iq, jq = (torch.cat(pair, dim=1)
+        d, iq, jq = (torch.cat(pair, dim=-1)
                      for pair in zip(near, (d, iq, jq)))
-    # the viewer's own atlas position rides along as one more element
+    # the viewers' own atlas positions ride along as nv more elements
+    nv = p.viewer_cell_i.numel()
     px, py = atlas_px_from_grid(
-        torch.cat([iq.reshape(-1), p.viewer_cell_i.reshape(1)]),
-        torch.cat([jq.reshape(-1), p.viewer_cell_j.reshape(1)]), ap,
+        torch.cat([iq.reshape(-1), p.viewer_cell_i.reshape(-1)]),
+        torch.cat([jq.reshape(-1), p.viewer_cell_j.reshape(-1)]), ap,
         cells_per_deg)
-    pxv, pyv = px[-1], py[-1]
-    px, py = px[:-1].view_as(iq), py[:-1].view_as(jq)
+    pxv, pyv = (v[-nv:].view_as(p.viewer_cell_i) for v in (px, py))
+    px, py = px[:-nv].view_as(iq), py[:-nv].view_as(jq)
     h_at, w_at = atlas.shape
     if min(h_at, w_at) < p_at:
         raise ValueError(f"atlas {tuple(atlas.shape)} is smaller than the "
@@ -287,10 +319,11 @@ def _exact_near_colors(atlas: torch.Tensor, ap: AtlasParams,
                      0, w_at - p_at)
     oy = torch.clamp(torch.round(pyv).to(torch.int32) - p_at // 2,
                      0, h_at - p_at)
+    ox, oy = samples(ox), samples(oy)
     xr = px - 0.5 - ox.to(torch.float32)
     yr = py - 0.5 - oy.to(torch.float32)
-    u0, v0, rows, cols = _corners(xr, yr, p_at)
-    c = [[unpack_color_planes(atlas[oy + r, ox + cc]) for cc in cols]
+    u0, v0, rows, columns = _corners(xr, yr, p_at)
+    c = [[unpack_color_planes(atlas[oy + r, ox + cc]) for cc in columns]
          for r in rows]
     packed = _pack_u8(_bilerp(c, xr, yr, u0, v0))
     replace = ((xr >= 0.0) & (xr <= p_at - 1.0) & (yr >= 0.0)
@@ -298,32 +331,37 @@ def _exact_near_colors(atlas: torch.Tensor, ap: AtlasParams,
     return packed, replace
 
 
-def _color_source(color_planes, n: int):
+def _color_source(color_planes, n: int, batch: tuple = ()):
     """(far plane, scale, near source) of a march's color planes: the
     packed (s*n, s*n) int32 plane the kernel reads, s, and what the near
     band samples (the JAX package contracts (3, n, n) float planes
-    unpacked there). Checks the shapes as window.py:680-736 does."""
+    unpacked there). Checks the shapes as window.py:680-736 does.
+    ``batch``: (B,) when the planes hold one grid per viewpoint, packed
+    (B, s*n, s*n) or (3, B, n, n) float."""
+    lead = tuple(batch)
     if isinstance(color_planes, ColorPlanes2x):
         fp = color_planes.full_packed
-        if tuple(fp.shape) != (2 * n, 2 * n) or fp.dtype != torch.int32:
+        if (tuple(fp.shape) != lead + (2 * n, 2 * n)
+                or fp.dtype != torch.int32):
             raise ValueError(f"ColorPlanes2x plane {fp.dtype} "
                              f"{tuple(fp.shape)} does not match the ({n}, "
                              f"{n}) grid")
         return fp.contiguous(), 2, fp
-    if color_planes.dim() == 2:
+    if color_planes.dim() == 2 + len(lead) and (
+            color_planes.dtype == torch.int32 or not lead):
         if color_planes.dtype != torch.int32:
             raise ValueError(
                 f"2D color_planes must be packed int32 0x00RRGGBB "
                 f"(texture.pack_cell_colors), got {color_planes.dtype}")
-        if tuple(color_planes.shape) != (n, n):
+        if tuple(color_planes.shape) != lead + (n, n):
             raise ValueError(f"packed color plane shape "
                              f"{tuple(color_planes.shape)} does not match "
                              f"the ({n}, {n}) grid")
         return color_planes.contiguous(), 1, color_planes
-    s = color_planes.shape[1] // n
-    if (color_planes.dim() != 3 or color_planes.shape[0] != 3
-            or s not in (1, 2)
-            or tuple(color_planes.shape[1:]) != (s * n, s * n)):
+    s = color_planes.shape[-1] // n
+    if (color_planes.dim() != 3 + len(lead) or color_planes.shape[0] != 3
+            or s not in (1, 2) or tuple(color_planes.shape[1:])
+            != lead + (s * n, s * n)):
         raise ValueError(f"color_planes shape {tuple(color_planes.shape)} "
                          f"is neither (3, n, n) nor (3, 2n, 2n) for the "
                          f"({n}, {n}) grid")
@@ -355,9 +393,15 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
     ``atlas_params`` and ``exact_near_m`` add the hybrid near field.
 
     ``plain`` runs the march's plain PyTorch version on any device (for
-    comparisons with the kernel); otherwise the wrappers pick by device."""
+    comparisons with the kernel); otherwise the wrappers pick by device.
+
+    Batched (B,) params give (B, W, ...) arrays, one kernel launch for the
+    batch, and (B,) guards; ``dem`` is then a shared (n, n) grid or one
+    (B, n, n) grid per viewpoint (color planes alike, see the module
+    docstring)."""
     p = params
-    n = dem.shape[0]
+    n = dem.shape[-1]
+    per_view = dem.dim() == 3
     dem = dem.to(torch.float32).contiguous()
     k_limit = step_budget(k_cross, n)
 
@@ -365,21 +409,24 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
         geo.a, geo.t, geo.e, geo.scale,
         geo.axis0.to(torch.float32), geo.sign.to(torch.float32),
         geo.j_dom.to(torch.float32), torch.zeros_like(geo.a)],
-        dim=1).contiguous()
-    fscal = torch.stack([p.viewer_z, p.znear, p.zfar, p.curv]).to(
+        dim=-1).contiguous()
+    fscal = torch.stack([p.viewer_z, p.znear, p.zfar, p.curv], dim=-1).to(
         torch.float32)
     textured = color_planes is not None
     if textured:
-        plane, s, near_src = _color_source(color_planes, n)
+        plane, s, near_src = _color_source(color_planes, n,
+                                           dem.shape[:1] if per_view else ())
         far, tex = (march_plain if plain else march_textured)(
             dem, pcol, fscal, k_limit, plane, s)
     else:
         far = (march_plain if plain else march)(dem, pcol, fscal, k_limit)
     truncated = _truncated(geo, p, n, k_limit)
 
-    m_star = torch.clamp(torch.ceil(p.znear / geo.scale - geo.e), min=0.0)
-    near_hi = torch.maximum((m_star + geo.e) * geo.scale, p.znear)
-    dropped = torch.zeros((), dtype=torch.int32, device=dem.device)
+    m_star = torch.clamp(torch.ceil(cols(p.znear) / geo.scale - geo.e),
+                         min=0.0)
+    near_hi = torch.maximum((m_star + geo.e) * geo.scale, cols(p.znear))
+    dropped = torch.zeros(p.znear.shape, dtype=torch.int32,
+                          device=dem.device)
     near = None
     if n_near > 0:
         pad = max(n, ALIGN_MIN_N) - n     # tiny grids: zeros = ocean
@@ -392,13 +439,14 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
         near = dq, iq, jq = _near_samples(p, geo, n_near, near_hi)
         tanel_q, dropped = _near_band(grid, p, dq, iq, jq, near_hi,
                                       n_real=n, patch_n=patch_n)
-        far = torch.cat([tanel_q, far], dim=1)
+        far = torch.cat([tanel_q, far], dim=-1)
         if textured:
             if pad:
                 near_src = torch.nn.functional.pad(
                     near_src, (0, s * pad, 0, s * pad))
             tex = torch.cat([_near_colors(near_src, s, p, iq, jq, n_real=n,
-                                          patch_n=patch_n), tex], dim=1)
+                                          patch_n=patch_n,
+                                          per_view=per_view), tex], dim=-1)
     if (textured and exact_near_m is not None and atlas is not None
             and atlas_params is not None):
         tex = _hybrid_near_field(tex, atlas, atlas_params, geo, p, near,
@@ -434,9 +482,10 @@ def _hybrid_near_field(tex, atlas, ap, geo, p, near, *, n_near,
                                  p_at=p_at,
                                  cells_per_deg=cells_per_deg,
                                  exact_near_m=exact_near_m)
-    lanes = min(n_near + k_x, tex.shape[1])
-    return torch.cat([torch.where(rep[:, :lanes], ex[:, :lanes],
-                                  tex[:, :lanes]), tex[:, lanes:]], dim=1)
+    lanes = min(n_near + k_x, tex.shape[-1])
+    return torch.cat([torch.where(rep[..., :lanes], ex[..., :lanes],
+                                  tex[..., :lanes]), tex[..., lanes:]],
+                     dim=-1)
 
 
 def march_window(dem: torch.Tensor, params: RenderParams, *, width: int,
@@ -458,5 +507,5 @@ def march_window(dem: torch.Tensor, params: RenderParams, *, width: int,
         color_planes=color_planes, atlas=atlas, atlas_params=atlas_params,
         exact_near_m=exact_near_m, plain=plain)
     tanel = out[0]
-    run_max = torch.cummax(tanel, dim=1).values
+    run_max = torch.cummax(tanel, dim=-1).values
     return (tanel, run_max, out[1], geo.az) + tuple(out[2:])
