@@ -122,7 +122,27 @@ Phases, in order; any failure raises and exits nonzero:
     SRTM1 tile (LOD), each viewpoint bitwise its own render(); fly over a
     seeded 6000^2 host grid in a 2048 window (margin 256), 32 frames in
     segments of 8, each frame bitwise its render on a window placed at the
-    same origin, the uploads logged.
+    same origin, the uploads logged;
+23. suite config 5 (suite.py:171): horizon_sweep of 1024 viewpoints on a
+    32 x 32 lattice over a 1200^2 grid of bench.py's formula (W 256, zfar
+    20 km, K 320 + 4): one batched march launch, the sweep bitwise equal to
+    the plain versions' and to 1024 single sweeps, the batched launch
+    bitwise equal to its plain version; us per viewpoint batched and as
+    single sweeps, the launch on the device clock against its bound;
+24. suite config 7 (suite.py:257): one 800 x 800 viewshed_grid raster at
+    W 720 from the grid's centre (full circle, the contract resampler),
+    then the gather resampler, a -30..140 deg window (with and without the
+    full_circle promise, whose guard must then count uncovered cells) and
+    a fixed frame: each raster and guard bitwise equal to the plain
+    versions' (the march's and the direct masked max); ms per raster; the
+    CLI's --viewshed on phase 6's tiles, its TIFF read back (tags, and the
+    pixels bitwise viewshed_grid's raster, north up);
+25. suite config 10 (suite.py:357): viewshed_count of 256 observers
+    (default_rng(5) positions in [420, 780]) over the frame (600, 600), hw
+    400, W 720, batches of 64: one march launch a batch, the counts bitwise
+    equal to the plain versions' and to the sum of 256 single rasters, the
+    batched launch bitwise equal to its plain version; us per observer
+    batched and as single rasters.
 Each phase group prints its seconds ("[t]" lines).
 A kernel's "device ms" (the ``ms`` of its record) is the replay time of a
 CUDA graph of back-to-back launches over their count, so no Python runs in
@@ -142,10 +162,11 @@ their LOD records: ``lod_launches`` per LOD render (phase 15 or 16),
 ``lod_ms`` (each level's march, or the resolve at K 1140, on the device
 clock) and ``lod_in_frame_ms`` (the same from the profiler inside real
 renders, under --profile; else null). The same four carry ``batch``: a
-list of the batch cells' records (phases 19-21), each with its cell,
-``batch`` (viewpoints), ``launches`` (per batch), ``ms`` and ``bound_ms``
-of the batched launch (configs 3 and 9: the sum over the levels, with
-``levels`` itemized), ``ms_per_frame``, ``ms_per_frame_single_loop``,
+list of the batch cells' records (phases 19-21; window_march also 23-25),
+each with its cell, ``batch`` (viewpoints), ``launches`` (per batch),
+``ms`` and ``bound_ms`` of the batched launch (configs 3 and 9: the sum
+over the levels, with ``levels`` itemized), ``ms_per_frame`` (per frame,
+viewpoint, raster or observer), ``ms_per_frame_single_loop``,
 ``device_busy`` (under --profile; else null), ``peak_mb`` and ``chunks``.
 Every number printed stands beside the card's name and power limit
 (phase 1's line and the line before the last). The last lines of standard
@@ -216,6 +237,14 @@ BIG_BATCH = (330, 4096, 1600, 1210)
 # phase 22's fly-through: host grid edge, window, margin, frames a segment,
 # frames
 FLY_N, FLY_WINDOW, FLY_MARGIN, FLY_CHUNK, FLY_FRAMES = 6000, 2048, 256, 8, 32
+# phases 23-25: the suite's viewshed cells over a 1200^2 grid to 20 km:
+# config 5, a 32 x 32 lattice of viewpoints at W 256; configs 7 and 10, an
+# 800 x 800 raster at W 720, and 256 observers counted in batches of 64
+VS_N, VS_ZFAR = 1200, 20000.0
+SWEEP_W, SWEEP_GRID = 256, 32
+VS_HW, VS_W = 400, 720
+COUNT_OBS, COUNT_BATCH = 256, 64
+COUNT_CENTER, COUNT_SPREAD = 600.0, (420.0, 780.0)
 
 
 def fail(msg):
@@ -2308,6 +2337,373 @@ def api_paging_phase(dev):
     log(f"[t] phase 22: {time.perf_counter() - t0:.1f} s")
 
 
+def march_launch_record(cell, dem, p, width, k, n, lat, launches, per_vp,
+                        loop, busy, peak_mb, chunks):
+    """The batched march launch of a viewshed cell alone: bitwise against
+    its plain version, its device ms (graph replay) and plain ms, and its
+    record against a bound that counts the DEM cells the batch reaches
+    (the union, read once, as reached_cells), (B, W, 8) + (B, 4) params in
+    and (B, W, K) samples out."""
+    from horizonator_tpu_torch.kernels.window_march import march, march_plain
+    from horizonator_tpu_torch.render.crossing import crossing_geometry
+    from horizonator_tpu_torch.render.window import step_budget
+    geo = crossing_geometry(p, width=width, cells_per_deg=CPD)
+    pcol, fscal = pcol_fscal(geo, p)
+    k_lim = step_budget(k, n)
+    got, ref = march(dem, pcol, fscal, k_lim), march_plain(dem, pcol, fscal,
+                                                           k_lim)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        fail(f"{cell}: batched march {tuple(got.shape)} != plain: "
+             f"{int((got != ref).sum())} samples differ")
+    del got, ref
+    m_ms = graph_ms(lambda: march(dem, pcol, fscal, k_lim),
+                    BATCH_GRAPH_LAUNCHES)
+    m_plain = cuda_ms_run(lambda i: march_plain(dem, pcol, fscal, k_lim), 2,
+                          warmup=0)
+    vi, vj = (x.cpu().numpy().reshape(-1) for x in (p.viewer_cell_i,
+                                                     p.viewer_cell_j))
+    cell_n = 6371000.0 * math.pi / 180.0 / CPD
+    cells = reached_cells(n, vi, vj, 0.0, float(p.zfar.reshape(-1)[0]),
+                          cell_n, lat)
+    b = vi.shape[0]
+    lanes = b * width * k_lim
+    rec = batch_record(cell, b, launches, m_ms, m_plain,
+                       4 * cells + pcol.nbytes + fscal.nbytes + 4 * lanes,
+                       MARCH_FLOPS * lanes, FP32_OPS_PER_S, per_vp, loop,
+                       busy, peak_mb, chunks)
+    log(f"[{cell}] batched march ({b}, {width}, {k_lim}) == plain bitwise; "
+        f"device ms {m_ms:.4f}, bound {rec['bound_ms']:.5f} "
+        f"({rec['bound_by']}: {cells} DEM cells, the union the batch "
+        f"reaches, read once), share {100 * rec['bound_ms'] / m_ms:.1f}% "
+        f"(plain {m_plain:.3f})")
+    return rec
+
+
+def peak_run(fn):
+    """fn()'s result and the device memory it allocated at its peak above
+    what was held before, MB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def profile_busy(fn, n, card, profile_dir, tag, title):
+    """Device busy ms per call of fn over n calls under torch.profiler, and
+    the march kernel's in-call ms; (None, None) without --profile."""
+    if not profile_dir:
+        return None, None
+    path = os.path.join(profile_dir, f"profile_{tag}.txt")
+    busy, in_frame = profile_renders(lambda i: fn(), n, card, path, title,
+                                     ("window_march_kernel<false",))
+    return busy, in_frame["window_march_kernel<false"]
+
+
+def sweep_phase(dev, card, profile_dir=None):
+    """Phase 23: suite config 5 (benchmarks/suite.py:171), horizon_sweep of
+    1024 viewpoints on a 32 x 32 lattice over a 1200^2 grid. Returns the
+    batched march's record."""
+    from horizonator_tpu_torch.kernels.window_march import march
+    from horizonator_tpu_torch.ops import horizon_sweep
+    from horizonator_tpu_torch.parallel import sharding
+    from horizonator_tpu_torch.render import RenderParams
+    from horizonator_tpu_torch.render.crossing import N_NEAR, k_cross_for
+    from horizonator_tpu_torch.render.window import step_budget
+    t0 = time.perf_counter()
+    n, w, b = VS_N, SWEEP_W, SWEEP_GRID ** 2
+    dem = torch.from_numpy(bench_dem(n=n)).to(dev)
+    k = k_cross_for(VS_ZFAR, CPD, LAT, n=n)
+    ii, jj = np.meshgrid(np.linspace(100, n - 100, SWEEP_GRID),
+                         np.linspace(100, n - 100, SWEEP_GRID))
+    p = batch_params(dev, ii.ravel(), jj.ravel(), 700.0, LAT, -180.0, 180.0,
+                     50.0, VS_ZFAR)
+    kw = dict(width=w, nsteps=k, cells_per_deg=CPD, sampler="window",
+              lat_hint_deg=LAT)
+    chunks = -(-b // sharding.chunk_size(b, w, 0,
+                                         N_NEAR + step_budget(k, n)))
+    march.launches = 0
+    hz, peak_mb = peak_run(lambda: horizon_sweep(dem, p, **kw))
+    launches = march.launches
+    if launches != chunks or hz.shape != (b, w):
+        fail(f"config 5: launches {launches} (chunks {chunks}), "
+             f"{tuple(hz.shape)}")
+    valid = hz > -1e30
+    if not valid.all() or not torch.isfinite(hz).all():
+        fail(f"config 5: {int((~valid).sum())} columns without a horizon")
+    if not torch.equal(hz, horizon_sweep(dem, p, plain=True, **kw)):
+        fail("config 5: sweep != the plain versions' sweep")
+    singles = [RenderParams(*(x[v:v + 1] for x in p)) for v in range(b)]
+    torch.cuda.synchronize()
+    t1 = torch.cuda.Event(enable_timing=True)
+    t2 = torch.cuda.Event(enable_timing=True)
+    t1.record()
+    ones = [horizon_sweep(dem, q, **kw) for q in singles]
+    t2.record()
+    t2.synchronize()
+    loop = t1.elapsed_time(t2) / b
+    for v, one in enumerate(ones):
+        if not torch.equal(one[0], hz[v]):
+            fail(f"config 5: viewpoint {v} != its single sweep")
+    del ones
+    per_vp = cuda_ms(lambda i: horizon_sweep(dem, p, **kw), 5) / b
+    busy, in_call = profile_busy(lambda: horizon_sweep(dem, p, **kw), 3,
+                                 card, profile_dir, "config5",
+                                 f"3 sweeps of {b} viewpoints")
+    busy_share = None if busy is None else busy / (per_vp * b)
+    log(f"[23] config 5: horizon_sweep of {b} viewpoints (W {w}, K "
+        f"{N_NEAR + step_budget(k, n)}) over {n}^2: {launches} march "
+        f"launch(es), chunks {chunks}, == plain versions' sweep and == "
+        f"{b} single sweeps bitwise; tan el {float(hz.min()):.4f}.."
+        f"{float(hz.max()):.4f}")
+    log(f"[23] config 5: us per viewpoint batched {1e3 * per_vp:.3f} (median "
+        f"of 5 sweeps), single sweeps {1e3 * loop:.3f} ({loop / per_vp:.1f}x)"
+        f"; device busy {busy_text(busy_share)}"
+        + (f", march in the sweep {in_call:.4f} ms" if in_call else "")
+        + f"; peak device memory {peak_mb:.1f} MB")
+    rec = march_launch_record("config 5", dem, p, w, k, n, LAT, launches,
+                              per_vp, loop, busy_share, peak_mb, chunks)
+    log(f"[t] phase 23: {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def read_tiff(path):
+    """(tags {id: values}, pixel bytes) of a single-IFD little-endian TIFF
+    as geotiff.write_geotiff writes it."""
+    import struct
+    with open(path, "rb") as f:
+        buf = f.read()
+    order, magic, ifd = struct.unpack_from("<2sHI", buf, 0)
+    if order != b"II" or magic != 42:
+        fail(f"{path}: not a little-endian TIFF")
+    (count,) = struct.unpack_from("<H", buf, ifd)
+    sizes = {2: 1, 3: 2, 4: 4, 12: 8}
+    pats = {2: "s", 3: "H", 4: "I", 12: "d"}
+    tags = {}
+    for e in range(count):
+        tag, typ, cnt = struct.unpack_from("<HHI", buf, ifd + 2 + 12 * e)
+        off = ifd + 10 + 12 * e
+        if sizes[typ] * cnt > 4:
+            (off,) = struct.unpack_from("<I", buf, off)
+        tags[tag] = (struct.unpack_from(f"<{cnt}s", buf, off) if typ == 2
+                     else struct.unpack_from(f"<{cnt}{pats[typ]}", buf, off))
+    return tags, buf[tags[273][0]:tags[273][0] + tags[279][0]]
+
+
+def cli_viewshed_check(dev):
+    """The CLI's --viewshed on phase 6's tiles (a full circle at the default
+    zfar), its TIFF read back: size, format, pixel scale and tiepoint of the
+    raster around the viewer, pixels bitwise viewshed_grid's, north up."""
+    from horizonator_tpu_torch import cli, geometry
+    from horizonator_tpu_torch.dem import load_mosaic
+    from horizonator_tpu_torch.kernels.window_march import march
+    from horizonator_tpu_torch.ops import viewshed_grid
+    from horizonator_tpu_torch.render import make_params
+    from horizonator_tpu_torch.render.crossing import k_cross_for
+    lat, lon, zfar = 34.4, -117.6, 40000.0
+    with tempfile.TemporaryDirectory() as td:
+        write_tiles(td, 34, -118)
+        out = os.path.join(td, "viewshed.tif")
+        march.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--dirdems", td, "--viewshed", out, str(lat),
+                       str(lon), "0", "180"])
+        cli_s = time.perf_counter() - t0
+        if rc != 0 or march.launches != 1:
+            fail(f"CLI --viewshed rc {rc}, march launches {march.launches}")
+        tags, pix = read_tiff(out)
+        m = load_mosaic(lat, lon, render_radius_m=zfar, datadir=td)
+    n, cpd = m.grid.shape[0], m.cells_per_deg
+    ci, cj = m.viewer_cell(lat, lon)
+    cos_lat = math.cos(math.radians(lat))
+    cell_n = geometry.EARTH_RADIUS_M * math.pi / 180.0 / cpd
+    hw = max(8, min(int(math.ceil(zfar / (cell_n * cos_lat))),
+                    int(min(ci, cj, n - 1 - ci, n - 1 - cj))))
+    width = int(min(4096, max(256, -(-2.0 * math.pi * hw // 256) * 256)))
+    p = make_params(device=dev, viewer_cell_i=ci, viewer_cell_j=cj,
+                    viewer_z=m.auto_viewer_z(lat, lon),
+                    cos_viewer_lat=cos_lat, az_rad0=math.radians(-180.0),
+                    az_rad1=math.radians(180.0), znear=100.0, zfar=zfar,
+                    znear_color=100.0, zfar_color=zfar)
+    vis = viewshed_grid(
+        torch.from_numpy(m.grid.astype(np.float32)).to(dev), p, width=width,
+        nsteps=k_cross_for(zfar, cpd, lat, n=n), cells_per_deg=cpd,
+        out_halfwidth=hw, sampler="window", lat_hint_deg=lat,
+        znear_hint_m=100.0, full_circle=True).cpu().numpy()
+    olon, olat = m.origin_dem_lon_lat
+    oi, oj = m.origin_dem_cellij
+    want = {256: (2 * hw,), 257: (2 * hw,), 258: (8,), 339: (1,),
+            33550: (1.0 / cpd, 1.0 / cpd, 0.0),
+            33922: (0.0, 0.0, 0.0, olon + (oi + ci - hw) / cpd,
+                    olat + (oj + cj + hw) / cpd, 0.0)}
+    for tag, v in want.items():
+        if not np.allclose(tags[tag], v, rtol=0, atol=1e-9):
+            fail(f"CLI --viewshed TIFF tag {tag} {tags[tag]}, want {v}")
+    got = np.frombuffer(pix, np.uint8).reshape(2 * hw, 2 * hw)
+    if not np.array_equal(got, vis[::-1].astype(np.uint8)):
+        fail("CLI --viewshed TIFF pixels != viewshed_grid's raster")
+    log(f"[24] CLI --viewshed on phase 6's tiles: {2 * hw}x{2 * hw} cells, "
+        f"W {width}, written and read back in {cli_s:.2f} s: tags (size, "
+        f"uint8, pixel scale, NW tiepoint) as computed, pixels == "
+        f"viewshed_grid's raster north up, visible {vis.mean():.4f}")
+
+
+def raster_phase(dev, card, profile_dir=None):
+    """Phase 24: suite config 7 (benchmarks/suite.py:257), one 800 x 800
+    viewshed_grid raster at W 720 (full circle, the contract resampler),
+    then the gather resampler, a partial window and a fixed frame; the
+    CLI's --viewshed. Returns the march launch's record."""
+    from horizonator_tpu_torch.kernels.window_march import march
+    from horizonator_tpu_torch.ops import viewshed_grid
+    from horizonator_tpu_torch.render import make_params
+    from horizonator_tpu_torch.render.crossing import k_cross_for
+    t0 = time.perf_counter()
+    n, hw, w = VS_N, VS_HW, VS_W
+    dem = torch.from_numpy(bench_dem(n=n)).to(dev)
+    k = k_cross_for(VS_ZFAR, CPD, LAT, n=n)
+
+    def params(az0=-180.0, az1=180.0):
+        return make_params(device=dev, viewer_cell_i=n / 2,
+                           viewer_cell_j=n / 2, viewer_z=900.0,
+                           cos_viewer_lat=math.cos(math.radians(LAT)),
+                           az_rad0=math.radians(az0),
+                           az_rad1=math.radians(az1), znear=50.0,
+                           zfar=VS_ZFAR, znear_color=50.0, zfar_color=VS_ZFAR)
+    p = params()
+    kw = dict(width=w, nsteps=k, cells_per_deg=CPD, out_halfwidth=hw,
+              sampler="window", lat_hint_deg=LAT, with_dropped=True)
+    cases = [("contract, full circle", p, dict(full_circle=True)),
+             ("gather", p, dict(method="gather")),
+             ("contract, window -30..140 deg", params(-30.0, 140.0), {}),
+             ("contract, window -30..140 deg under full_circle",
+              params(-30.0, 140.0), dict(full_circle=True)),
+             (f"contract, fixed frame ({n / 2 - 40:g}, {n / 2 + 40:g}), full "
+              f"circle", p, dict(full_circle=True, out_center_ij=(
+                  n / 2 - 40.0, n / 2 + 40.0)))]
+    rasters = {}
+    for name, q, extra in cases:
+        march.launches = 0
+        (vis, guard), peak_mb = peak_run(lambda: viewshed_grid(
+            dem, q, **kw, **extra))
+        launches = march.launches
+        vis_p, guard_p = viewshed_grid(dem, q, plain=True, **kw, **extra)
+        if not (torch.equal(vis, vis_p) and int(guard) == int(guard_p)):
+            fail(f"config 7 {name}: raster != the plain versions' (direct "
+                 f"masked max): {int((vis != vis_p).sum())} cells, guards "
+                 f"{int(guard)} / {int(guard_p)}")
+        broken = name.endswith("under full_circle")
+        share = float(vis.float().mean())
+        if (vis.shape != (2 * hw, 2 * hw) or launches != 1
+                or (int(guard) > 0) != broken or not 0.02 < share < 0.98):
+            fail(f"config 7 {name}: {tuple(vis.shape)}, launches {launches}"
+                 f", guard {int(guard)}, visible {share}")
+        rasters[name] = vis
+        log(f"[24] config 7 {name}: {2 * hw}x{2 * hw} raster, 1 march "
+            f"launch, == the "
+            f"plain versions' (direct masked max) bitwise, guard "
+            f"{int(guard)}, visible {share:.4f}, peak device memory "
+            f"{peak_mb:.1f} MB")
+    full = rasters["contract, full circle"]
+    log(f"[24] config 7: gather differs from contract in "
+        f"{float((rasters['gather'] != full).float().mean()):.4%} of cells")
+    kw.pop("with_dropped")
+    ms = {m: cuda_ms(lambda i, m=m: viewshed_grid(
+        dem, p, method=m, full_circle=True, **kw), 10)
+        for m in ("contract", "gather")}
+    ms_plain = cuda_ms(lambda i: viewshed_grid(
+        dem, p, full_circle=True, plain=True, **kw), 3)
+    busy, in_call = profile_busy(
+        lambda: viewshed_grid(dem, p, full_circle=True, **kw), 5, card,
+        profile_dir, "config7", "5 rasters 800x800")
+    busy_share = None if busy is None else busy / ms["contract"]
+    log(f"[24] config 7: ms per raster (median of 10) contract "
+        f"{ms['contract']:.3f}, gather {ms['gather']:.3f}; plain versions "
+        f"(direct masked max) {ms_plain:.3f}; device busy "
+        f"{busy_text(busy_share)}"
+        + (f", {busy:.3f} ms a raster of which the march {in_call:.4f}"
+           if busy else ""))
+    rec = march_launch_record("config 7", dem, p, w, k, n, LAT, 1,
+                              ms["contract"], None, busy_share, peak_mb, 1)
+    cli_viewshed_check(dev)
+    log(f"[t] phase 24: {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def count_phase(dev, card, profile_dir=None):
+    """Phase 25: suite config 10 (benchmarks/suite.py:357), viewshed_count
+    of 256 observers (default_rng(5) positions in [420, 780]) over the fixed
+    frame (600, 600), hw 400, W 720, batches of 64. Returns the batched
+    march's record."""
+    from horizonator_tpu_torch.kernels.window_march import march
+    from horizonator_tpu_torch.ops import viewshed_count, viewshed_grid
+    from horizonator_tpu_torch.ops import viewshed as vs
+    from horizonator_tpu_torch.render import RenderParams
+    t0 = time.perf_counter()
+    n, hw, w, batch = VS_N, VS_HW, VS_W, COUNT_BATCH
+    dem = torch.from_numpy(bench_dem(n=n)).to(dev)
+    pts = np.random.default_rng(5).uniform(*COUNT_SPREAD, (COUNT_OBS, 2))
+    pts = pts.astype(np.float32)
+    center = (COUNT_CENTER, COUNT_CENTER)
+    kw = dict(out_center_ij=center, out_halfwidth=hw, width=w,
+              cells_per_deg=CPD, znear=50.0, zfar=VS_ZFAR, lat_deg=LAT,
+              batch=batch, device=dev)
+    march.launches = 0
+    counts, peak_mb = peak_run(lambda: viewshed_count(dem, pts, **kw))
+    launches = march.launches
+    chunks = -(-COUNT_OBS // batch)
+    if (launches != chunks or counts.shape != (2 * hw, 2 * hw)
+            or counts.dtype != torch.int32 or int(counts.max()) < 1
+            or int(counts.max()) > COUNT_OBS or int(counts.min()) < 0):
+        fail(f"config 10: launches {launches}, {tuple(counts.shape)} "
+             f"{counts.dtype}, counts {int(counts.min())}.."
+             f"{int(counts.max())}")
+    if not torch.equal(counts, viewshed_count(dem, pts, plain=True, **kw)):
+        fail("config 10: counts != the plain versions' (direct masked max)")
+    dem_f, pts_t, vz, k, lat_hint, cos_lat = vs._sweep_prep(
+        dem, pts, 2.0, nsteps=None, cells_per_deg=CPD, zfar=VS_ZFAR,
+        cos_viewer_lat=None, lat_deg=LAT, device=dev)
+    p = vs._observer_params(pts_t, vz, cos_lat, 50.0, VS_ZFAR)
+    gkw = dict(width=w, nsteps=k, cells_per_deg=CPD, sampler="window",
+               lat_hint_deg=lat_hint, znear_hint_m=50.0, out_halfwidth=hw,
+               out_center_ij=center, full_circle=True)
+    total = torch.zeros_like(counts)
+    torch.cuda.synchronize()
+    t1 = torch.cuda.Event(enable_timing=True)
+    t2 = torch.cuda.Event(enable_timing=True)
+    t1.record()
+    for v in range(COUNT_OBS):
+        total += viewshed_grid(dem_f, RenderParams(*(x[v] for x in p)),
+                               **gkw).to(torch.int32)
+    t2.record()
+    t2.synchronize()
+    loop = t1.elapsed_time(t2) / COUNT_OBS
+    if not torch.equal(counts, total):
+        fail(f"config 10: counts != the sum of {COUNT_OBS} single rasters: "
+             f"{int((counts != total).sum())} cells")
+    per_obs = cuda_ms(lambda i: viewshed_count(dem, pts, **kw), 3) / COUNT_OBS
+    busy, in_call = profile_busy(lambda: viewshed_count(dem, pts, **kw), 2,
+                                 card, profile_dir, "config10",
+                                 f"2 counts of {COUNT_OBS} observers")
+    busy_share = None if busy is None else busy / (per_obs * COUNT_OBS)
+    log(f"[25] config 10: viewshed_count of {COUNT_OBS} observers, frame "
+        f"{center} hw {hw}, W {w}, batches of {batch}: {launches} march "
+        f"launches, == plain versions' counts and == the sum of "
+        f"{COUNT_OBS} single rasters bitwise; counts 0..{int(counts.max())}"
+        f", mean {float(counts.float().mean()):.2f}")
+    log(f"[25] config 10: us per observer batched {1e3 * per_obs:.1f} "
+        f"(median of 3 counts), single rasters {1e3 * loop:.1f} "
+        f"({loop / per_obs:.1f}x); device busy {busy_text(busy_share)}"
+        + (f", march {in_call:.4f} ms a launch" if in_call else "")
+        + f"; peak device memory {peak_mb:.1f} MB")
+    rec = march_launch_record(
+        "config 10", dem_f, RenderParams(*(x[:batch] for x in p)), w, k, n,
+        LAT, launches // chunks, per_obs, loop, busy_share, peak_mb, chunks)
+    log(f"[t] phase 25: {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def main(profile_dir=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2578,6 +2974,10 @@ def main(profile_dir=None):
     for k, v in batch_lod_phase(dev, card, int32_rate, profile_dir).items():
         batch_records.setdefault(k, []).append(v)
     api_paging_phase(dev)
+    batch_records["window_march"] += [
+        sweep_phase(dev, card, profile_dir),
+        raster_phase(dev, card, profile_dir),
+        count_phase(dev, card, profile_dir)]
 
     kernels = [
         kernel_entry("window_march",

@@ -16,13 +16,16 @@ validation messages and exit codes, and the reference tool's conventions
 
 ``--horizon-out`` also writes the geolocated skyline as .csv or GeoJSON;
 without ``--image`` it is the only output (the headless GIS mode).
+``--viewshed FILE.tif`` writes the GIS visibility raster around LAT LON as
+a WGS84 GeoTIFF (ops/viewshed + geotiff.py); alone, or before the
+panorama and the skyline.
 
 ``--device`` (default ``cuda``) picks where the render runs; the JAX CLI
 takes its backend from JAX_PLATFORMS instead. Flags whose code is not
-ported yet (``--viewshed``, ``--pois-out``, ``--shadows``, ``--surface
-triangulated``, ``--allow-dem-downloads``, ``--dem-url``, and the
-interactive viewer) exit with status 1 and a message naming the missing
-module.
+ported yet (``--viewshed-sampler step|crossing``, ``--pois-out``,
+``--shadows``, ``--surface triangulated``, ``--allow-dem-downloads``,
+``--dem-url``, and the interactive viewer) exit with status 1 and a message
+naming the missing module.
 
 Usage: python -m horizonator_tpu_torch.cli [options] LAT LON AZ_C AZ_R
 """
@@ -110,13 +113,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--surface", choices=["bilinear", "triangulated"],
                    default="bilinear")
     p.add_argument("--viewshed", type=str, default=None, metavar="FILE.tif",
-                   help="a GIS viewshed raster as GeoTIFF (not ported: "
-                        "needs ops/viewshed)")
+                   help="write a GIS viewshed raster around LAT LON as a "
+                        "georeferenced WGS84 GeoTIFF (uint8 0/1); the "
+                        "azimuth args bound the swept sector (0 180 for the "
+                        "full circle), --znear/--zfar the range. May be "
+                        "combined with --image and --horizon-out")
     p.add_argument("--viewshed-halfwidth", type=int, default=0,
-                   dest="viewshed_halfwidth", metavar="CELLS")
+                   dest="viewshed_halfwidth", metavar="CELLS",
+                   help="half-width of the --viewshed raster in DEM cells "
+                        "(default: zfar's reach, clipped to the mosaic)")
     p.add_argument("--viewshed-sampler", choices=["step", "crossing",
                                                   "window"],
-                   default="window", dest="viewshed_sampler")
+                   default="window", dest="viewshed_sampler",
+                   help="--viewshed march sampler (only window is ported)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the render (default cuda; cpu runs "
                         "the kernels' plain versions)")
@@ -157,21 +166,84 @@ def _validate(args) -> str | None:
 def _unported(args) -> str | None:
     """The first requested feature whose code the port lacks, as a message."""
     missing = [
-        (args.viewshed is not None, "--viewshed", "ops/viewshed"),
+        (args.viewshed is not None and args.viewshed_sampler != "window",
+         f"--viewshed-sampler {args.viewshed_sampler}",
+         "the oracle samplers ('step', 'crossing') of ops/viewshed"),
         (args.pois_out is not None, "--pois-out", "visible_peaks"),
         (args.shadows, "--shadows", "ops/shadows"),
         (args.surface == "triangulated", "--surface triangulated",
          "the uniform-step sampler"),
         (args.allow_dem_downloads, "--allow-dem-downloads",
          "the DEM downloader"),
-        (args.image is None and args.horizon_out is None,
-         "interactive mode (no --image)", "viewer.py"),
+        (args.image is None and args.horizon_out is None
+         and args.viewshed is None, "interactive mode (no --image)",
+         "viewer.py"),
     ]
     for wanted, flag, module in missing:
         if wanted:
             return (f"{flag} needs {module}, which is not ported to "
                     f"horizonator_tpu_torch")
     return None
+
+
+def _run_viewshed(args) -> int:
+    """--viewshed: the visibility raster of the cells within the half-width
+    around the viewer (default zfar's reach, clipped to the mosaic) as a
+    WGS84 GeoTIFF, north up, with the JAX CLI's polar width, step budget
+    and bounds."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from . import geometry
+    from .dem import load_mosaic
+    from .geotiff import write_geotiff
+    from .ops import viewshed_grid
+    from .render import make_params
+    from .render.crossing import k_cross_for
+
+    m = load_mosaic(args.lat, args.lon, render_radius_m=args.zfar,
+                    datadir=args.dirdems, srtm1=args.SRTM1)
+    n = m.grid.shape[0]
+    ci, cj = m.viewer_cell(args.lat, args.lon)
+    cell_n = geometry.EARTH_RADIUS_M * math.pi / 180.0 / m.cells_per_deg
+    cos_lat = math.cos(math.radians(args.lat))
+    hw = args.viewshed_halfwidth
+    if hw <= 0:
+        # zfar's reach in cells (east cells are the short ones)
+        hw = int(math.ceil(args.zfar / (cell_n * cos_lat)))
+    hw = max(8, min(hw, int(min(ci, cj, n - 1 - ci, n - 1 - cj))))
+    # ~1 polar column per rim cell, a multiple of 256, bounded
+    width = int(min(4096, max(256, -(-2.0 * math.pi * hw // 256) * 256)))
+    nsteps = args.nsteps or k_cross_for(args.zfar, m.cells_per_deg,
+                                        args.lat, n=n)
+    params = make_params(
+        device=args.device, viewer_cell_i=ci, viewer_cell_j=cj,
+        viewer_z=m.auto_viewer_z(args.lat, args.lon), cos_viewer_lat=cos_lat,
+        az_rad0=math.radians(args.az_center_deg - args.az_radius_deg),
+        az_rad1=math.radians(args.az_center_deg + args.az_radius_deg),
+        znear=args.znear, zfar=args.zfar, znear_color=args.znear,
+        zfar_color=args.zfar, curv=geometry.curvature_coeff(args.curvature))
+    # a full circle iff the unwrapped span is exactly 2 pi: the azimuth
+    # window rewraps larger spans, so only multiples of 180 qualify
+    r = abs(float(args.az_radius_deg))
+    dem = torch.from_numpy(m.grid.astype(np.float32)).to(args.device)
+    vis = viewshed_grid(
+        dem, params, width=width, nsteps=nsteps,
+        cells_per_deg=m.cells_per_deg, out_halfwidth=hw, sampler="window",
+        lat_hint_deg=float(args.lat), znear_hint_m=float(args.znear),
+        full_circle=r > 0.0 and r % 180.0 == 0.0).cpu().numpy()
+    # the raster covers cells viewer +- hw; georeference its outer edges
+    cpd = m.cells_per_deg
+    olon, olat = m.origin_dem_lon_lat
+    oi, oj = m.origin_dem_cellij
+    bounds = (olat + (oj + cj - hw) / cpd, olon + (oi + ci - hw) / cpd,
+              olat + (oj + cj + hw) / cpd, olon + (oi + ci + hw) / cpd)
+    write_geotiff(args.viewshed, vis, bounds=bounds, row0="south")
+    print(f"wrote {args.viewshed}: {2 * hw}x{2 * hw} cells, "
+          f"{vis.mean():.1%} visible", file=sys.stderr)
+    return 0
 
 
 def _write_horizon(h, args, az_deg0, az_deg1) -> None:
@@ -305,6 +377,11 @@ def main(argv=None) -> int:
     if msg:
         print(msg, file=sys.stderr)
         return 1
+    if args.viewshed is not None:
+        rc = _run_viewshed(args)
+        # --image and --horizon-out compose with --viewshed
+        if rc != 0 or (args.image is None and args.horizon_out is None):
+            return rc
     return _gis_only(args) if args.image is None else _render_image(args)
 
 

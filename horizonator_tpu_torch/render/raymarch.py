@@ -100,6 +100,59 @@ def broadcast_params_batch(params: RenderParams) -> RenderParams:
                           for x in params))
 
 
+def pack_dem_pairs(dem: torch.Tensor) -> torch.Tensor:
+    """Horizontally adjacent elevation pairs (z[j, i], z[j, i+1]) as one
+    (N, N-1) int32 plane, each elevation quantized to 0.5 m (rounded half
+    to even) in 16 bits (raymarch.py:69-81). Exact for integer-metre SRTM
+    data."""
+    zq = torch.clamp(torch.round(dem.to(torch.float32) * 2.0), -32768,
+                     32767).to(torch.int32)
+    return (zq[:, :-1] << 16) | (zq[:, 1:] & 0xffff)
+
+
+def _unpack_pair(v: torch.Tensor):
+    hi = (v >> 16).to(torch.float32) * 0.5
+    lo = v & 0xffff
+    lo = torch.where(lo >= 32768, lo - 65536, lo).to(torch.float32) * 0.5
+    return hi, lo
+
+
+def _as_packed(dem: torch.Tensor):
+    """(packed plane, N) of an (N, N) elevation grid, or of an (N, N-1)
+    int32 plane that pack_dem_pairs already made (raymarch.py:756)."""
+    if dem.dtype == torch.int32:
+        return dem, dem.shape[0]
+    return pack_dem_pairs(dem), dem.shape[0]
+
+
+def _sample_surface(dem_packed: torch.Tensor, n: int, i_pos: torch.Tensor,
+                    j_pos: torch.Tensor, surface: str) -> torch.Tensor:
+    """The terrain at fractional grid coords from a pack_dem_pairs plane
+    (row 0 = south): two pair lookups give the four corners of the
+    bilinear or the reference's triangulated surface (raymarch.py:91-117).
+    Indices are clipped into the grid; masking out-of-grid positions is the
+    caller's."""
+    i0 = torch.clamp(torch.floor(i_pos), 0, n - 2).to(torch.int32)
+    j0 = torch.clamp(torch.floor(j_pos), 0, n - 2).to(torch.int32)
+    fi = torch.clamp(i_pos - i0, 0.0, 1.0)
+    fj = torch.clamp(j_pos - j0, 0.0, 1.0)
+    flat = dem_packed.reshape(-1)
+    base = (j0 * (n - 1) + i0).long()
+    z00, z10 = _unpack_pair(flat[base])
+    z01, z11 = _unpack_pair(flat[base + (n - 1)])
+    if surface == "bilinear":
+        top = z00 + (z10 - z00) * fi
+        bot = z01 + (z11 - z01) * fi
+        return top + (bot - top) * fj
+    if surface == "triangulated":
+        # two triangles a cell, split along the (i, j) -> (i+1, j+1)
+        # diagonal (horizonator-lib.c:496-507)
+        z_lower = z00 + (z10 - z00) * fi + (z11 - z10) * fj
+        z_upper = z00 + (z11 - z01) * fi + (z01 - z00) * fj
+        return torch.where(fj <= fi, z_lower, z_upper)
+    raise ValueError(f"unknown surface mode {surface!r}")
+
+
 def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
                     height: int, nsteps: int, cells_per_deg: int,
                     surface: str = "bilinear", refine: bool = True,

@@ -392,7 +392,7 @@ def test_cli_validation_matches_jax(tmp_path, capsys, argv):
 
 
 UNPORTED = [
-    (["--viewshed", "v.tif"], "ops/viewshed"),
+    (["--viewshed", "v.tif", "--viewshed-sampler", "step"], "ops/viewshed"),
     (["--horizon-out", "h.csv", "--dem-url", "http://example.invalid/%s"],
      "dem_url_fmt"),
     (["--pois-out", "p.geojson", "--pois", "p.json"], "visible_peaks"),
