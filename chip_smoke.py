@@ -9,6 +9,10 @@ then drive the main render path and the API on the card.
         # at the bench shape (64-launch graphs, median of 7) and print
         # ptxas's lines for them; run twice per tree (parent, change,
         # change, parent) to compare two trees in one call
+    python3 chip_smoke.py --time-shadows ROOT TAG
+        # only: time shadow_light of the package under the tree ROOT over
+        # the bench DEM at phase 26's suns (median of 5 each), the same
+        # way round
 
 Phases, in order; any failure raises and exits nonzero:
  1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the card;
@@ -23,7 +27,10 @@ Phases, in order; any failure raises and exits nonzero:
     fraction in (0.05, 0.95), both kernels launched, output bitwise equal
     to the plain versions' render; median ms/viewpoint over 20 renders
     (CUDA events) with kernels and with plain versions, each step's
-    time, and the march kernel's time at five step counts;
+    time, and the march kernel's time at five step counts; suite config
+    2's annotation range queries (512 POIs x a 12-row fuzz, one gather
+    on the ranges, benchmarks/suite.py:110-114) against numpy's gather of
+    the host copy, timed with the render;
  6. the API: horizonator(lat, lon, 4096, 1024, dir_dems=<3x3 synthetic
     SRTM3 tiles>).render(-180, 180) at the default radius and zfar;
  7. textured window march vs its plain version on phase 2's scene, with
@@ -142,7 +149,34 @@ Phases, in order; any failure raises and exits nonzero:
     400, W 720, batches of 64: one march launch a batch, the counts bitwise
     equal to the plain versions' and to the sum of 256 single rasters, the
     batched launch bitwise equal to its plain version; us per observer
-    batched and as single rasters.
+    batched and as single rasters;
+26. shadow_light over phase 2's bench DEM (3400^2, cpd 1200, lat 34.3)
+    and the SRTM1 tile of phase 17 (3601^2, cpd 3600, lat 34.5) at
+    tests/test_shadows.py's six suns, a sun whose slope snaps to q = 16
+    taps and one below the horizon: the light class against a brute
+    float64 per-ray oracle at 4096 seeded cells (0.5 m margins, soft_m
+    1e-3), at every sun the card bitwise against the same function on CPU
+    tensors; the median ms of each sun against its
+    bound (z read once, the light written once); sun_hours over the SRTM1
+    tile for one date (8 instants of the winter solstice), bitwise
+    against the CPU, timed;
+27. the API with hillshade=True, shadows=True (sun 10 deg up) on phase
+    6's tiles at 4096x1024: both textured kernels launched, image and
+    ranges bitwise equal to the plain versions' render on the same
+    planes, ranges bitwise equal to the unshadowed hillshade render's,
+    terrain pixels darker and none lighter; the set-up and the planes'
+    ms; then the CLI in-process with --hillshade --shadows --pois (512
+    seeded POIs) --pois-out to .pdf, its GeoJSON's visible flags equal to
+    visible_peaks';
+28. visible_peaks of 512 seeded POIs (config 2's count) on phase 6's
+    scene, the card against the CPU (flags and floats); an
+    intervisibility_matrix of 256 seeded points (100 m towers) over the
+    bench DEM at the auto K: symmetric, diagonal true, 16 rows bitwise
+    the CPU's; its chunks and peak memory against ops.los.LOS_BYTES, the
+    peak's bytes a sample against ops.los.LOS_SAMPLE_BYTES, its ms against
+    two packed gathers a sample.
+Phases 26-28 add no kernel (their ops are the JAX package's XLA ops, in
+plain PyTorch); phase 27 runs the two textured kernels.
 Each phase group prints its seconds ("[t]" lines).
 A kernel's "device ms" (the ``ms`` of its record) is the replay time of a
 CUDA graph of back-to-back launches over their count, so no Python runs in
@@ -245,6 +279,17 @@ SWEEP_W, SWEEP_GRID = 256, 32
 VS_HW, VS_W = 400, 720
 COUNT_OBS, COUNT_BATCH = 256, 64
 COUNT_CENTER, COUNT_SPREAD = 600.0, (420.0, 780.0)
+# phase 26: tests/test_shadows.py:126-133's suns (az, alt), and a sun whose
+# slope snaps to q = 16 taps, searched from this azimuth at each grid's
+# latitude
+SHADOW_SUNS = ((90.0, 25.0), (0.0, 35.0), (45.0, 30.0), (112.0, 20.0),
+               (247.0, 40.0), (183.0, 10.0))
+SHADOW_Q16_FROM, SHADOW_ORACLE_CELLS = 100.0, 4096
+# sun_hours' winter day and 8 instants keep its CPU run to 3 suns
+SUN_HOURS_DATE, SUN_HOURS_SAMPLES = "2026-12-21", 8
+# phases 5 and 28: suite config 2's POI count (benchmarks/suite.py:110-114);
+# phase 28's intervisibility matrix
+POIS_N, LOS_POINTS, LOS_CHECK_ROWS = 512, 256, 16
 
 
 def fail(msg):
@@ -1496,9 +1541,9 @@ def lod_phases(dev, card, int32_rate, profile_dir=None):
     }
 
 
-def write_srtm1_tile(d):
-    """One synthetic SRTM1 tile, N34W118: ridges and a peak NE of 34.5 N,
-    117.5 W."""
+def srtm1_grid():
+    """The synthetic SRTM1 tile N34W118 as int16 elevations, row 0 = north
+    (the .hgt order): ridges and a peak NE of 34.5 N, 117.5 W."""
     from horizonator_tpu_torch.dem import hgt
     edge = hgt.SRTM1_EDGE
     la = (35.0 - np.arange(edge) / (edge - 1))[:, None]
@@ -1507,8 +1552,13 @@ def write_srtm1_tile(d):
          + 250.0 * np.sin(lo * 41.0 + 0.7) * np.cos(la * 37.0)
          + 1500.0 * np.exp(-((la - 34.62) ** 2 + (lo + 117.35) ** 2)
                            / 0.004))
-    hgt.write_hgt(os.path.join(d, hgt.hgt_filename(34, -118)),
-                  np.round(np.maximum(z, 0.0)).astype(np.int16))
+    return np.round(np.maximum(z, 0.0)).astype(np.int16)
+
+
+def write_srtm1_tile(d):
+    """srtm1_grid() written as N34W118.hgt into d."""
+    from horizonator_tpu_torch.dem import hgt
+    hgt.write_hgt(os.path.join(d, hgt.hgt_filename(34, -118)), srtm1_grid())
 
 
 def srtm1_phase(dev, int32_rate):
@@ -2704,6 +2754,307 @@ def count_phase(dev, card, profile_dir=None):
     return rec
 
 
+def q16_azimuth(cpd, lat):
+    """The first azimuth from SHADOW_Q16_FROM, in 0.1 deg steps, whose sun
+    slope snaps to q = 16 taps at (cpd, lat)."""
+    from horizonator_tpu_torch.ops.shadows import _ray_step
+    for k in range(3600):
+        az = round(SHADOW_Q16_FROM + 0.1 * k, 1)
+        if _ray_step(cpd, lat, az, 16)[4] == 16:
+            return az
+    fail(f"no q = 16 sun at cpd {cpd}, lat {lat}")
+
+
+def shadow_oracle_margin(z, cells, cpd, lat, az, alt):
+    """Max blocker height above the sun ray (meters) at each of ``cells``
+    ((m, 2) int64 (j, i) on z's device), by brute float64 bilinear
+    sampling along the op's quantized ray (ops.shadows._ray_step), every
+    step of a ray at once. Positive = shadowed."""
+    from horizonator_tpu_torch.ops.shadows import _ray_step
+    nj, ni = z.shape
+    dj, di, h, _, _, _ = _ray_step(cpd, lat, az, 16)
+    tan_alt = math.tan(math.radians(alt))
+    zd = z.double()
+    t = torch.arange(1, int(math.hypot(nj, ni)) + 2, device=z.device,
+                     dtype=torch.float64)
+    out = []
+    for c in cells.split(256):
+        jf = c[:, :1].double() + t * dj
+        if_ = c[:, 1:].double() + t * di
+        inside = (jf >= 0) & (jf <= nj - 1) & (if_ >= 0) & (if_ <= ni - 1)
+        j0 = torch.clamp(torch.floor(jf), 0, nj - 2).long()
+        i0 = torch.clamp(torch.floor(if_), 0, ni - 2).long()
+        fj, fi = jf - j0, if_ - i0
+        bil = ((1 - fj) * (1 - fi) * zd[j0, i0]
+               + (1 - fj) * fi * zd[j0, i0 + 1]
+               + fj * (1 - fi) * zd[j0 + 1, i0]
+               + fj * fi * zd[j0 + 1, i0 + 1])
+        s = bil - zd[c[:, 0], c[:, 1]][:, None] - t * (h * tan_alt)
+        out.append(torch.where(inside, s, -math.inf).amax(dim=1))
+    return torch.cat(out)
+
+
+def shadow_phase(dev, card):
+    """Phase 26: shadow_light at full size over phase 2's bench DEM (3400^2,
+    cpd 1200, lat 34.3) and the SRTM1 tile (3601^2, cpd 3600, lat 34.5), at
+    tests/test_shadows.py's six suns, a sun of q = 16 taps and one below
+    the horizon: the class against a brute per-ray oracle at 4096 seeded
+    cells (0.5 m margins, soft_m 1e-3), the card bitwise against the CPU
+    at every sun, the median ms of each sun against its
+    one-read-one-write bound; then sun_hours over the SRTM1 tile for one
+    date against the CPU."""
+    from horizonator_tpu_torch.ops.shadows import (_ray_step, shadow_light,
+                                                   sun_hours)
+    t0 = time.perf_counter()
+    scenes = (("bench 3400^2", bench_dem(), CPD, LAT),
+              ("SRTM1 3601^2", np.flipud(srtm1_grid()).astype(np.float32),
+               3600, 34.5))
+    for name, z_np, cpd, lat in scenes:
+        z = torch.from_numpy(z_np).to(dev)
+        z_cpu = torch.from_numpy(np.ascontiguousarray(z_np))
+        nj, ni = z_np.shape
+        cells = torch.from_numpy(np.random.default_rng(26).integers(
+            0, (nj, ni), (SHADOW_ORACLE_CELLS, 2))).to(dev)
+        suns = (*SHADOW_SUNS, (q16_azimuth(cpd, lat), 20.0), (90.0, -3.0))
+        for az, alt in suns:
+            kw = dict(cells_per_deg=cpd, lat_deg=lat, sun_az_deg=az,
+                      sun_alt_deg=alt)
+            hard = shadow_light(z, soft_m=1e-3, **kw)
+            n_diff = int((hard.cpu() != shadow_light(
+                z_cpu, soft_m=1e-3, **kw)).sum())
+            if n_diff:
+                fail(f"shadow_light on {name} at sun ({az}, {alt}): "
+                     f"card != CPU at {n_diff} cells")
+            q = _ray_step(cpd, lat, az, 16)[4]
+            if alt <= 0.0:
+                if bool(hard.any()):
+                    fail(f"sun below the horizon lit {name}")
+                passes, shadowed, lit = 0, 0, 0
+            else:
+                margin = shadow_oracle_margin(z, cells, cpd, lat, az, alt)
+                light = hard[cells[:, 0], cells[:, 1]]
+                sh, li = margin > 0.5, margin < -0.5
+                if bool((light[sh] >= 0.5).any()) or \
+                        bool((light[li] <= 0.5).any()):
+                    fail(f"shadow_light on {name} at sun ({az}, {alt}): "
+                         f"{int((light[sh] >= 0.5).sum())} clearly shadowed "
+                         f"cells lit, {int((light[li] <= 0.5).sum())} "
+                         f"clearly lit cells dark (oracle)")
+                n_dom = nj if abs(round(q * _ray_step(cpd, lat, az, 16)[0])) \
+                    == q else ni
+                passes = q + max(-(-n_dom // q) - 1, 1).bit_length()
+                shadowed, lit = int(sh.sum()), int(li.sum())
+            ms = cuda_ms(lambda i: shadow_light(z, **kw), 5)
+            dark = float((hard < 0.5).float().mean())
+            # z read once and the light written once; a sun below the
+            # horizon writes zeros and reads nothing
+            moved = (8 if alt > 0.0 else 4) * z.numel()
+            bound_ms = moved / HBM_BYTES_PER_S * 1e3
+            log(f"[26] shadow_light {name} sun ({az:g}, {alt:g}): q {q}, "
+                f"{passes} passes; card == CPU bitwise (0 cells differ); "
+                f"oracle at {SHADOW_ORACLE_CELLS} cells: {shadowed} clearly "
+                f"shadowed dark, {lit} clearly lit lit; shadowed "
+                f"{100 * dark:.2f}%; {ms:.3f} ms (median of 5), "
+                f"bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB), share "
+                f"{100 * bound_ms / ms:.2f}%; {card}")
+        del z, z_cpu
+    # sun_hours over the SRTM1 tile: one date
+    z_np, cpd, lat = scenes[1][1], scenes[1][2], scenes[1][3]
+    z = torch.from_numpy(z_np).to(dev)
+    skw = dict(cells_per_deg=cpd, lat_deg=lat, lon_deg=-117.5,
+               date=SUN_HOURS_DATE, samples=SUN_HOURS_SAMPLES)
+    hours = sun_hours(z, **skw)
+    hours_cpu = sun_hours(torch.from_numpy(np.ascontiguousarray(z_np)), **skw)
+    n_diff = int((hours.cpu() != hours_cpu).sum())
+    if n_diff or not (0.0 <= float(hours.min())
+                      and float(hours.max()) <= 24.0):
+        fail(f"sun_hours: card != CPU at {n_diff} cells, range "
+             f"{float(hours.min())}..{float(hours.max())}")
+    ms_h = cuda_ms(lambda i: sun_hours(z, **skw), 3, warmup=1)
+    log(f"[26] sun_hours SRTM1 3601^2 on {skw['date']}, {skw['samples']} "
+        f"instants: card == CPU bitwise; {float(hours.min()):.2f}.."
+        f"{float(hours.max()):.2f} h, mean {float(hours.mean()):.3f}; "
+        f"{ms_h:.3f} ms (median of 3); {card}")
+    log(f"[t] phase 26: {time.perf_counter() - t0:.1f} s")
+
+
+def write_pois(path, lat, lon, n, seed):
+    """n seeded POIs around (lat, lon) as a --pois JSON file; returns the
+    list."""
+    rng = np.random.default_rng(seed)
+    pois = [{"name": f"poi{k}", "lat": float(lat + rng.uniform(-0.3, 0.3)),
+             "lon": float(lon + rng.uniform(-0.35, 0.35)),
+             "ele_m": float(rng.uniform(300.0, 2500.0))} for k in range(n)]
+    with open(path, "w") as f:
+        json.dump(pois, f)
+    return pois
+
+
+def api_shadow_phase(dev, card, tiles):
+    """Phase 27: the API with hillshade=True, shadows=True (sun 10 deg up)
+    on phase 6's tiles at 4096x1024: both textured kernels launched, image
+    and ranges bitwise the plain versions' render on the same planes,
+    ranges bitwise the unshadowed hillshade render's, terrain darker; the
+    planes' set-up ms; then the CLI in-process with --hillshade --shadows
+    --pois --pois-out (to .pdf: the card's machine has no PIL), its
+    GeoJSON's flags against visible_peaks."""
+    from horizonator_tpu_torch import cli, horizonator
+    from horizonator_tpu_torch.kernels.resolve import resolve_textured
+    from horizonator_tpu_torch.kernels.window_march import march_textured
+    from horizonator_tpu_torch.render import render_panorama, texture
+    t0 = time.perf_counter()
+    hkw = dict(dir_dems=tiles, hillshade=True, sun_alt_deg=10.0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    h = horizonator(34.4, -117.6, W, H, shadows=True, **hkw)
+    torch.cuda.synchronize()
+    setup_ms = 1e3 * (time.perf_counter() - t1)
+    march_textured.launches = resolve_textured.launches = 0
+    img, rng = h.render(-180, 180)
+    launches = {"window_march_textured": march_textured.launches,
+                "resolve_textured": resolve_textured.launches}
+    if min(launches.values()) < 1:
+        fail(f"shadowed API render skipped a kernel: {launches}")
+    dem, sampler, nsteps, plan, cp, exact_near = h._render_plan(
+        100.0, 40000.0, "render")
+    p_api = h._params(-180.0, 180.0, 100.0, 40000.0, 100.0, 40000.0)
+    img_p, rng_p = render_panorama(
+        dem, p_api, width=W, height=H, nsteps=nsteps,
+        cells_per_deg=h.mosaic.cells_per_deg, surface=h.surface,
+        refine=h.refine, textured=True, sampler=sampler,
+        lat_hint_deg=h._lat_hint(), lod_plan=plan, color_planes=cp,
+        znear_hint_m=h._znear_hint(100.0), exact_near_m=exact_near,
+        plain=True)
+    if not (np.array_equal(img, img_p.cpu().numpy())
+            and np.array_equal(rng, rng_p.cpu().numpy())):
+        fail("shadowed API render != plain-version render")
+    h0 = horizonator(34.4, -117.6, W, H, **hkw)
+    img0, rng0 = h0.render(-180, 180)
+    terr = rng > 0
+    darker = int((img[terr] < img0[terr]).any(axis=-1).sum())
+    if not np.array_equal(rng, rng0):
+        fail(f"shadows moved the ranges: {int((rng != rng0).sum())} pixels")
+    if (img[terr] > img0[terr]).any() or darker < 1:
+        fail(f"shadows did not only darken: {darker} pixels darker, "
+             f"{int((img[terr] > img0[terr]).any(axis=-1).sum())} lighter")
+    n = h.mosaic.grid.shape[0]
+    pkw = dict(sun_az_deg=h.sun_az_deg, sun_alt_deg=h.sun_alt_deg, scale=1)
+    ms_planes = cuda_ms(lambda i: texture.hillshade_planes(
+        h._dem, h.mosaic.cells_per_deg, 34.4, cast_shadows=True, **pkw), 3)
+    ms_planes0 = cuda_ms(lambda i: texture.hillshade_planes(
+        h._dem, h.mosaic.cells_per_deg, 34.4, **pkw), 3)
+    ms_render = cuda_ms(lambda i: h.render(-180 + i, 180 + i), 5, warmup=1)
+    log(f"[27] API hillshade=True, shadows=True, sun ({h.sun_az_deg:g}, "
+        f"{h.sun_alt_deg:g}) {W}x{H} of {n}^2 grid: launches {launches}, "
+        f"image and ranges == plain-version render bitwise, ranges == the "
+        f"unshadowed render's, {darker} of {int(terr.sum())} terrain pixels "
+        f"darker, none lighter; {ms_render:.3f} ms per render (median of "
+        f"5); set-up {setup_ms:.1f} ms (constructor, tiles read from disk), "
+        f"the planes {ms_planes:.3f} ms with shadows, {ms_planes0:.3f} "
+        f"without (median of 3); {card}")
+    del h, h0
+    with tempfile.TemporaryDirectory() as td:
+        pois_path = os.path.join(td, "pois.json")
+        write_pois(pois_path, 34.4, -117.6, POIS_N, 27)
+        out, pdf = os.path.join(td, "peaks.geojson"), os.path.join(td, "x.pdf")
+        march_textured.launches = resolve_textured.launches = 0
+        t1 = time.perf_counter()
+        rc = cli.main(["--width", str(W), "--height", str(H), "--image", pdf,
+                       "--dirdems", tiles, "--hillshade", "--shadows",
+                       "--sun-alt", "10", "--pois", pois_path, "--pois-out",
+                       out, "34.4", "-117.6", "0", "180"])
+        cli_s = time.perf_counter() - t1
+        launches = {"window_march_textured": march_textured.launches,
+                    "resolve_textured": resolve_textured.launches}
+        if rc != 0 or min(launches.values()) < 1:
+            fail(f"CLI --shadows --pois-out rc {rc}, launches {launches}")
+        with open(out) as f:
+            feats = json.load(f)["features"]
+        # the CLI's instance: render_radius_m = zfar (standalone.c:437)
+        peaks = horizonator(34.4, -117.6, W, H, dir_dems=tiles,
+                            render_radius_m=40000.0,
+                            device=dev).visible_peaks(pois_path)
+        flags = [f["properties"]["visible"] for f in feats]
+        if flags != [p["visible"] for p in peaks] or not 0 < sum(flags) \
+                < len(flags):
+            fail(f"--pois-out flags != visible_peaks ({sum(flags)} of "
+                 f"{len(flags)} visible)")
+    log(f"[27] CLI --hillshade --shadows --pois ({POIS_N}) --pois-out "
+        f"{W}x{H} -> .pdf + .geojson in {cli_s:.2f} s: rc 0, launches "
+        f"{launches}, {sum(flags)} of {len(flags)} POIs visible, flags == "
+        f"visible_peaks'")
+    log(f"[t] phase 27: {time.perf_counter() - t0:.1f} s")
+
+
+def los_phase(dev, card, tiles):
+    """Phase 28: visible_peaks of 512 seeded POIs (config 2's count) on
+    phase 6's scene, the card against the CPU; intervisibility_matrix of
+    256 seeded points over phase 2's bench DEM at the auto K: symmetric,
+    diagonal true, 16 rows equal to the CPU's; chunks, peak memory against
+    the budget, ms against a bound of two packed gathers a sample. The
+    points stand on 100 m towers: at 2 m the bench grid's 30 m noise
+    hides 99.6% of the pairs, at 100 m about 90%."""
+    from horizonator_tpu_torch import horizonator
+    from horizonator_tpu_torch.ops import los
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        pois_path = os.path.join(td, "pois.json")
+        pois = write_pois(pois_path, 34.4, -117.6, POIS_N, 28)
+    h = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device=dev)
+    hc = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device="cpu")
+    peaks = h.visible_peaks(pois)
+    if peaks != hc.visible_peaks(pois):
+        fail("visible_peaks on the card != on the CPU")
+    n_vis = sum(p["visible"] for p in peaks)
+    if not 0 < n_vis < POIS_N:
+        fail(f"degenerate visible_peaks: {n_vis} of {POIS_N}")
+    ms_vp = cuda_ms(lambda i: h.visible_peaks(pois), 5)
+    log(f"[28] visible_peaks of {POIS_N} POIs on {h.mosaic.grid.shape} grid: "
+        f"{n_vis} visible, card == CPU (flags, floats bitwise); {ms_vp:.3f} "
+        f"ms (median of 5); {card}")
+    del h, hc
+    dem_np = bench_dem()
+    dem = torch.from_numpy(dem_np).to(dev)
+    pts = np.random.default_rng(28).uniform(0, N - 1, (LOS_POINTS, 2))
+    pts = pts.astype(np.float32)
+    k = los.auto_nsteps(pts)
+    kw = dict(cells_per_deg=CPD, cos_lat=math.cos(math.radians(LAT)),
+              observer_height_m=100.0)
+    m, peak_mb = peak_run(lambda: los.intervisibility_matrix(dem, pts, **kw))
+    pairs = LOS_POINTS * LOS_POINTS
+    chunk = max(1, los.LOS_BYTES // (k * los.LOS_SAMPLE_BYTES))
+    per_sample = peak_mb * 1e6 / (min(chunk, pairs) * k)
+    if peak_mb * 1e6 > los.LOS_BYTES or per_sample > los.LOS_SAMPLE_BYTES:
+        fail(f"intervisibility_matrix peak {peak_mb:.1f} MB over the "
+             f"{los.LOS_BYTES / 1e6:.1f} MB budget, or its "
+             f"{per_sample:.1f} B a sample over the estimate "
+             f"{los.LOS_SAMPLE_BYTES}")
+    if not (bool(torch.equal(m, m.T)) and bool(m.diagonal().all())):
+        fail("intervisibility_matrix not symmetric with a true diagonal")
+    rows = np.arange(LOS_CHECK_ROWS) * (LOS_POINTS // LOS_CHECK_ROWS)
+    m_cpu = los.intervisible(torch.from_numpy(dem_np), pts[rows, None, :],
+                             pts[None, :, :], nsteps=k, target_height_m=100.0,
+                             **kw)
+    m_cpu |= torch.from_numpy(rows[:, None] == np.arange(LOS_POINTS))
+    if not torch.equal(m[torch.from_numpy(rows).to(dev)].cpu(), m_cpu):
+        fail(f"intervisibility_matrix rows {rows.tolist()} != the CPU's")
+    ms = cuda_ms(lambda i: los.intervisibility_matrix(dem, pts, **kw), 3,
+                 warmup=1)
+    samples = pairs * k
+    bound_ms = 8 * samples / HBM_BYTES_PER_S * 1e3
+    log(f"[28] intervisibility_matrix {LOS_POINTS} points over {N}^2 at the "
+        f"auto K {k}: {samples / 1e6:.1f} M samples, {-(-pairs // chunk)} "
+        f"chunks of {chunk} pairs, symmetric, diagonal true, "
+        f"{float(m.float().mean()):.4f} visible, {LOS_CHECK_ROWS} rows == "
+        f"CPU bitwise; peak {peak_mb:.1f} MB of the "
+        f"{los.LOS_BYTES / 1e6:.1f} MB budget ({per_sample:.1f} B a sample "
+        f"of the {los.LOS_SAMPLE_BYTES} estimated); {ms:.3f} ms (median of "
+        f"3), "
+        f"bound {bound_ms:.3f} ms (bytes: 2 packed gathers a sample), share "
+        f"{100 * bound_ms / ms:.2f}%; {card}")
+    log(f"[t] phase 28: {time.perf_counter() - t0:.1f} s")
+
+
 def main(profile_dir=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2848,6 +3199,29 @@ def main(profile_dir=None):
         f"{ms_kernel:.3f}, plain versions {ms_plain:.3f}; back-to-back "
         f"run of {RENDERS} with kernels: {run_kernel:.3f} ms each")
 
+    # suite config 2's annotation range queries (benchmarks/suite.py:110-
+    # 114): 512 POIs x a 12-row fuzz, one gather on the ranges
+    poi = np.arange(POIS_N)
+    q_rows = np.clip((300 + (poi * 7) % 400)[:, None]
+                     + np.arange(-6, 6)[None, :], 0, H - 1)
+    q_cols = np.broadcast_to(((poi * 8) % W)[:, None], q_rows.shape)
+    rows_t = torch.from_numpy(q_rows).to(dev)
+    cols_t = torch.from_numpy(np.ascontiguousarray(q_cols)).to(dev)
+    q_dev = rng[rows_t, cols_t]
+    if not np.array_equal(q_dev.cpu().numpy(),
+                          rng.cpu().numpy()[q_rows, q_cols]):
+        fail("config 2's POI range queries != the host copy's gather")
+
+    def render_and_query(i):
+        return render_panorama(dem, params[i], **rkw)[1][rows_t, cols_t]
+
+    ms_annot = cuda_ms(render_and_query, RENDERS)
+    ms_query = cuda_ms(lambda i: rng[rows_t, cols_t], RENDERS)
+    log(f"[5] config 2: {POIS_N} POI range queries x 12 rows ({q_dev.numel()}"
+        f" ranges, one gather) == numpy's gather of the host copy; render + "
+        f"queries {ms_annot:.3f} ms/viewpoint (median of {RENDERS}), the "
+        f"queries alone {ms_query:.4f} ms")
+
     # each kernel alone vs its plain version, at the main path's shapes
     pcol, fscal = pcol_fscal(geo, p)
     k_lim = tan_k.shape[1] - N_NEAR
@@ -2978,6 +3352,11 @@ def main(profile_dir=None):
         sweep_phase(dev, card, profile_dir),
         raster_phase(dev, card, profile_dir),
         count_phase(dev, card, profile_dir)]
+    shadow_phase(dev, card)
+    with tempfile.TemporaryDirectory() as tiles:      # phase 6's tiles again
+        write_tiles(tiles, 34, -118)
+        api_shadow_phase(dev, card, tiles)
+        los_phase(dev, card, tiles)
 
     kernels = [
         kernel_entry("window_march",
@@ -3054,10 +3433,33 @@ def time_march(root, tag):
     return 0
 
 
+def time_shadows(root, tag):
+    """--time-shadows: shadow_light of the package under ``root`` over the
+    bench DEM at phase 26's suns, the median ms of 5 calls each."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from horizonator_tpu_torch.ops.shadows import shadow_light
+    z = torch.from_numpy(bench_dem()).to(torch.device("cuda"))
+    suns = (*SHADOW_SUNS, (q16_azimuth(CPD, LAT), 20.0))
+    times = [cuda_ms(lambda i: shadow_light(
+        z, cells_per_deg=CPD, lat_deg=LAT, sun_az_deg=az, sun_alt_deg=alt),
+        5) for az, alt in suns]
+    log(f"{tag}: shadow_light {N}^2 ms at suns "
+        + ", ".join(f"({az:g}, {alt:g}) {t:.3f}"
+                    for (az, alt), t in zip(suns, times))
+        + f"; {card_line()}")
+    return 0
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
     if "--time-march" in args:
         i = args.index("--time-march")
         sys.exit(time_march(args[i + 1], args[i + 2]))
+    if "--time-shadows" in args:
+        i = args.index("--time-shadows")
+        sys.exit(time_shadows(args[i + 1], args[i + 2]))
     sys.exit(main(profile_dir=args[args.index("--profile") + 1]
                   if "--profile" in args else None))

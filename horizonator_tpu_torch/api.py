@@ -8,11 +8,13 @@ atlas and its color planes) and puts it on ``device``; render() is the
 repeatable path with a movable camera; pick() reads the last render's
 range image back to lat/lon, and horizon() gives the per-column horizon
 without an image, and skyline() the geolocated horizon ridgeline;
-render_batch() renders many viewpoints in one pass. This port covers the
-window sampler, untextured, textured (``render_texture``) and hillshaded,
-the debug lattice views (``debug_fill``), and the LOD march that long
-clip ranges swap to; cast shadows, region sharding and multi-device
-batches raise NotImplementedError.
+render_batch() renders many viewpoints in one pass; intervisible(),
+sightline() and visible_peaks() answer line-of-sight questions on the
+loaded DEM. This port covers the window sampler, untextured, textured
+(``render_texture``) and hillshaded (with cast ``shadows``), the debug
+lattice views (``debug_fill``), and the LOD march that long clip ranges
+swap to; region sharding and multi-device batches raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -67,9 +69,6 @@ class horizonator:
                 "hillshade and render_texture are mutually exclusive")
         if shadows and not hillshade:
             raise ValueError("shadows=True requires hillshade=True")
-        if shadows:
-            raise NotImplementedError("shadows need ops/shadows, which is "
-                                      "not ported")
         if texture_quality not in ("grid", "grid2x", "hybrid", "exact"):
             raise ValueError(f"unknown texture_quality {texture_quality!r}")
         if region_mesh is not None:
@@ -138,7 +137,8 @@ class horizonator:
         self.hillshade = bool(hillshade)
         if hillshade:
             # Lambertian sun shading from the DEM itself, through the same
-            # textured path (the gray planes stand in for map colors)
+            # textured path (the gray planes stand in for map colors);
+            # shadows: the direct term times ops/shadows' cast-shadow light
             if sun_time is not None:
                 sun_az_deg, sun_alt_deg = geometry.sun_position(
                     lat, lon, sun_time)
@@ -146,7 +146,8 @@ class horizonator:
             scale = 2 if texture_quality == "grid2x" else 1
             self._put_color_planes(texture.hillshade_planes(
                 self._dem, cpd, lat, sun_az_deg=sun_az_deg,
-                sun_alt_deg=sun_alt_deg, scale=scale), scale)
+                sun_alt_deg=sun_alt_deg, scale=scale,
+                cast_shadows=bool(shadows)), scale)
             self.render_texture = True   # drives the textured render path
 
         self.viewer_lat = float(lat)
@@ -158,6 +159,7 @@ class horizonator:
         self._pyramid = None
         self._color_pyramid = None
         self._debug_cp = None           # (mode, lattice planes)
+        self._los_packed = None         # the pair-packed DEM for LOS
         self._warned_lod_hybrid = False
 
     def _put_color_planes(self, planes, scale):
@@ -537,6 +539,118 @@ class horizonator:
                             "skyline")
         return {"az_deg": np.degrees(out[0]), "el_deg": np.degrees(out[1]),
                 "dist_m": out[2], "lat": out[3], "lon": out[4]}
+
+    # -- line of sight (ops/los.py) -----------------------------------------
+
+    def _dem_packed_pairs(self):
+        """The pair-packed int32 DEM plane for the LOS ops, built on the
+        instance's device on first use."""
+        if self._los_packed is None:
+            from .render.raymarch import pack_dem_pairs
+            self._los_packed = pack_dem_pairs(self._dem)
+        return self._los_packed
+
+    def _los_cells(self, lat0, lon0, lat1, lon1, nsteps):
+        """lat/lon -> (a, b, nsteps) for the LOS methods: float32 grid
+        coordinates and, by default, the longest pair at 1.5 samples a
+        cell (a multiple of 128 in [128, 8192])."""
+        i0, j0 = self.mosaic.viewer_cell(np.asarray(lat0, np.float32),
+                                         np.asarray(lon0, np.float32))
+        i1, j1 = self.mosaic.viewer_cell(np.asarray(lat1, np.float32),
+                                         np.asarray(lon1, np.float32))
+        i0, j0, i1, j1 = np.broadcast_arrays(i0, j0, i1, j1)
+        a = np.stack([i0, j0], axis=-1)
+        b = np.stack([i1, j1], axis=-1)
+        if nsteps is None:
+            span = float(np.hypot(i1 - i0, j1 - j0).max())
+            nsteps = int(min(8192, max(128, -(-span * 1.5 // 128) * 128)))
+        return a, b, nsteps
+
+    def _los_kw(self, nsteps, observer_height_m, target_height_m,
+                curvature):
+        return dict(cells_per_deg=self.mosaic.cells_per_deg,
+                    cos_lat=math.cos(math.radians(self.viewer_lat)),
+                    nsteps=nsteps, observer_height_m=observer_height_m,
+                    target_height_m=target_height_m, surface="bilinear",
+                    curvature=self.curvature if curvature is None
+                    else curvature)
+
+    def intervisible(self, lat0, lon0, lat1, lon1, *,
+                     observer_height_m=2.0, target_height_m=0.0,
+                     nsteps=None, curvature=None):
+        """Can an observer at (lat0, lon0) see a target at (lat1, lon1)?
+
+        Array arguments broadcast, so one call answers a whole batch of
+        pairs. The observer stands observer_height_m above the terrain; the
+        target sits target_height_m above it. curvature defaults to the
+        constructor's. Returns a bool (scalar inputs) or a bool ndarray.
+        Points outside the loaded mosaic window are never visible (the
+        reference's out-of-window convention, dem.c:270,293)."""
+        from .ops.los import intervisible as _iv
+        a, b, nsteps = self._los_cells(lat0, lon0, lat1, lon1, nsteps)
+        out = _iv(self._dem_packed_pairs(), a, b, **self._los_kw(
+            nsteps, observer_height_m, target_height_m,
+            curvature)).cpu().numpy()
+        return bool(out) if out.ndim == 0 else out
+
+    def sightline(self, lat0, lon0, lat1, lon1, *,
+                  observer_height_m=2.0, target_height_m=0.0,
+                  nsteps=None, curvature=None):
+        """Full LOS profile between two points: distances, terrain
+        elevations, chord heights, clearances, visibility, and the
+        worst-obstruction distance (ops.los.Sightline of numpy arrays)."""
+        from .ops.los import sightline as _sl
+        a, b, nsteps = self._los_cells(lat0, lon0, lat1, lon1, nsteps)
+        prof = _sl(self._dem_packed_pairs(), a, b, **self._los_kw(
+            nsteps, observer_height_m, target_height_m, curvature))
+        return type(prof)(*[x.cpu().numpy() for x in prof])
+
+    def visible_peaks(self, pois, *, observer_height_m=2.0,
+                      target_height_m=0.0, curvature=None):
+        """Which POIs can the viewer see?
+
+        ``pois``: a JSON path (annotate.load_pois format), a list of
+        ``annotate.Poi``, or a list of {name, lat, lon, ele_m} dicts. One
+        batched intervisible call (observer ``observer_height_m`` above
+        the terrain) answers every POI; the report adds the viewing
+        geometry in float64 on the host (viewer_z and the tan el = h/d -
+        d*curv law the panorama projects with, geometry.project).
+
+        Returns a list of dicts: {name, lat, lon, ele_m, visible, dist_m,
+        az_deg, el_deg}. Export with geojson.points_geojson or the CLI's
+        ``--pois-out``. POIs outside the loaded mosaic are visible=False.
+        """
+        from .annotate import Poi, load_pois
+        if isinstance(pois, (str, bytes)) or hasattr(pois, "__fspath__"):
+            pois = load_pois(str(pois))
+        recs = [(p.name, p.lat, p.lon, p.ele_m) if isinstance(p, Poi)
+                else (str(p["name"]), float(p["lat"]), float(p["lon"]),
+                      float(p.get("ele_m", p.get("ele", 0.0))))
+                for p in pois]
+        if not recs:
+            return []
+        names = [r[0] for r in recs]
+        lats = np.array([r[1] for r in recs], np.float64)
+        lons = np.array([r[2] for r in recs], np.float64)
+        eles = np.array([r[3] for r in recs], np.float64)
+        vis = np.atleast_1d(self.intervisible(
+            self.viewer_lat, self.viewer_lon, lats, lons,
+            observer_height_m=observer_height_m,
+            target_height_m=target_height_m, curvature=curvature))
+        cos_lat = math.cos(math.radians(self.viewer_lat))
+        east, north = geometry.latlon_to_en(
+            lats, lons, self.viewer_lat, cos_lat, self.viewer_lon)
+        d = np.hypot(east, north)
+        az = np.degrees(np.arctan2(east, north))
+        curv = self._curv if curvature is None else geometry.curvature_coeff(
+            curvature)
+        h = eles + target_height_m - self.viewer_z
+        el = np.degrees(np.arctan2(h - d * d * curv, d))
+        return [{"name": names[k], "lat": float(lats[k]),
+                 "lon": float(lons[k]), "ele_m": float(eles[k]),
+                 "visible": bool(vis[k]), "dist_m": float(d[k]),
+                 "az_deg": float(az[k]), "el_deg": float(el[k])}
+                for k in range(len(names))]
 
     def __str__(self):
         return f"Looking out from {self.viewer_lat:.4f},{self.viewer_lon:.4f}"

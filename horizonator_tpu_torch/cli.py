@@ -16,16 +16,19 @@ validation messages and exit codes, and the reference tool's conventions
 
 ``--horizon-out`` also writes the geolocated skyline as .csv or GeoJSON;
 without ``--image`` it is the only output (the headless GIS mode).
+``--pois-out`` writes the line-of-sight-tested ``--pois`` report as GeoJSON
+points (api.visible_peaks), with ``--image`` or without it.
 ``--viewshed FILE.tif`` writes the GIS visibility raster around LAT LON as
 a WGS84 GeoTIFF (ops/viewshed + geotiff.py); alone, or before the
-panorama and the skyline.
+panorama and the vector outputs. ``--hillshade --shadows`` shades the
+panorama with cast terrain shadows (ops/shadows).
 
 ``--device`` (default ``cuda``) picks where the render runs; the JAX CLI
 takes its backend from JAX_PLATFORMS instead. Flags whose code is not
-ported yet (``--viewshed-sampler step|crossing``, ``--pois-out``,
-``--shadows``, ``--surface triangulated``, ``--allow-dem-downloads``,
-``--dem-url``, and the interactive viewer) exit with status 1 and a message
-naming the missing module.
+ported yet (``--viewshed-sampler step|crossing``, ``--surface
+triangulated``, ``--allow-dem-downloads``, ``--dem-url``, and the
+interactive viewer) exit with status 1 and a message naming the missing
+module.
 
 Usage: python -m horizonator_tpu_torch.cli [options] LAT LON AZ_C AZ_R
 """
@@ -62,8 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="DEG", help="hillshade sun altitude above the "
                                        "horizon (default 45)")
     p.add_argument("--shadows", action="store_true",
-                   help="with --hillshade: cast terrain shadows (not ported: "
-                        "needs ops/shadows)")
+                   help="with --hillshade: cast terrain shadows (terrain "
+                        "blocking the sun ray), not just slope shading")
     p.add_argument("--sun-time", type=str, default=None, dest="sun_time",
                    metavar="ISO8601",
                    help="place the hillshade sun at its real position for "
@@ -106,8 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "compiled-in socal-peaks.h)")
     p.add_argument("--pois-out", type=str, default=None, dest="pois_out",
                    metavar="FILE",
-                   help="visible-peaks report as GeoJSON (not ported: needs "
-                        "visible_peaks)")
+                   help="also write the --pois list as GeoJSON points, each "
+                        "tested for line of sight from the viewer (visible, "
+                        "dist_m, az_deg, el_deg). Works with --image or "
+                        "standalone (with --width)")
     p.add_argument("--nsteps", type=int, default=None,
                    help="ray-march samples (default: auto from zfar)")
     p.add_argument("--surface", choices=["bilinear", "triangulated"],
@@ -169,14 +174,13 @@ def _unported(args) -> str | None:
         (args.viewshed is not None and args.viewshed_sampler != "window",
          f"--viewshed-sampler {args.viewshed_sampler}",
          "the oracle samplers ('step', 'crossing') of ops/viewshed"),
-        (args.pois_out is not None, "--pois-out", "visible_peaks"),
-        (args.shadows, "--shadows", "ops/shadows"),
         (args.surface == "triangulated", "--surface triangulated",
          "the uniform-step sampler"),
         (args.allow_dem_downloads, "--allow-dem-downloads",
          "the DEM downloader"),
         (args.image is None and args.horizon_out is None
-         and args.viewshed is None, "interactive mode (no --image)",
+         and args.pois_out is None and args.viewshed is None,
+         "interactive mode (no --image)",
          "viewer.py"),
     ]
     for wanted, flag, module in missing:
@@ -246,6 +250,18 @@ def _run_viewshed(args) -> int:
     return 0
 
 
+def _write_pois(h, args) -> None:
+    """--pois-out: the LOS-tested peak report as GeoJSON Points."""
+    from . import geojson as gj
+    peaks = h.visible_peaks(args.pois)
+    gj.points_geojson([p["lat"] for p in peaks], [p["lon"] for p in peaks],
+                      args.pois_out,
+                      properties=[{k: (round(v, 7) if isinstance(v, float)
+                                       else v) for k, v in p.items()
+                                   if k not in ("lat", "lon")}
+                                  for p in peaks])
+
+
 def _write_horizon(h, args, az_deg0, az_deg1) -> None:
     """--horizon-out: the geolocated skyline as CSV or GeoJSON."""
     from . import geojson as gj
@@ -290,15 +306,19 @@ def _horizonator(args, width: int, height: int, **kw):
 
 
 def _gis_only(args) -> int:
-    """--horizon-out without --image: the vector output and no panorama."""
+    """--horizon-out / --pois-out without --image: the vector outputs and
+    no panorama."""
     width = args.width if args.width > 0 else 1024
     az_radius = _az_radius(args, width)
     h = _horizonator(args, width,
                      max(1, int(round(width * 20.0 / az_radius))))
     if h is None:
         return 1
-    _write_horizon(h, args, args.az_center_deg - az_radius,
-                   args.az_center_deg + az_radius)
+    if args.horizon_out is not None:
+        _write_horizon(h, args, args.az_center_deg - az_radius,
+                       args.az_center_deg + az_radius)
+    if args.pois_out is not None:
+        _write_pois(h, args)
     return 0
 
 
@@ -337,7 +357,8 @@ def _render_image(args) -> int:
                      tiles_url_fmt=tiles_url_fmt,
                      allow_downloads=args.allow_downloads,
                      hillshade=args.hillshade, sun_az_deg=args.sun_az,
-                     sun_alt_deg=args.sun_alt, sun_time=args.sun_time)
+                     sun_alt_deg=args.sun_alt, sun_time=args.sun_time,
+                     shadows=args.shadows)
     if h is None:
         return 1
     image, ranges = h.render(az_deg0, az_deg1, znear=args.znear,
@@ -368,6 +389,8 @@ def _render_image(args) -> int:
                  ele_m=h.viewer_z, curv=h._curv)
     if args.horizon_out is not None:
         _write_horizon(h, args, az_deg0, az_deg1)
+    if args.pois_out is not None:
+        _write_pois(h, args)
     return 0
 
 
@@ -379,8 +402,9 @@ def main(argv=None) -> int:
         return 1
     if args.viewshed is not None:
         rc = _run_viewshed(args)
-        # --image and --horizon-out compose with --viewshed
-        if rc != 0 or (args.image is None and args.horizon_out is None):
+        # --image, --horizon-out and --pois-out compose with --viewshed
+        if rc != 0 or (args.image is None and args.horizon_out is None
+                       and args.pois_out is None):
             return rc
     return _gis_only(args) if args.image is None else _render_image(args)
 

@@ -180,11 +180,9 @@ def hillshade_planes(dem: torch.Tensor, cells_per_deg: int, lat_deg: float,
     Normals from central differences (one-sided at the edges); the sun at
     ``sun_az_deg`` clockwise from north, ``sun_alt_deg`` up; shade =
     ambient + (1 - ambient) * max(n.s, 0). ``scale=2`` interpolates at the
-    half-cell coordinates. ``cast_shadows`` needs ops/shadows, which is
-    not ported."""
-    if cast_shadows:
-        raise NotImplementedError("cast_shadows needs ops/shadows, which "
-                                  "is not ported")
+    half-cell coordinates. ``cast_shadows`` multiplies the direct term by
+    ops.shadows.shadow_light (terrain occluding the sun ray, ramped over
+    ``shadow_soft_m``); ambient light is unaffected."""
     if scale not in (1, 2):
         raise ValueError(f"scale must be 1 or 2, got {scale}")
     z = dem.to(torch.float32)
@@ -201,7 +199,14 @@ def hillshade_planes(dem: torch.Tensor, cells_per_deg: int, lat_deg: float,
             - dzdn * math.cos(az) * math.cos(alt)
             + math.sin(alt))
     ndot = ndot / torch.sqrt(dzde * dzde + dzdn * dzdn + 1.0)
-    shade = ambient + (1.0 - ambient) * torch.clamp(ndot, min=0.0)
+    direct = torch.clamp(ndot, min=0.0)
+    if cast_shadows:
+        from ..ops.shadows import shadow_light
+        direct = direct * shadow_light(
+            z, cells_per_deg=cells_per_deg, lat_deg=lat_deg,
+            sun_az_deg=float(sun_az_deg), sun_alt_deg=float(sun_alt_deg),
+            soft_m=shadow_soft_m)
+    shade = ambient + (1.0 - ambient) * direct
     gray = torch.clamp(shade * 255.0, 0.0, 255.0)
     if scale == 2:
         def up2(a):
@@ -216,13 +221,14 @@ def hillshade_planes(dem: torch.Tensor, cells_per_deg: int, lat_deg: float,
     return gray[None].expand(3, *gray.shape)
 
 
-def scene_from_jax(color_planes=None, atlas=None, atlas_params=None,
-                   device="cpu"):
+def scene_from_jax(color_planes=None, atlas=None, atlas_params=None, *,
+                   device):
     """The port's (color_planes, atlas, atlas_params) from the JAX
     package's textured scene state, every array taken across as numpy
     (``np.asarray`` of a JAX array works): a JAX ColorPlanes2x becomes the
     port's (its ``full_packed``), packed or float cell planes and the
-    packed atlas become tensors, AtlasParams is copied field by field."""
+    packed atlas become tensors on ``device``, AtlasParams is copied field
+    by field."""
     def tensor(x):
         return torch.from_numpy(np.array(np.asarray(x))).to(device)
 

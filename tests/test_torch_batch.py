@@ -73,7 +73,7 @@ def _window_scene(textured=None):
         atlas, ap = _atlas_scene(N_WIN, 128.3, 127.6, seed=9, smooth=True)
         jx = dict(textured=True, color_planes=jcp, atlas=jnp.asarray(atlas),
                   atlas_params=ap, exact_near_m=near)
-        tcp, tat, tap = ttex.scene_from_jax(jcp, atlas, ap)
+        tcp, tat, tap = ttex.scene_from_jax(jcp, atlas, ap, device="cpu")
         tx = dict(textured=True, color_planes=tcp, atlas=tat,
                   atlas_params=tap, exact_near_m=near)
     return dem, dem, jps, kw, jx, tx

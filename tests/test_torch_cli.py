@@ -395,8 +395,6 @@ UNPORTED = [
     (["--viewshed", "v.tif", "--viewshed-sampler", "step"], "ops/viewshed"),
     (["--horizon-out", "h.csv", "--dem-url", "http://example.invalid/%s"],
      "dem_url_fmt"),
-    (["--pois-out", "p.geojson", "--pois", "p.json"], "visible_peaks"),
-    (["--hillshade", "--shadows"], "ops/shadows"),
     (["--surface", "triangulated"], "step sampler"),
     (["--allow-dem-downloads"], "DEM downloader"),
     ([], "viewer.py"),
@@ -408,7 +406,7 @@ UNPORTED = [
 def test_cli_unported_flags_exit(dem_dir, tmp_path, capsys, extra, module):
     image = [] if not extra else ["--width", "64", "--image",
                                   str(tmp_path / "x.png")]
-    if extra and extra[0] in ("--horizon-out", "--pois-out"):
+    if extra and extra[0] == "--horizon-out":
         image = ["--width", "64"]
     rc = tcli.main(["--device", "cpu", "--dirdems", dem_dir, *image, *extra,
                     "34.40", "-117.45", "0", "60"])

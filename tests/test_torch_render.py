@@ -187,10 +187,11 @@ def test_api_guard_and_unported(dem_dir):
                       strict_coverage=True, **kw)
     with pytest.raises(RuntimeError, match="masked"):
         hs.render(-60, 60, zfar=15000.0)
-    for bad in ({"hillshade": True, "shadows": True},
-                {"region_mesh": "auto"}):
-        with pytest.raises(NotImplementedError):
-            THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, **kw, **bad)
+    with pytest.raises(NotImplementedError):
+        THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, region_mesh="auto",
+                     **kw)
+    with pytest.raises(ValueError, match="hillshade"):
+        THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, shadows=True, **kw)
     # a long clip swaps to the LOD march, as in the JAX package
     hl = THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, nsteps=2048, **kw)
     _, rng = hl.render(-60, 60)

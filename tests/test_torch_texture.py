@@ -139,8 +139,11 @@ def test_hillshade_planes(scale, az, alt, lat):
 
 def test_hillshade_guards():
     dem = torch.from_numpy(make_dem(16))
-    with pytest.raises(NotImplementedError):
-        ttex.hillshade_planes(dem, CPD, 34.0, cast_shadows=True)
+    # cast shadows only darken (tests/test_torch_shadows.py holds them
+    # against the JAX package)
+    base = ttex.hillshade_planes(dem, CPD, 34.0)
+    shad = ttex.hillshade_planes(dem, CPD, 34.0, cast_shadows=True)
+    assert shad.shape == base.shape and bool((shad <= base).all())
     with pytest.raises(ValueError):
         ttex.hillshade_planes(dem, CPD, 34.0, scale=3)
 
@@ -151,13 +154,14 @@ def test_scene_from_jax():
     cp = jtex.prepare_color_planes(jnp.asarray(c2))
     atlas = jtex.pack_atlas(jnp.asarray(
         rng.integers(0, 256, (16, 16, 3)).astype(np.uint8)))
-    cpt, at, apt = ttex.scene_from_jax(cp, atlas, jtex.AtlasParams(*AP))
+    cpt, at, apt = ttex.scene_from_jax(cp, atlas, jtex.AtlasParams(*AP),
+                                        device="cpu")
     assert isinstance(cpt, ttex.ColorPlanes2x) and cpt.n == 16
     np.testing.assert_array_equal(cpt.full_packed.numpy(),
                                   np.asarray(cp.full_packed))
     np.testing.assert_array_equal(at.numpy(), np.asarray(atlas))
     assert apt == AP and isinstance(apt, ttex.AtlasParams)
-    cells, _, _ = ttex.scene_from_jax(jnp.asarray(c2))
+    cells, _, _ = ttex.scene_from_jax(jnp.asarray(c2), device="cpu")
     np.testing.assert_array_equal(cells.numpy(), c2)
 
 

@@ -92,11 +92,11 @@ def _planes(form, n, seed):
     if form == "half":
         c = rng.integers(0, 256, (3, 2 * n, 2 * n)).astype(np.float32)
         cp = jtex.prepare_color_planes(jnp.asarray(c))
-        return cp, ttex.scene_from_jax(cp)[0]
+        return cp, ttex.scene_from_jax(cp, device="cpu")[0]
     c = rng.integers(0, 256, (3, n, n)).astype(np.float32)
     if form == "packed":
         pk = jtex.pack_cell_colors(jnp.asarray(c))
-        return pk, ttex.scene_from_jax(pk)[0]
+        return pk, ttex.scene_from_jax(pk, device="cpu")[0]
     if form == "fraction":                 # e.g. hillshade: not integers
         c = c + rng.uniform(-0.5, 0.5, c.shape).astype(np.float32)
     return jnp.asarray(c), torch.from_numpy(c)
@@ -109,7 +109,7 @@ def _march_both(dem, jp, width, k, jplanes, tplanes, hint=100.0, **hyb):
                             exact_near_m=hyb.get("exact_near_m"))
     assert int(jd) == 0
     _, at, apt = ttex.scene_from_jax(None, hyb.get("atlas"),
-                                     hyb.get("atlas_params"))
+                                     hyb.get("atlas_params"), device="cpu")
     geo = geo_to_torch(_jax_geometry(jp, width))
     tt, dists, tx = twin.march_from_geometry(
         torch.from_numpy(dem), params_from_jax(jp, "cpu"), geo, k_cross=k,
@@ -350,7 +350,8 @@ def test_textured_render_matches_jax(dem_dir, quality):  # noqa: F811
                exact_near_m=1200.0 if quality == "hybrid" else None)
     img_j, rng_j = j_render(jnp.asarray(dem), jp, sampler="window",
                             textured=True, color_planes=jplanes, **hyb, **kw)
-    tplanes, tatlas, tap = ttex.scene_from_jax(jplanes, atlas, ap)
+    tplanes, tatlas, tap = ttex.scene_from_jax(jplanes, atlas, ap,
+                                               device="cpu")
     tp = params_from_jax(jp, "cpu")
     img_t, rng_t, guard = render_panorama(
         torch.from_numpy(dem), tp, textured=True, color_planes=tplanes,
@@ -410,8 +411,6 @@ def test_api_textured_options(dem_dir, tmp_path):  # noqa: F811
     for bad, err in (({"hillshade": True, "render_texture": True},
                       ValueError),
                      ({"shadows": True}, ValueError),
-                     ({"hillshade": True, "shadows": True},
-                      NotImplementedError),
                      ({"texture_quality": "best"}, ValueError)):
         with pytest.raises(err):
             THorizonator(*args, **kw, **bad)
@@ -436,4 +435,10 @@ def test_api_textured_options(dem_dir, tmp_path):  # noqa: F811
                       **kw)
     assert 0.0 < hs.sun_alt_deg < 90.0
     assert hs.render(0, 90, return_image=False).shape == (32, 64)
+    # cast shadows change colour only (tests/test_torch_shadows.py holds
+    # the image against the JAX package)
+    hsh = THorizonator(*args, hillshade=True, shadows=True,
+                       sun_time="2024-06-21T19:30:00", **kw)
+    assert np.array_equal(hsh.render(0, 90, return_image=False),
+                          hs.render(0, 90, return_image=False))
     assert _terrain is not None

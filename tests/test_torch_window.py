@@ -222,7 +222,8 @@ def test_march_edge_shapes(n, vi, vj, az0, az1, width, k, znear, zfar, s,
         jt, jx, jdrop = _jax_march_tex(jnp.asarray(dem), jp, jplanes, width,
                                        k, znear_hint_m=hint)
         tt, _, tx = twin.march_from_geometry(
-            td, tp, geo, color_planes=ttex.scene_from_jax(jplanes)[0], **kw)
+            td, tp, geo,
+            color_planes=ttex.scene_from_jax(jplanes, device="cpu")[0], **kw)
         jx, tx = np.asarray(jx)[:, q:], tx.numpy()[:, q:]
         np.testing.assert_array_equal(tx, jx)
         assert (tx[np.asarray(jt)[:, q:] <= NEG] == 0).all()
