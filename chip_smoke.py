@@ -13,6 +13,7 @@ then drive the main render path and the API on the card.
         # only: time shadow_light of the package under the tree ROOT over
         # the bench DEM at phase 26's suns (median of 5 each), the same
         # way round
+    python3 chip_smoke.py --oracle        # only: build, then phases 29-31
 
 Phases, in order; any failure raises and exits nonzero:
  1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the card;
@@ -175,8 +176,40 @@ Phases, in order; any failure raises and exits nonzero:
     the CPU's; its chunks and peak memory against ops.los.LOS_BYTES, the
     peak's bytes a sample against ops.los.LOS_SAMPLE_BYTES, its ms against
     two packed gathers a sample.
-Phases 26-28 add no kernel (their ops are the JAX package's XLA ops, in
-plain PyTorch); phase 27 runs the two textured kernels.
+29. the uniform-step sampler at the bench shape (phase 2's scene,
+    4096x1024, 360 deg, zfar 40 km, the API's budget K 768):
+    render_panorama(sampler="step") on the bilinear and the triangulated
+    surface, and at K 4096 (the resolve's other alpha regime), each
+    bitwise the plain versions' render with the resolve launched; the
+    resolve alone at K 768 and 4096 bitwise, timed, against its bound;
+    phase 4's planar oracle through march_tanel (4e-3); march_tanel and a
+    64-viewpoint horizon_batch on the card against the CPU (the same valid
+    samples, within 1e-5, bitwise in the columns whose sin and cos the two
+    devices round alike; the count and largest difference printed); ms per
+    viewpoint (median of 20) and peak memory;
+30. the grid-crossing sampler at the bench shape (K 576 + 4): the render
+    bitwise the plain versions', the resolve alone at K 580, the planar
+    oracle; horizon_crossing against a dense step horizon (4 steps a
+    crossing step) and the window march's (tests/test_crossing.py:70-97's
+    bounds: columns agree > 99%, median < 6e-4 rad, p99 < 1.5e-2);
+    config 5's viewshed_sweep with its default (crossing) sampler, 16
+    viewpoints bitwise their single sweeps, us per viewpoint; config 7's
+    raster with the default step sampler (gather) and the crossing one
+    (contract), ms per raster; the CLI's --viewshed --viewshed-sampler
+    crossing on phase 6's tiles, its TIFF read back; --surface
+    triangulated to .pdf (no PIL on the card's machine) with --ranges
+    .npy, the ranges bitwise the API's surface="triangulated" render;
+31. suite config 1 in tests/test_mesh.py:96-145's scene (1201^2,
+    1024x512, -60..60 deg, znear 100 m, zfar 30 km): render_mesh_tiled
+    with overflow 0; its first visible row per column against the window
+    render's and the triangulated step render's: the same columns see
+    terrain, error max <= 1 px, median 0; the window render's ms (config
+    1's number), the step render's and the mesh's; the window march alone
+    bitwise, timed, against its bound; render_mesh of the tests' 192^2
+    scene on the card against the CPU (test_torch_mesh's tolerances).
+Phases 26-31 add no kernel (their ops are the JAX package's XLA ops, in
+plain PyTorch); phase 27 runs the two textured kernels, phases 29-30 the
+resolve, phase 31 the march and the resolve.
 Each phase group prints its seconds ("[t]" lines).
 A kernel's "device ms" (the ``ms`` of its record) is the replay time of a
 CUDA graph of back-to-back launches over their count, so no Python runs in
@@ -202,6 +235,9 @@ each with its cell, ``batch`` (viewpoints), ``launches`` (per batch),
 over the levels, with ``levels`` itemized), ``ms_per_frame`` (per frame,
 viewpoint, raster or observer), ``ms_per_frame_single_loop``,
 ``device_busy`` (under --profile; else null), ``peak_mb`` and ``chunks``.
+The resolve and window_march entries carry ``oracle``: the records of
+their launches on phases 29-31's paths (cell, K, launches, ms, plain_ms,
+bound_ms, bound_by; config 1's also its render's ms_per_frame).
 Every number printed stands beside the card's name and power limit
 (phase 1's line and the line before the last). The last lines of standard
 output are the card, the kernels' JSON record and {"ok": true, ...}.
@@ -287,6 +323,19 @@ SHADOW_SUNS = ((90.0, 25.0), (0.0, 35.0), (45.0, 30.0), (112.0, 20.0),
 SHADOW_Q16_FROM, SHADOW_ORACLE_CELLS = 100.0, 4096
 # sun_hours' winter day and 8 instants keep its CPU run to 3 suns
 SUN_HOURS_DATE, SUN_HOURS_SAMPLES = "2026-12-21", 8
+# phases 29-31: the oracle samplers. The step renders take the API's
+# uniform budget (1.5 steps a cell, a multiple of 256: K 768 at the bench
+# shape); one at K 4096 takes the resolve's other alpha regime. Phase 29's
+# horizon_batch: 64 viewpoints at W 256; phase 30 sweeps 16 of config 5's
+# viewpoints one by one. Phase 4's plane: z0, slopes a (i) and b (j), the
+# viewer's height above it
+STEP_OVERSAMPLE, STEP_K_WIDE = 1.5, 4096
+HB_VIEWS, HB_W, ORACLE_SINGLES = 64, 256, 16
+PLANE = (1200.0, 0.6, -0.35, 25.0)
+# phase 31: suite config 1 (benchmarks/suite.py:72) in the scene of
+# tests/test_mesh.py:96-145: a 1201^2 tile, 1024x512, -60..60 deg, znear
+# 100 m, zfar 30 km
+C1_N, C1_W, C1_H, C1_ZFAR, C1_LAT = 1201, 1024, 512, 30000.0, 34.3
 # phases 5 and 28: suite config 2's POI count (benchmarks/suite.py:110-114);
 # phase 28's intervisibility matrix
 POIS_N, LOS_POINTS, LOS_CHECK_ROWS = 512, 256, 16
@@ -2542,10 +2591,11 @@ def read_tiff(path):
     return tags, buf[tags[273][0]:tags[273][0] + tags[279][0]]
 
 
-def cli_viewshed_check(dev):
+def cli_viewshed_check(dev, sampler="window"):
     """The CLI's --viewshed on phase 6's tiles (a full circle at the default
-    zfar), its TIFF read back: size, format, pixel scale and tiepoint of the
-    raster around the viewer, pixels bitwise viewshed_grid's, north up."""
+    zfar) with --viewshed-sampler ``sampler``, its TIFF read back: size,
+    format, pixel scale and tiepoint of the raster around the viewer,
+    pixels bitwise viewshed_grid's, north up."""
     from horizonator_tpu_torch import cli, geometry
     from horizonator_tpu_torch.dem import load_mosaic
     from horizonator_tpu_torch.kernels.window_march import march
@@ -2558,10 +2608,11 @@ def cli_viewshed_check(dev):
         out = os.path.join(td, "viewshed.tif")
         march.launches = 0
         t0 = time.perf_counter()
-        rc = cli.main(["--dirdems", td, "--viewshed", out, str(lat),
-                       str(lon), "0", "180"])
+        rc = cli.main(["--dirdems", td, "--viewshed", out,
+                       "--viewshed-sampler", sampler, str(lat), str(lon),
+                       "0", "180"])
         cli_s = time.perf_counter() - t0
-        if rc != 0 or march.launches != 1:
+        if rc != 0 or march.launches != (sampler == "window"):
             fail(f"CLI --viewshed rc {rc}, march launches {march.launches}")
         tags, pix = read_tiff(out)
         m = load_mosaic(lat, lon, render_radius_m=zfar, datadir=td)
@@ -2580,7 +2631,7 @@ def cli_viewshed_check(dev):
     vis = viewshed_grid(
         torch.from_numpy(m.grid.astype(np.float32)).to(dev), p, width=width,
         nsteps=k_cross_for(zfar, cpd, lat, n=n), cells_per_deg=cpd,
-        out_halfwidth=hw, sampler="window", lat_hint_deg=lat,
+        out_halfwidth=hw, sampler=sampler, lat_hint_deg=lat,
         znear_hint_m=100.0, full_circle=True).cpu().numpy()
     olon, olat = m.origin_dem_lon_lat
     oi, oj = m.origin_dem_cellij
@@ -2594,7 +2645,9 @@ def cli_viewshed_check(dev):
     got = np.frombuffer(pix, np.uint8).reshape(2 * hw, 2 * hw)
     if not np.array_equal(got, vis[::-1].astype(np.uint8)):
         fail("CLI --viewshed TIFF pixels != viewshed_grid's raster")
-    log(f"[24] CLI --viewshed on phase 6's tiles: {2 * hw}x{2 * hw} cells, "
+    log(f"[{24 if sampler == 'window' else 30}] CLI --viewshed "
+        f"--viewshed-sampler {sampler} on phase 6's tiles: {2 * hw}x{2 * hw} "
+        f"cells, "
         f"W {width}, written and read back in {cli_s:.2f} s: tags (size, "
         f"uint8, pixel scale, NW tiepoint) as computed, pixels == "
         f"viewshed_grid's raster north up, visible {vis.mean():.4f}")
@@ -3055,6 +3108,527 @@ def los_phase(dev, card, tiles):
     log(f"[t] phase 28: {time.perf_counter() - t0:.1f} s")
 
 
+def step_budget_api(zfar, znear, cpd=CPD):
+    """The API's uniform-step budget (api.py:398-405): cell/oversample
+    spacing over [znear, zfar], a multiple of 256 in [256, 8192]."""
+    cell_n = 6371000.0 * math.pi / 180.0 / cpd
+    n = (zfar - znear) / cell_n * STEP_OVERSAMPLE
+    return max(256, min(8192, -(-int(math.ceil(n)) // 256) * 256))
+
+
+def oracle_render_check(tag, render, counters):
+    """One render of an oracle path with every kernel count at 0 just
+    before it, read just after; the image and ranges bitwise the plain
+    versions' render. Returns (image, ranges, launches)."""
+    for fn in counters:
+        fn.launches = 0
+    img, rng = render(False)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if min(launches.values()) < 1:
+        fail(f"{tag}: a kernel of the path was not launched: {launches}")
+    vis = float((rng > 0).float().mean())
+    if not 0.05 < vis < 0.95:
+        fail(f"{tag}: degenerate visible fraction {vis}")
+    img_p, rng_p = render(True)
+    if not (torch.equal(img, img_p) and torch.equal(rng, rng_p)):
+        fail(f"{tag}: render != the plain versions' render: "
+             f"{int((rng != rng_p).sum())} ranges differ")
+    return img, rng, launches
+
+
+def resolve_record(cell, p, tanel, height, launches, int32_rate):
+    """The resolve kernel alone at an oracle path's shape: its rows from
+    the path's raw tangents, bitwise against its plain version, device ms
+    (graph replay), plain ms and bound as phase 5 counts them."""
+    from horizonator_tpu_torch.kernels.resolve import resolve, resolve_plain
+    from horizonator_tpu_torch.render.raymarch import horizon_rows
+    from horizonator_tpu_torch.render.resolve_window import alpha_quantum
+    w = tanel.shape[-2]
+    y = horizon_rows(tanel, p, width=w, height=height).reshape(
+        -1, tanel.shape[-1]).contiguous()
+    amax, int_first = alpha_quantum(y.shape[1], height)
+    got = resolve(y, height, amax, int_first)
+    ref = resolve_plain(y, height, amax, int_first)
+    for name, a, b in zip(("idx", "alpha", "ok"), got, ref):
+        if not torch.equal(a, b):
+            fail(f"{cell}: resolve {name} != plain at {tuple(y.shape)}")
+    ms = graph_ms(lambda: resolve(y, height, amax, int_first),
+                  GRAPH_LAUNCHES)
+    plain_ms = cuda_ms_run(lambda i: resolve_plain(y, height, amax,
+                                                   int_first), 5)
+    nbytes = y.nbytes + 9 * y.shape[0] * height
+    ops = y.shape[0] * (4 * y.shape[1] + 12 * height)
+    b_ms, b_by = bound(nbytes, ops, int32_rate)
+    log(f"[{cell}] resolve ({y.shape[0]}, {y.shape[1]}) -> H {height} "
+        f"(amax {amax:g}, {'fused' if int_first else 'fallback'} alpha "
+        f"regime) == plain bitwise; device ms {ms:.4f} (plain "
+        f"{plain_ms:.3f}), bound {b_ms:.5f} ({b_by}), share "
+        f"{100 * b_ms / ms:.1f}%")
+    return dict(cell=cell, k=int(y.shape[1]), launches=launches, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def card_vs_cpu(tag, got, ref, same_cols):
+    """A card result against the same function on CPU tensors: bitwise in
+    ``same_cols``, the columns whose sin and cos of az the two devices
+    round alike (every other operation is IEEE-rounded on both); elsewhere
+    printed: the count of values that differ and their largest difference
+    where both are valid (a sanity bound of 1e-3), and the samples valid
+    on one device only (at most 1e-4 of them)."""
+    got = got.cpu()
+    diff = got != ref
+    gv, rv = got > -1e30, ref > -1e30
+    both = gv & rv
+    err = float((got[both].double() - ref[both].double()).abs().max())
+    flips = int((gv != rv).sum())
+    if diff[same_cols.cpu()].any():
+        fail(f"{tag}: card != CPU in columns whose sin and cos agree")
+    if err > 1e-3 or flips > 1e-4 * diff.numel():
+        fail(f"{tag}: card vs CPU: error {err}, {flips} validity flips")
+    log(f"[{tag}] card vs CPU: bitwise in the {int(same_cols.sum())} of "
+        f"{same_cols.numel()} columns whose sin and cos agree; elsewhere "
+        f"{int(diff.sum())} of {diff.numel()} values differ, max {err:.3e} "
+        f"where both are valid, {flips} valid on one device only")
+
+
+def same_trig_cols(az):
+    """Columns whose sin and cos of az the card rounds as the CPU does."""
+    c = az.cpu()
+    return ((torch.sin(az).cpu() == torch.sin(c))
+            & (torch.cos(az).cpu() == torch.cos(c)))
+
+
+def planar_oracle(tag, tanel, d, az):
+    """Phase 4's planar-DEM analytic oracle on a march's samples: the
+    tangent error within 4e-3."""
+    d_np = d.cpu().numpy().astype(np.float64)
+    t_np = tanel.cpu().numpy().astype(np.float64)
+    az_np = az.cpu().numpy().astype(np.float64)
+    cell_n = 6371000.0 * math.pi / 180.0 / CPD
+    cell_e = cell_n * math.cos(math.radians(34.0))
+    g = PLANE[1] * np.sin(az_np) / cell_e + PLANE[2] * np.cos(az_np) / cell_n
+    valid = (t_np > -1e30) & (d_np >= 100.0)
+    err = float(np.abs((t_np - (g[:, None] - PLANE[3] / np.maximum(
+        d_np, 1.0))) * valid).max())
+    if not valid.sum() or err > 4e-3:
+        fail(f"{tag}: planar-DEM oracle error {err} (budget 4e-3)")
+    log(f"[{tag}] planar-DEM analytic oracle: max tangent error {err:.3e} "
+        f"over {int(valid.sum())} samples (budget 4e-3)")
+
+
+def planar_scene(dev):
+    """Phase 4's plane (z0 + a i + b j, viewer dz0 above it)."""
+    from horizonator_tpu_torch.render import make_params
+    n4 = 512
+    jj, ii = np.meshgrid(np.arange(n4, dtype=np.float32),
+                         np.arange(n4, dtype=np.float32), indexing="ij")
+    z0, a_sl, b_sl, dz0 = PLANE
+    dem = torch.from_numpy((z0 + a_sl * ii + b_sl * jj).astype(
+        np.float32)).to(dev)
+    p = make_params(device=dev, viewer_cell_i=255.3, viewer_cell_j=257.6,
+                    viewer_z=z0 + a_sl * 255.3 + b_sl * 257.6 + dz0,
+                    cos_viewer_lat=math.cos(math.radians(34.0)),
+                    az_rad0=-math.pi, az_rad1=math.pi, znear=100.0,
+                    zfar=6000.0, znear_color=100.0, zfar_color=6000.0)
+    return dem, p
+
+
+def bench_view(dev, i=0):
+    """Phase 2's bench viewpoint, moved by i cells."""
+    from horizonator_tpu_torch.render import make_params
+    return make_params(
+        device=dev, viewer_cell_i=N / 2 + i, viewer_cell_j=N / 2 - i,
+        viewer_z=900.0, cos_viewer_lat=math.cos(math.radians(LAT)),
+        az_rad0=-math.pi, az_rad1=math.pi, znear=100.0, zfar=ZFAR,
+        znear_color=100.0, zfar_color=ZFAR)
+
+
+def step_phase(dev, card, int32_rate):
+    """Phase 29: the uniform-step sampler at the bench shape (phase 2's
+    scene, 4096x1024, 360 deg, zfar 40 km, the API's budget K 768).
+    Returns the resolve's records."""
+    from horizonator_tpu_torch.kernels.resolve import resolve
+    from horizonator_tpu_torch.parallel import horizon_batch
+    from horizonator_tpu_torch.render import render_panorama
+    from horizonator_tpu_torch.render.raymarch import (march_tanel,
+                                                       pack_dem_pairs)
+    from horizonator_tpu_torch.render.resolve_window import resolve_fits
+    t0 = time.perf_counter()
+    dem = torch.from_numpy(bench_dem()).to(dev)
+    packed = pack_dem_pairs(dem)
+    k = step_budget_api(ZFAR, 100.0)
+    p = bench_view(dev)
+    records = []
+    for surface in ("bilinear", "triangulated"):
+        for kk in ((k, STEP_K_WIDE) if surface == "bilinear" else (k,)):
+            kw = dict(width=W, height=H, nsteps=kk, cells_per_deg=CPD,
+                      sampler="step", surface=surface)
+            tag = f"29 step {surface} K {kk}"
+            img, rng, launches = oracle_render_check(
+                tag, lambda plain: render_panorama(packed, p, plain=plain,
+                                                   **kw), [resolve])
+            log(f"[{tag}] render {W}x{H}: launches {launches}, visible "
+                f"{float((rng > 0).float().mean()):.4f}, image and ranges "
+                f"== plain versions' render bitwise (resolve_fits "
+                f"{resolve_fits(kk, H)})")
+            if surface == "bilinear":
+                tanel = march_tanel(packed, p, width=W, nsteps=kk,
+                                    cells_per_deg=CPD)[0]
+                records.append(resolve_record(
+                    f"step K {kk}", p, tanel, H, launches["resolve"],
+                    int32_rate))
+                del tanel
+    dem4, p4 = planar_scene(dev)
+    tan4, _, d4, az4 = march_tanel(dem4, p4, width=512, nsteps=1024,
+                                   cells_per_deg=CPD)
+    planar_oracle("29 step", tan4, d4[None, :].expand_as(tan4), az4)
+
+    # the march on the card against the same function on CPU tensors
+    tan_c, _, d_c, az_c = march_tanel(packed, p, width=W, nsteps=k,
+                                      cells_per_deg=CPD,
+                                      surface="triangulated")
+    tan_h, _, d_h, _ = march_tanel(packed.cpu(), bench_view("cpu"), width=W,
+                                   nsteps=k, cells_per_deg=CPD,
+                                   surface="triangulated")
+    if not torch.equal(d_c.cpu(), d_h):
+        fail("29: step distances card != CPU")
+    card_vs_cpu("29 march_tanel", tan_c, tan_h, same_trig_cols(az_c))
+    del tan_c, tan_h
+    rng_np = np.random.default_rng(29)
+    vi = rng_np.uniform(0.25 * N, 0.75 * N, HB_VIEWS)
+    vj = rng_np.uniform(0.25 * N, 0.75 * N, HB_VIEWS)
+    hb = dict(width=HB_W, nsteps=k, cells_per_deg=CPD)
+    pb = batch_params(dev, vi, vj, 900.0, LAT, -180.0, 180.0, 100.0, ZFAR)
+    az_b, h_b = horizon_batch(packed, pb, **hb)
+    az_h, h_h = horizon_batch(packed.cpu(), batch_params(
+        "cpu", vi, vj, 900.0, LAT, -180.0, 180.0, 100.0, ZFAR), **hb)
+    if not torch.equal(az_b.cpu(), az_h):
+        fail("29: horizon_batch azimuths card != CPU")
+    card_vs_cpu("29 horizon_batch", h_b[..., None], h_h[..., None],
+                same_trig_cols(az_b))
+
+    params = [bench_view(dev, i) for i in range(RENDERS + 2)]
+    kw = dict(width=W, height=H, nsteps=k, cells_per_deg=CPD,
+              sampler="step")
+    ms = cuda_ms(lambda i: render_panorama(packed, params[i], **kw), RENDERS)
+    _, peak_mb = peak_run(lambda: render_panorama(packed, p, **kw))
+    ms_tri = cuda_ms(lambda i: render_panorama(
+        packed, params[i], surface="triangulated", **kw), RENDERS)
+    log(f"[29] step render {W}x{H} K {k}: ms/viewpoint (median of "
+        f"{RENDERS}, CUDA events) bilinear {ms:.3f}, triangulated "
+        f"{ms_tri:.3f}; peak device memory {peak_mb:.1f} MB; {card}")
+    log(f"[t] phase 29: {time.perf_counter() - t0:.1f} s")
+    return records
+
+
+def crossing_phase(dev, card, int32_rate):
+    """Phase 30: the grid-crossing sampler at the bench shape (K 576 + 4),
+    its horizons against a dense step horizon and the window march's, the
+    oracle viewsheds at configs 5 and 7, and the CLI's --viewshed-sampler
+    crossing and --surface triangulated. Returns the resolve's record."""
+    from horizonator_tpu_torch import cli, horizonator
+    from horizonator_tpu_torch.kernels.resolve import resolve
+    from horizonator_tpu_torch.ops import viewshed_grid, viewshed_sweep
+    from horizonator_tpu_torch.render import render_panorama
+    from horizonator_tpu_torch.render.crossing import (
+        N_NEAR, horizon_crossing, k_cross_for, march_crossing, pack_scene)
+    from horizonator_tpu_torch.render.raymarch import horizon_profile
+    from horizonator_tpu_torch.render.window import march_window
+    t0 = time.perf_counter()
+    dem = torch.from_numpy(bench_dem()).to(dev)
+    scene = pack_scene(dem)
+    k = k_cross_for(ZFAR, CPD, LAT, n=N)
+    p = bench_view(dev)
+    kw = dict(width=W, height=H, nsteps=k, cells_per_deg=CPD,
+              sampler="crossing")
+    img, rng, launches = oracle_render_check(
+        "30 crossing", lambda plain: render_panorama(scene, p, plain=plain,
+                                                     **kw), [resolve])
+    tanel = march_crossing(scene, p, width=W, k_cross=k,
+                           cells_per_deg=CPD)[0]
+    log(f"[30] crossing render {W}x{H} K {N_NEAR}+{k}: launches {launches},"
+        f" visible {float((rng > 0).float().mean()):.4f}, == plain "
+        f"versions' render bitwise")
+    record = resolve_record(f"crossing K {N_NEAR + k}", p, tanel, H,
+                            launches["resolve"], int32_rate)
+    del tanel
+    params = [bench_view(dev, i) for i in range(RENDERS + 2)]
+    ms = cuda_ms(lambda i: render_panorama(scene, params[i], **kw), RENDERS)
+    _, peak_mb = peak_run(lambda: render_panorama(scene, p, **kw))
+    log(f"[30] crossing render {W}x{H}: ms/viewpoint (median of {RENDERS}, "
+        f"CUDA events) {ms:.3f}; peak device memory {peak_mb:.1f} MB; {card}")
+    dem4, p4 = planar_scene(dev)
+    tan4, _, dists4, az4 = march_crossing(
+        pack_scene(dem4), p4, width=512,
+        k_cross=k_cross_for(6000.0, CPD, 34.0, n=512), cells_per_deg=CPD)
+    idx4 = torch.arange(tan4.shape[1], device=dev).expand(512, -1)
+    planar_oracle("30 crossing", tan4, dists4.d_of(idx4), az4)
+
+    # horizons: against a dense uniform-step march (4 steps a cell) and the
+    # window march, tests/test_crossing.py:70-97's bounds
+    _, h_c = horizon_crossing(scene, p, width=W, k_cross=k,
+                              cells_per_deg=CPD)
+    dense = -(-4 * k // 256) * 256
+    _, h_s = horizon_profile(dem, p, width=W, nsteps=dense,
+                             cells_per_deg=CPD)
+    h_w = march_window(dem, p, width=W, k_cross=k, cells_per_deg=CPD,
+                       lat_hint_deg=LAT)[0].amax(dim=1)
+    for name, ref in ((f"dense step (K {dense})", h_s), ("window", h_w)):
+        a, b = h_c.cpu().numpy(), ref.cpu().numpy()
+        vis = (a > -1e30) & (b > -1e30)
+        agree = float(np.mean((a > -1e30) == (b > -1e30)))
+        err = np.abs(np.arctan(a[vis]) - np.arctan(b[vis]))
+        med, p99 = float(np.median(err)), float(np.percentile(err, 99))
+        if agree <= 0.99 or med >= 6e-4 or p99 >= 1.5e-2:
+            fail(f"30: horizon_crossing vs {name}: agree {agree}, median "
+                 f"{med}, p99 {p99}")
+        log(f"[30] horizon_crossing vs {name}: columns agree {agree:.4f}, "
+            f"elevation error median {med:.2e} rad (bound 6e-4), p99 "
+            f"{p99:.2e} (bound 1.5e-2)")
+
+    # config 5's shape: viewshed_sweep with its default, the crossing march
+    n = VS_N
+    vdem = bench_dem(n=n)
+    ii, jj = np.meshgrid(np.linspace(100, n - 100, SWEEP_GRID),
+                         np.linspace(100, n - 100, SWEEP_GRID))
+    pts = np.stack([ii.ravel(), jj.ravel()], 1)
+    skw = dict(width=SWEEP_W, cells_per_deg=CPD, zfar=VS_ZFAR, lat_deg=LAT,
+               device=dev)
+    hz, peak_mb = peak_run(lambda: viewshed_sweep(vdem, pts, **skw))
+    pick = np.linspace(0, len(pts) - 1, ORACLE_SINGLES).astype(int)
+    for v in pick:
+        one = viewshed_sweep(vdem, pts[v:v + 1], **skw)
+        if not torch.equal(one[0], hz[v]):
+            fail(f"30 config 5: viewpoint {v} != its single sweep")
+    if not (hz > -1e30).all():
+        fail("30 config 5: columns without a horizon")
+    us = 1e3 * cuda_ms(lambda i: viewshed_sweep(vdem, pts, **skw), 3) / len(
+        pts)
+    log(f"[30] config 5: viewshed_sweep (crossing, the default) of "
+        f"{len(pts)} viewpoints W {SWEEP_W}: == {ORACLE_SINGLES} single "
+        f"sweeps bitwise; {us:.2f} us per viewpoint (median of 3), peak "
+        f"device memory {peak_mb:.1f} MB; {card}")
+
+    # config 7's shape: the oracle rasters
+    vdem_t = torch.from_numpy(vdem).to(dev)
+    from horizonator_tpu_torch.render import make_params
+    pv = make_params(device=dev, viewer_cell_i=n / 2, viewer_cell_j=n / 2,
+                     viewer_z=900.0, cos_viewer_lat=math.cos(math.radians(
+                         LAT)), az_rad0=-math.pi, az_rad1=math.pi,
+                     znear=50.0, zfar=VS_ZFAR, znear_color=50.0,
+                     zfar_color=VS_ZFAR)
+    gkw = dict(width=VS_W, cells_per_deg=CPD, out_halfwidth=VS_HW,
+               lat_hint_deg=LAT, full_circle=True)
+    cases = (("step (gather, the default)", dict(
+        nsteps=step_budget_api(VS_ZFAR, 50.0))),
+        ("crossing (contract)", dict(sampler="crossing", nsteps=k_cross_for(
+            VS_ZFAR, CPD, LAT, n=n))))
+    rasters = {}
+    for name, extra in cases:
+        vis, peak_mb = peak_run(lambda: viewshed_grid(vdem_t, pv, **gkw,
+                                                      **extra))
+        share = float(vis.float().mean())
+        if vis.shape != (2 * VS_HW, 2 * VS_HW) or not 0.02 < share < 0.98:
+            fail(f"30 config 7 {name}: {tuple(vis.shape)}, visible {share}")
+        ms = cuda_ms(lambda i: viewshed_grid(vdem_t, pv, **gkw, **extra), 5)
+        rasters[name] = vis
+        log(f"[30] config 7 {name}: {2 * VS_HW}x{2 * VS_HW} raster, visible "
+            f"{share:.4f}, {ms:.3f} ms per raster (median of 5), peak "
+            f"device memory {peak_mb:.1f} MB")
+    a, b = rasters.values()
+    log(f"[30] config 7: the step and crossing rasters differ in "
+        f"{float((a != b).float().mean()):.4%} of cells")
+
+    with tempfile.TemporaryDirectory() as td:
+        write_tiles(td, 34, -118)
+        cli_viewshed_check(dev, sampler="crossing")
+        out, npy = os.path.join(td, "tri.pdf"), os.path.join(td, "tri.npy")
+        resolve.launches = 0
+        rc = cli.main(["--width", str(W), "--height", str(H), "--image", out,
+                       "--ranges", npy, "--dirdems", td, "--surface",
+                       "triangulated", "34.4", "-117.6", "0", "180"])
+        if rc != 0 or resolve.launches < 1:
+            fail(f"30 CLI --surface triangulated rc {rc}, resolve launches "
+                 f"{resolve.launches}")
+        r_cli = np.load(npy)
+        h = horizonator(34.4, -117.6, W, H, dir_dems=td,
+                        render_radius_m=40000.0, surface="triangulated")
+        r_api = h.render(-180, 180)[1]
+        if h.sampler != "step" or not np.array_equal(r_cli, r_api):
+            fail(f"30 CLI --surface triangulated ranges != the API's "
+                 f"render ({h.sampler}): {int((r_cli != r_api).sum())}")
+    log(f"[30] CLI --surface triangulated {W}x{H} -> .pdf + --ranges .npy: "
+        f"rc 0, ranges == the API's surface='triangulated' render bitwise")
+    log(f"[t] phase 30: {time.perf_counter() - t0:.1f} s")
+    return record
+
+
+def config1_scene(dev):
+    """tests/test_mesh.py:96-145's scene: a 1201^2 grid, its viewpoint."""
+    from horizonator_tpu_torch.render import make_params
+    n = C1_N
+    jj, ii = np.meshgrid(np.arange(n, dtype=np.float32),
+                         np.arange(n, dtype=np.float32), indexing="ij")
+    z = (600.0 + 500.0 * np.sin(ii / 223.0) * np.cos(jj / 181.0)
+         + 200.0 * np.sin(ii / 37.0 + 1.3) * np.cos(jj / 53.0))
+    dem = np.maximum(z, 0.0).astype(np.float32)
+    vz = float(dem[599:601, 600:602].max()) + 2.0
+    p = make_params(device=dev, viewer_cell_i=600.3, viewer_cell_j=599.7,
+                    viewer_z=vz, cos_viewer_lat=math.cos(math.radians(
+                        C1_LAT)), az_rad0=math.radians(-60.0),
+                    az_rad1=math.radians(60.0), znear=100.0, zfar=C1_ZFAR,
+                    znear_color=100.0, zfar_color=C1_ZFAR)
+    return torch.from_numpy(dem).to(dev), p
+
+
+def first_rows(r):
+    vis = r > 0
+    any_ = vis.any(axis=0)
+    return np.where(any_, vis.argmax(axis=0), r.shape[0]), any_
+
+
+def mesh_phase(dev, card, int32_rate):
+    """Phase 31: suite config 1 and the mesh parity (the JAX package's
+    slow test tests/test_mesh.py:96-145, on the card). Returns the window
+    march's record of config 1's render."""
+    from horizonator_tpu_torch.kernels.resolve import resolve
+    from horizonator_tpu_torch.kernels.window_march import march
+    from horizonator_tpu_torch.render import render_panorama
+    from horizonator_tpu_torch.render.crossing import k_cross_for
+    from horizonator_tpu_torch.render.mesh import (render_mesh,
+                                                   render_mesh_tiled)
+    from horizonator_tpu_torch.render.window import step_budget
+    t0 = time.perf_counter()
+    dem, p = config1_scene(dev)
+    mkw = dict(width=C1_W, height=C1_H, cells_per_deg=CPD)
+    torch.cuda.synchronize()
+    tm = time.perf_counter()
+    (_, rng_m, overflow), peak_mb = peak_run(
+        lambda: render_mesh_tiled(dem, p, **mkw))
+    mesh_s = time.perf_counter() - tm
+    if overflow != 0:
+        fail(f"31: render_mesh_tiled overflow {overflow}")
+    fm, am = first_rows(rng_m.cpu().numpy())
+    k = k_cross_for(C1_ZFAR, CPD, C1_LAT, n=C1_N)
+    wkw = dict(nsteps=k, sampler="window", lat_hint_deg=C1_LAT, **mkw)
+    march.launches = resolve.launches = 0
+    _, rng_w = render_panorama(dem, p, **wkw)
+    torch.cuda.synchronize()
+    launches = {"window_march": march.launches, "resolve": resolve.launches}
+    if min(launches.values()) < 1:
+        fail(f"31: config 1's render skipped a kernel: {launches}")
+    ks = step_budget_api(C1_ZFAR, 100.0)
+    _, rng_s = render_panorama(dem, p, nsteps=ks, sampler="step",
+                               surface="triangulated", **mkw)
+    for name, r in (("window", rng_w), (f"step triangulated K {ks}", rng_s)):
+        f, a = first_rows(r.cpu().numpy())
+        d = np.abs(fm[am].astype(int) - f[am].astype(int))
+        if not (am == a).all() or d.max() > 1 or np.median(d) != 0:
+            fail(f"31: mesh vs {name}: columns {int((am != a).sum())} "
+                 f"differ, first-row error max {d.max()}, median "
+                 f"{np.median(d)}")
+        log(f"[31] first visible row, mesh vs {name}: the same {int(am.sum())}"
+            f" columns see terrain, error max {d.max()} px, median "
+            f"{np.median(d):g}, mean {d.mean():.4f}")
+    ms_w = cuda_ms(lambda i: render_panorama(dem, p, **wkw), RENDERS)
+    ms_s = cuda_ms(lambda i: render_panorama(
+        dem, p, nsteps=ks, sampler="step", surface="triangulated", **mkw),
+        RENDERS)
+    ms_m = cuda_ms(lambda i: render_mesh_tiled(dem, p, **mkw), 3)
+    log(f"[31] config 1 ({C1_N}^2, {C1_W}x{C1_H}, -60..60 deg, zfar "
+        f"{C1_ZFAR:g}): window render {ms_w:.3f} ms (median of {RENDERS}), "
+        f"launches {launches}; step triangulated render {ms_s:.3f} ms; "
+        f"render_mesh_tiled {ms_m:.1f} ms (median of 3; first call "
+        f"{1e3 * mesh_s:.0f} ms, peak device memory {peak_mb:.0f} MB), "
+        f"overflow 0; {card}")
+
+    # the window march alone at config 1's shape
+    from horizonator_tpu_torch.kernels.window_march import march_plain
+    from horizonator_tpu_torch.render.crossing import crossing_geometry
+    geo = crossing_geometry(p, width=C1_W, cells_per_deg=CPD)
+    pcol, fscal = pcol_fscal(geo, p)
+    k_lim = step_budget(k, C1_N)
+    got, ref = march(dem, pcol, fscal, k_lim), march_plain(dem, pcol, fscal,
+                                                           k_lim)
+    if not torch.equal(got, ref):
+        fail("31: window march != plain at config 1")
+    m_ms = graph_ms(lambda: march(dem, pcol, fscal, k_lim), GRAPH_LAUNCHES)
+    m_plain = cuda_ms_run(lambda i: march_plain(dem, pcol, fscal, k_lim), 5)
+    cell_n = 6371000.0 * math.pi / 180.0 / CPD
+    cells = reached_cells(C1_N, [600.3], [599.7], 0.0, C1_ZFAR, cell_n,
+                          C1_LAT, [math.radians(-60.0)], [math.radians(60.0)])
+    nbytes = 4 * cells + pcol.nbytes + fscal.nbytes + 4 * C1_W * k_lim
+    b_ms, b_by = bound(nbytes, MARCH_FLOPS * C1_W * k_lim, FP32_OPS_PER_S)
+    log(f"[31] config 1 window march ({C1_W}, {k_lim}) == plain bitwise; "
+        f"device ms {m_ms:.4f} (plain {m_plain:.3f}), bound {b_ms:.5f} "
+        f"({b_by}: {cells} DEM cells in the window's sector), share "
+        f"{100 * b_ms / m_ms:.1f}%")
+    record = dict(cell="config 1", k=k_lim, launches=launches["window_march"],
+                  ms=m_ms, plain_ms=m_plain, bound_ms=b_ms, bound_by=b_by,
+                  ms_per_frame=ms_w)
+
+    # the tests' 192^2 scene: render_mesh on the card against the CPU
+    from horizonator_tpu_torch.render import make_params
+    rng_np = np.random.default_rng(3)
+    n = 192
+    jj, ii = np.meshgrid(np.arange(n, dtype=np.float32),
+                         np.arange(n, dtype=np.float32), indexing="ij")
+    z = (500.0 + 300.0 * np.sin(ii / 31.0) * np.cos(jj / 23.0)
+         + 4.0 * rng_np.standard_normal((n, n), dtype=np.float32))
+    small = np.maximum(z, 0.0).astype(np.float32)
+    c = n // 2
+    vz = float(small[c - 1:c + 1, c - 1:c + 1].max()) + 15.0
+    outs = []
+    for d in (dev, "cpu"):
+        ps = make_params(device=d, viewer_cell_i=c + 0.3,
+                         viewer_cell_j=c - 0.4, viewer_z=vz,
+                         cos_viewer_lat=math.cos(math.radians(34.0)),
+                         az_rad0=math.radians(-60.0),
+                         az_rad1=math.radians(60.0), znear=800.0,
+                         zfar=8000.0, znear_color=800.0, zfar_color=8000.0)
+        outs.append([x.cpu().numpy() for x in render_mesh(
+            torch.from_numpy(small).to(d), ps, width=256, height=128,
+            cells_per_deg=CPD, max_bbox=32)])
+    (ig, rg, og), (ic, rc_, oc) = outs
+    both = (rg > 0) & (rc_ > 0)
+    cover = float(((rg > 0) == (rc_ > 0)).mean())
+    rel = float((np.abs(rg[both] - rc_[both]) / rc_[both]).max())
+    img_px = float((ig != ic).any(axis=-1).mean())
+    if int(og) != int(oc) or cover < 0.999 or rel > 1e-5 or img_px > 0.001:
+        fail(f"31: render_mesh card vs CPU: overflow {og}/{oc}, coverage "
+             f"{cover}, range error {rel}, image pixels {img_px}")
+    log(f"[31] render_mesh 192^2 at 256x128 card vs CPU: overflow "
+        f"{int(og)} both, coverage equal at {cover:.4%}, ranges within "
+        f"{rel:.2e} relative (tolerance 1e-5), {img_px:.4%} image pixels "
+        f"differ")
+    log(f"[t] phase 31: {time.perf_counter() - t0:.1f} s")
+    return record
+
+
+def oracle_phases(dev, card, int32_rate):
+    """Phases 29-31; {kernel name: the records of its launches on those
+    paths}."""
+    return {"resolve": step_phase(dev, card, int32_rate)
+            + [crossing_phase(dev, card, int32_rate)],
+            "window_march": [mesh_phase(dev, card, int32_rate)]}
+
+
+def oracle_only():
+    """--oracle: build the kernels, then phases 29-31 alone."""
+    from horizonator_tpu_torch.kernels import build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    build.build()
+    build.library()
+    card = card_line()
+    records = oracle_phases(torch.device("cuda"), card, int32_ops_per_s()[0])
+    print(card)
+    print(json.dumps(records))
+    return 0
+
+
 def main(profile_dir=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3357,6 +3931,7 @@ def main(profile_dir=None):
         write_tiles(tiles, 34, -118)
         api_shadow_phase(dev, card, tiles)
         los_phase(dev, card, tiles)
+    oracle_records = oracle_phases(dev, card, int32_rate)
 
     kernels = [
         kernel_entry("window_march",
@@ -3376,6 +3951,8 @@ def main(profile_dir=None):
         entry.update(lod_records.get(entry["name"], {}))
         if entry["name"] in batch_records:  # and the batches' (19-21)
             entry["batch"] = batch_records[entry["name"]]
+        if entry["name"] in oracle_records:  # and the oracle paths' (29-31)
+            entry["oracle"] = oracle_records[entry["name"]]
     log(f"[t] all phases: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -3461,5 +4038,7 @@ if __name__ == "__main__":
     if "--time-shadows" in args:
         i = args.index("--time-shadows")
         sys.exit(time_shadows(args[i + 1], args[i + 2]))
+    if "--oracle" in args:
+        sys.exit(oracle_only())
     sys.exit(main(profile_dir=args[args.index("--profile") + 1]
                   if "--profile" in args else None))

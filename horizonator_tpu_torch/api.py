@@ -10,10 +10,14 @@ range image back to lat/lon, and horizon() gives the per-column horizon
 without an image, and skyline() the geolocated horizon ridgeline;
 render_batch() renders many viewpoints in one pass; intervisible(),
 sightline() and visible_peaks() answer line-of-sight questions on the
-loaded DEM. This port covers the window sampler, untextured, textured
-(``render_texture``) and hillshaded (with cast ``shadows``), the debug
-lattice views (``debug_fill``), and the LOD march that long clip ranges
-swap to; region sharding and multi-device batches raise
+loaded DEM. ``sampler`` picks the march: "window" (the kernel path:
+untextured, textured (``render_texture``) and hillshaded (with cast
+``shadows``), the debug lattice views (``debug_fill``), and the LOD march
+that long clip ranges swap to), or the JAX package's oracles "crossing"
+(grid crossings) and "step" (uniform steps, the one that samples the
+reference's ``surface="triangulated"`` mesh); "auto" is "window" on the
+bilinear surface and "step" on the triangulated one. Every sampler ends in
+the resolve kernel. Region sharding and multi-device batches raise
 NotImplementedError.
 """
 
@@ -28,8 +32,9 @@ import torch
 from . import geometry
 from .dem import load_mosaic, RADIUS_CELLS_DEFAULT_PY
 from .render import lod, make_params, render_panorama
-from .render.crossing import k_cross_for
+from .render.crossing import k_cross_for, march_crossing, pack_scene
 from .render import texture
+from .render.raymarch import horizon_profile, pack_dem_pairs
 from .render.window import march_window
 
 ZNEAR_DEFAULT = 100.0     # horizonator.h:9
@@ -75,13 +80,24 @@ class horizonator:
             raise NotImplementedError("region_mesh is not ported")
         if allow_dem_downloads:
             raise NotImplementedError("DEM downloads are not ported")
-        if sampler not in ("auto", "window"):
-            raise NotImplementedError(f"sampler={sampler!r} is not ported; "
-                                      "only 'window' is")
-        if surface != "bilinear":
-            raise NotImplementedError(
-                f"surface={surface!r} needs the uniform-step sampler, which "
-                "is not ported")
+        if surface not in ("bilinear", "triangulated"):
+            raise ValueError(f"unknown surface mode {surface!r}")
+        if sampler == "auto":
+            # the triangulated surface needs the uniform-step sampler's
+            # sub-cell evaluation (api.py:100-102)
+            sampler = "window" if surface == "bilinear" else "step"
+        if sampler == "lod":
+            # the JAX constructor packs pair planes for 'lod' and then
+            # marches them as elevations through the window path
+            raise ValueError(
+                "sampler='lod' is not a scene sampler: the LOD march is what "
+                "the window sampler swaps to for long clip ranges; pass "
+                "'window' or 'auto'")
+        if sampler not in ("window", "crossing", "step"):
+            raise ValueError(f"unknown sampler {sampler!r}")
+        if hillshade and sampler != "window":
+            raise ValueError("hillshade requires sampler='window'")
+        self.sampler = sampler
 
         self.width = int(width)
         self.height = int(height)
@@ -89,8 +105,7 @@ class horizonator:
         self._curv = geometry.curvature_coeff(curvature)
         self.surface = surface
         self.refine = bool(refine)
-        # the uniform-step sampler's steps per cell; stored as the JAX
-        # package stores it, unused by the window sampler
+        # the uniform-step sampler's steps per cell (_auto_nsteps)
         self.oversample = float(oversample)
         self._nsteps_fixed = nsteps
         self.device = torch.device(device)
@@ -103,6 +118,11 @@ class horizonator:
             self.mosaic.grid.astype(np.float32)).to(self.device)
         n = self.mosaic.grid.shape[0]
         cpd = self.mosaic.cells_per_deg
+        # the sampler's scene: the grid for the window march, a
+        # CrossingScene or the pair-packed plane for the oracles
+        self._scene = (pack_scene(self._dem) if sampler == "crossing" else
+                       pack_dem_pairs(self._dem) if sampler == "step" else
+                       self._dem)
 
         self.render_texture = bool(render_texture)
         self._atlas = None
@@ -121,12 +141,12 @@ class horizonator:
             self._atlas = texture.pack_atlas(
                 torch.from_numpy(atlas).to(self.device))
             self._atlas_params = ap
-            if texture_quality != "exact":
+            if texture_quality != "exact" and sampler == "window":
                 # colors resampled onto the DEM grid once and sampled in
                 # the march: "grid" at cell resolution, "grid2x" and
                 # "hybrid" at half-cell; "hybrid" also swaps in atlas-true
-                # z12 texels nearer than exact_near_m. "exact" gathers the
-                # atlas per pixel instead.
+                # z12 texels nearer than exact_near_m. "exact" and the
+                # oracle samplers gather the atlas per pixel instead.
                 scale = 1 if texture_quality == "grid" else 2
                 self._put_color_planes(texture.atlas_to_grid_colors(
                     self._atlas, ap, n, cpd, scale=scale), scale)
@@ -160,6 +180,7 @@ class horizonator:
         self._color_pyramid = None
         self._debug_cp = None           # (mode, lattice planes)
         self._los_packed = None         # the pair-packed DEM for LOS
+        self._skyline_scene = None      # the oracles' skyline march scene
         self._warned_lod_hybrid = False
 
     def _put_color_planes(self, planes, scale):
@@ -254,8 +275,13 @@ class horizonator:
     def _auto_nsteps(self, znear, zfar):
         if self._nsteps_fixed is not None:
             return int(self._nsteps_fixed)
-        return k_cross_for(zfar, self.mosaic.cells_per_deg, self.viewer_lat,
-                           n=self.mosaic.grid.shape[0])
+        if self.sampler != "step":
+            return k_cross_for(zfar, self.mosaic.cells_per_deg,
+                               self.viewer_lat, n=self.mosaic.grid.shape[0])
+        # uniform steps at <= cell/oversample spacing, a multiple of 256
+        # (api.py:398-405)
+        n = (zfar - znear) / self.cell_m_north * self.oversample
+        return max(256, min(8192, -(-int(math.ceil(n)) // 256) * 256))
 
     def _batch_render_plan(self, znear, zfar):
         """(dem, sampler, nsteps, lod_plan, color_planes): renders that
@@ -265,6 +291,8 @@ class horizonator:
         such render and kept on the device; textured and hillshade renders
         march their colour pyramid (api.py:635-669)."""
         nsteps = self._auto_nsteps(znear, zfar)
+        if self.sampler != "window":
+            return self._scene, self.sampler, nsteps, None, None
         cp = self._color_planes
         if nsteps <= LOD_SWAP_NSTEPS:
             return self._dem, "window", nsteps, None, cp
@@ -285,7 +313,8 @@ class horizonator:
         the LOD march has none, as in the JAX package (api.py:570), which
         drops it without a word; here the drop warns once per instance."""
         dem, sampler, nsteps, plan, cp = self._batch_render_plan(znear, zfar)
-        exact_near = self._exact_near_m
+        exact_near = self._exact_near_m if sampler in ("window",
+                                                        "lod") else None
         if sampler == "lod" and exact_near is not None:
             exact_near = None
             if not self._warned_lod_hybrid:
@@ -371,8 +400,8 @@ class horizonator:
             if sampler != "window":
                 raise ValueError(
                     f"debug_fill requires the window sampler (this render "
-                    f"planned sampler={sampler!r}, the auto-LOD long-clip "
-                    f"swap; shorten zfar for the debug view)")
+                    f"planned sampler={sampler!r}: an oracle sampler, or the "
+                    f"auto-LOD long-clip swap, which a shorter zfar avoids)")
             cp = self._debug_planes(debug_fill)
             textured, atlas, atlas_params, exact_near = True, None, None, None
         params = self._params(az_deg0, az_deg1, znear, zfar, znear_color,
@@ -484,15 +513,26 @@ class horizonator:
     def horizon(self, az_deg0, az_deg1, *, width=None,
                 znear=ZNEAR_DEFAULT, zfar=ZFAR_DEFAULT):
         """Per-column horizon (az_rad, tan_el) as numpy float32 arrays,
-        without an image: the window march and a plain max over each
-        column's samples. It marches the full crossing budget at any zfar
-        (no LOD swap, as in the JAX package)."""
+        without an image: the sampler's march and a plain max over each
+        column's samples. It marches the full budget at any zfar (no LOD
+        swap, as in the JAX package)."""
         width = self.width if width is None else int(width)
         params = self._params(float(az_deg0), float(az_deg1), znear, zfar,
                               znear, zfar)
+        nsteps = self._auto_nsteps(znear, zfar)
+        if self.sampler == "crossing":
+            tanel, _, _, az = march_crossing(
+                self._scene, params, width=width, k_cross=nsteps,
+                cells_per_deg=self.mosaic.cells_per_deg)
+            return az.cpu().numpy(), tanel.amax(dim=1).cpu().numpy()
+        if self.sampler == "step":
+            az, tan_el = horizon_profile(
+                self._scene, params, width=width, nsteps=nsteps,
+                cells_per_deg=self.mosaic.cells_per_deg,
+                surface=self.surface)
+            return az.cpu().numpy(), tan_el.cpu().numpy()
         tanel, _, dists, az = march_window(
-            self._dem, params, width=width,
-            k_cross=self._auto_nsteps(znear, zfar),
+            self._dem, params, width=width, k_cross=nsteps,
             cells_per_deg=self.mosaic.cells_per_deg,
             lat_hint_deg=self._lat_hint(),
             znear_hint_m=self._znear_hint(znear))
@@ -514,16 +554,36 @@ class horizonator:
         elevation at the full crossing budget (no LOD swap); among equal
         ones the first, i.e. the nearest, as torch.argmax and jnp.argmax
         both keep. It maps back through the march's distance table and
-        the tangent-plane geometry that pick() uses."""
+        the tangent-plane geometry that pick() uses. Every sampler but the
+        window one takes the crossing march here (api.py:901-930), with
+        k_cross_for's budget unless nsteps= was given: a uniform-step
+        budget would stop short of zfar above |lat| ~48 deg."""
         width = self.width if width is None else int(width)
         params = self._params(float(az_deg0), float(az_deg1), znear, zfar,
                               znear, zfar)
-        tanel, _, dists, az = march_window(
-            self._dem, params, width=width,
-            k_cross=self._auto_nsteps(znear, zfar),
-            cells_per_deg=self.mosaic.cells_per_deg,
-            lat_hint_deg=self._lat_hint(),
-            znear_hint_m=self._znear_hint(znear))
+        nsteps = self._auto_nsteps(znear, zfar)
+        if self.sampler == "window":
+            tanel, _, dists, az = march_window(
+                self._dem, params, width=width, k_cross=nsteps,
+                cells_per_deg=self.mosaic.cells_per_deg,
+                lat_hint_deg=self._lat_hint(),
+                znear_hint_m=self._znear_hint(znear))
+            guard = torch.stack([dists.dropped, dists.truncated])
+        else:
+            if self.sampler == "crossing":
+                scene = self._scene
+            else:
+                if self._nsteps_fixed is None:
+                    nsteps = k_cross_for(zfar, self.mosaic.cells_per_deg,
+                                         self.viewer_lat,
+                                         n=self.mosaic.grid.shape[0])
+                if self._skyline_scene is None:
+                    self._skyline_scene = pack_scene(self._dem)
+                scene = self._skyline_scene
+            tanel, _, dists, az = march_crossing(
+                scene, params, width=width, k_cross=nsteps,
+                cells_per_deg=self.mosaic.cells_per_deg)
+            guard = None
         idx = torch.argmax(tanel, dim=1)
         tan_el = torch.take_along_dim(tanel, idx[:, None], dim=1)[:, 0]
         d = dists.d_of(idx[:, None])[:, 0]
@@ -535,18 +595,20 @@ class horizonator:
         # one stacked device-to-host copy
         out = torch.stack([az, torch.atan(tan_el), d, lat, lon]).cpu().numpy(
             ).astype(np.float64)
-        self._check_dropped(torch.stack([dists.dropped, dists.truncated]),
-                            "skyline")
+        if guard is not None:
+            self._check_dropped(guard, "skyline")
         return {"az_deg": np.degrees(out[0]), "el_deg": np.degrees(out[1]),
                 "dist_m": out[2], "lat": out[3], "lon": out[4]}
 
     # -- line of sight (ops/los.py) -----------------------------------------
 
     def _dem_packed_pairs(self):
-        """The pair-packed int32 DEM plane for the LOS ops, built on the
-        instance's device on first use."""
+        """The pair-packed int32 DEM plane for the LOS ops: the step
+        sampler's scene, else built on the instance's device on first
+        use."""
+        if self.sampler == "step":
+            return self._scene
         if self._los_packed is None:
-            from .render.raymarch import pack_dem_pairs
             self._los_packed = pack_dem_pairs(self._dem)
         return self._los_packed
 

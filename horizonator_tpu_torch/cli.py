@@ -19,16 +19,17 @@ without ``--image`` it is the only output (the headless GIS mode).
 ``--pois-out`` writes the line-of-sight-tested ``--pois`` report as GeoJSON
 points (api.visible_peaks), with ``--image`` or without it.
 ``--viewshed FILE.tif`` writes the GIS visibility raster around LAT LON as
-a WGS84 GeoTIFF (ops/viewshed + geotiff.py); alone, or before the
-panorama and the vector outputs. ``--hillshade --shadows`` shades the
-panorama with cast terrain shadows (ops/shadows).
+a WGS84 GeoTIFF (ops/viewshed + geotiff.py), through the window march
+or, with ``--viewshed-sampler step|crossing``, an oracle march; alone, or
+before the panorama and the vector outputs. ``--surface triangulated``
+renders the reference's mesh surface through the uniform-step sampler.
+``--hillshade --shadows`` shades the panorama with cast terrain shadows
+(ops/shadows).
 
 ``--device`` (default ``cuda``) picks where the render runs; the JAX CLI
 takes its backend from JAX_PLATFORMS instead. Flags whose code is not
-ported yet (``--viewshed-sampler step|crossing``, ``--surface
-triangulated``, ``--allow-dem-downloads``, ``--dem-url``, and the
-interactive viewer) exit with status 1 and a message naming the missing
-module.
+ported yet (``--allow-dem-downloads``, ``--dem-url``, and the interactive
+viewer) exit with status 1 and a message naming the missing module.
 
 Usage: python -m horizonator_tpu_torch.cli [options] LAT LON AZ_C AZ_R
 """
@@ -130,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--viewshed-sampler", choices=["step", "crossing",
                                                   "window"],
                    default="window", dest="viewshed_sampler",
-                   help="--viewshed march sampler (only window is ported)")
+                   help="--viewshed march sampler (window = the kernel "
+                        "march; step and crossing = the oracle marches)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the render (default cuda; cpu runs "
                         "the kernels' plain versions)")
@@ -171,11 +173,6 @@ def _validate(args) -> str | None:
 def _unported(args) -> str | None:
     """The first requested feature whose code the port lacks, as a message."""
     missing = [
-        (args.viewshed is not None and args.viewshed_sampler != "window",
-         f"--viewshed-sampler {args.viewshed_sampler}",
-         "the oracle samplers ('step', 'crossing') of ops/viewshed"),
-        (args.surface == "triangulated", "--surface triangulated",
-         "the uniform-step sampler"),
         (args.allow_dem_downloads, "--allow-dem-downloads",
          "the DEM downloader"),
         (args.image is None and args.horizon_out is None
@@ -194,7 +191,7 @@ def _run_viewshed(args) -> int:
     """--viewshed: the visibility raster of the cells within the half-width
     around the viewer (default zfar's reach, clipped to the mosaic) as a
     WGS84 GeoTIFF, north up, with the JAX CLI's polar width, step budget
-    and bounds."""
+    (per sampler) and bounds."""
     import math
 
     import numpy as np
@@ -220,8 +217,14 @@ def _run_viewshed(args) -> int:
     hw = max(8, min(hw, int(min(ci, cj, n - 1 - ci, n - 1 - cj))))
     # ~1 polar column per rim cell, a multiple of 256, bounded
     width = int(min(4096, max(256, -(-2.0 * math.pi * hw // 256) * 256)))
-    nsteps = args.nsteps or k_cross_for(args.zfar, m.cells_per_deg,
-                                        args.lat, n=n)
+    if args.nsteps:
+        nsteps = args.nsteps
+    elif args.viewshed_sampler == "step":
+        # 1.5 uniform steps a cell, a multiple of 128
+        nsteps = int(-(-1.5 * (args.zfar - args.znear) / cell_n // 128)
+                     * 128)
+    else:
+        nsteps = k_cross_for(args.zfar, m.cells_per_deg, args.lat, n=n)
     params = make_params(
         device=args.device, viewer_cell_i=ci, viewer_cell_j=cj,
         viewer_z=m.auto_viewer_z(args.lat, args.lon), cos_viewer_lat=cos_lat,
@@ -235,7 +238,8 @@ def _run_viewshed(args) -> int:
     dem = torch.from_numpy(m.grid.astype(np.float32)).to(args.device)
     vis = viewshed_grid(
         dem, params, width=width, nsteps=nsteps,
-        cells_per_deg=m.cells_per_deg, out_halfwidth=hw, sampler="window",
+        cells_per_deg=m.cells_per_deg, out_halfwidth=hw,
+        sampler=args.viewshed_sampler,
         lat_hint_deg=float(args.lat), znear_hint_m=float(args.znear),
         full_circle=r > 0.0 and r % 180.0 == 0.0).cpu().numpy()
     # the raster covers cells viewer +- hw; georeference its outer edges
@@ -297,7 +301,8 @@ def _horizonator(args, width: int, height: int, **kw):
         return horizonator(args.lat, args.lon, width, height,
                            SRTM1=args.SRTM1, dir_dems=args.dirdems,
                            render_radius_m=args.zfar,   # standalone.c:437
-                           nsteps=args.nsteps, curvature=args.curvature,
+                           nsteps=args.nsteps, surface=args.surface,
+                           curvature=args.curvature,
                            dem_url_fmt=args.dem_url_fmt, device=args.device,
                            **kw)
     except NotImplementedError as e:

@@ -1,6 +1,9 @@
-"""Viewshed and visibility analysis on the window march.
+"""Viewshed and visibility analysis on the ray marches.
 
-Counterpart of horizonator_tpu.ops.viewshed for the window sampler:
+Counterpart of horizonator_tpu.ops.viewshed, for its three samplers: the
+window march (the kernel path), the grid-crossing march and the
+uniform-step march (the oracles, and the JAX defaults: "step" for the
+polar field and the raster, "crossing" for the sweep):
 
 - ``viewshed_polar``: per (azimuth column, sample) visibility of one
   viewpoint: a sample is visible iff its elevation tangent reaches the
@@ -37,10 +40,17 @@ quadrant can select on an honest full circle; such a cell reads the empty
 horizon, and ``with_dropped`` counts it. The port reproduces that coverage
 rule and its count (``_arc_covered``).
 
-Only the window sampler is ported: ``sampler="step"`` / ``"crossing"`` (the
-oracle samplers, and the JAX defaults of viewshed_polar, viewshed_grid and
-viewshed_sweep) raise NotImplementedError, as do ``mesh=`` (scale-out) and
-an ``aligned_scene`` (the port marches without AlignedScene tables).
+The samplers differ in what a column's samples are, and so in the
+distances ``d`` that the resamplers key on and in the contract raster's
+guard band below a cell (half a crossing step for the crossing marches,
+half the cell's footprint along the ray for the uniform steps); the gather
+raster inverts each sampler's own distance map. ``dem`` is a float32 grid
+for every sampler; the crossing sampler also takes a
+render.crossing.CrossingScene and the step sampler a pack_dem_pairs plane
+(both then resample with "gather", as "auto" picks for them).
+
+``mesh=`` (scale-out) and an ``aligned_scene`` (the port marches without
+AlignedScene tables) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -52,12 +62,15 @@ import torch
 
 from .. import geometry
 from ..geometry import const, recip
-from ..parallel.sharding import BATCH_BYTES, SAMPLE_BYTES, chunk_size
-from ..render.crossing import (N_NEAR, NEG_BIG, crossing_geometry,
-                               crossing_geometry_at, k_cross_for)
+from ..parallel.sharding import (BATCH_BYTES, SAMPLE_BYTES, chunk_size,
+                                 samples_per_column)
+from ..render.crossing import (N_NEAR, NEG_BIG, CrossingScene,
+                               crossing_geometry, crossing_geometry_at,
+                               k_cross_for, march_crossing, pack_scene)
 from ..render.raymarch import (RenderParams, _as_packed, _sample_surface,
-                               broadcast_params_batch, samples)
-from ..render.window import march_from_geometry, step_budget
+                               broadcast_params_batch, cols, march_tanel,
+                               samples)
+from ..render.window import march_from_geometry
 
 DEG = math.pi / 180.0
 # the empty masked max; the march's invalid samples hold the same value
@@ -70,11 +83,12 @@ RASTER_CELL_BYTES, TABLE_BYTES = 96, 32
 DIRECT_BYTES = 1 << 30
 
 
+SAMPLERS = ("window", "crossing", "step")
+
+
 def _check_port(fn: str, sampler: str, aligned_scene=None, mesh=None):
-    if sampler != "window":
-        raise NotImplementedError(
-            f"{fn}: sampler={sampler!r} is not ported; only 'window' is (the "
-            f"oracle samplers 'step' and 'crossing' are not)")
+    if sampler not in SAMPLERS:
+        raise ValueError(f"{fn}: unknown sampler {sampler!r}")
     if aligned_scene is not None:
         raise NotImplementedError(
             f"{fn}: aligned_scene= is not ported (the port marches without "
@@ -83,27 +97,58 @@ def _check_port(fn: str, sampler: str, aligned_scene=None, mesh=None):
         raise NotImplementedError(f"{fn}: mesh= (scale-out) is not ported")
 
 
-def _check_grid(fn: str, dem: torch.Tensor):
-    if dem.dim() != 2 or dem.shape[0] != dem.shape[1]:
-        raise NotImplementedError(f"{fn}: only square elevation grids are "
-                                  f"ported, got {tuple(dem.shape)}")
+def _check_grid(fn: str, dem, sampler: str):
+    """The window march takes a square float grid."""
+    if sampler == "window" and (dem.dim() != 2
+                                or dem.shape[0] != dem.shape[1]):
+        raise NotImplementedError(f"{fn}: the window sampler takes a square "
+                                  f"elevation grid, got {tuple(dem.shape)}")
 
 
-def _march(dem, p: RenderParams, *, width, nsteps, cells_per_deg,
-           lat_hint_deg, znear_hint_m, plain):
-    """(tanel, dists, az) of the window march: (W, K) for 0-d params, (B,
-    W, K) in one launch for (B,) params."""
-    geo = crossing_geometry(p, width=width, cells_per_deg=cells_per_deg)
-    tanel, dists = march_from_geometry(
-        dem, p, geo, k_cross=nsteps, cells_per_deg=cells_per_deg,
-        lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m, plain=plain)
-    return tanel, dists, geo.az
+def _is_packed(dem) -> bool:
+    """A pack_dem_pairs plane: (N, N-1) int32."""
+    return (isinstance(dem, torch.Tensor) and dem.dtype == torch.int32
+            and dem.dim() == 2 and dem.shape[1] == dem.shape[0] - 1)
 
 
-def _guard(dists) -> torch.Tensor:
-    """dropped + truncated: nonzero means the field over-reports
-    visibility."""
-    return dists.dropped + dists.truncated
+def _march(dem, p: RenderParams, *, sampler, width, nsteps, cells_per_deg,
+           surface, lat_hint_deg, znear_hint_m, plain):
+    """(tanel, d, half, az, guard) of the sampler's march: tangents and
+    their distances (W, K), the contract raster's guard band (W,), the
+    column azimuths (W,) and the int32 guard dropped + truncated (0 for
+    the oracle samplers, which mask nothing); (B,) params give a leading
+    B, one window-march launch for the batch."""
+    if sampler == "step":
+        tanel, _, d, az = march_tanel(dem, p, width=width, nsteps=nsteps,
+                                      cells_per_deg=cells_per_deg,
+                                      surface=surface)
+        # the band covers the cell's own footprint along the ray, the
+        # dominant axis's spacing (viewshed.py:337-343)
+        cell_n = geometry.EARTH_RADIUS_M * DEG / cells_per_deg
+        cell_e = cols(cell_n * p.cos_viewer_lat)
+        eps = const(1e-6, az)
+        half = 0.5 * torch.minimum(
+            cell_n / torch.maximum(torch.cos(az).abs(), eps),
+            cell_e / torch.maximum(torch.sin(az).abs(), eps))
+        guard = torch.zeros(p.znear.shape, dtype=torch.int32,
+                            device=tanel.device)
+        return tanel, d[..., None, :].expand_as(tanel), half, az, guard
+    if sampler == "crossing":
+        scene = dem if isinstance(dem, CrossingScene) else pack_scene(dem)
+        tanel, _, dists, az = march_crossing(
+            scene, p, width=width, k_cross=nsteps,
+            cells_per_deg=cells_per_deg)
+        guard = torch.zeros(p.znear.shape, dtype=torch.int32,
+                            device=tanel.device)
+    else:
+        geo = crossing_geometry(p, width=width, cells_per_deg=cells_per_deg)
+        tanel, dists = march_from_geometry(
+            dem, p, geo, k_cross=nsteps, cells_per_deg=cells_per_deg,
+            lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
+            plain=plain)
+        az = geo.az
+        guard = dists.dropped + dists.truncated
+    return tanel, _distances(dists, tanel), 0.5 * dists.scale, az, guard
 
 
 def _distances(dists, tanel: torch.Tensor) -> torch.Tensor:
@@ -121,24 +166,28 @@ def _visible(tanel: torch.Tensor) -> torch.Tensor:
     return (tanel >= prev) & (tanel > -1.0e38)
 
 
-def viewshed_polar(dem: torch.Tensor, params: RenderParams, *, width,
-                   nsteps, cells_per_deg, surface="bilinear", sampler="step",
+def viewshed_polar(dem, params: RenderParams, *, width, nsteps,
+                   cells_per_deg, surface="bilinear", sampler="step",
                    lat_hint_deg=45.0, znear_hint_m=100.0, with_dropped=False,
                    aligned_scene=None, plain=False):
-    """Polar visibility field of one viewpoint on a square (n, n) float32
-    DEM: (visible (W, K) bool, tanel (W, K), d (W, K), az (W,)), plus the
-    int32 guard dropped + truncated under ``with_dropped``. (B,) params give
-    a leading B and (B,) guards. ``surface`` is accepted for signature
-    parity (crossings are exact on both surfaces)."""
+    """Polar visibility field of one viewpoint: (visible (W, K) bool, tanel
+    (W, K), d, az (W,)), plus the int32 guard dropped + truncated under
+    ``with_dropped`` (0 for the oracle samplers). ``d`` is (W, K) for the
+    crossing samplers (their near band and crossings) and (K,) for the
+    uniform steps, which every column shares. (B,) params give a leading
+    B and (B,) guards. ``surface`` is read by the step sampler alone
+    (crossings are exact on both surfaces)."""
     _check_port("viewshed_polar", sampler, aligned_scene)
-    _check_grid("viewshed_polar", dem)
+    _check_grid("viewshed_polar", dem, sampler)
     p = broadcast_params_batch(params)
-    tanel, dists, az = _march(dem, p, width=width, nsteps=nsteps,
-                              cells_per_deg=cells_per_deg,
-                              lat_hint_deg=lat_hint_deg,
-                              znear_hint_m=znear_hint_m, plain=plain)
-    out = (_visible(tanel), tanel, _distances(dists, tanel), az)
-    return out + (_guard(dists),) if with_dropped else out
+    tanel, d, _, az, guard = _march(
+        dem, p, sampler=sampler, width=width, nsteps=nsteps,
+        cells_per_deg=cells_per_deg, surface=surface,
+        lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m, plain=plain)
+    if sampler == "step":
+        d = d[..., 0, :]
+    out = (_visible(tanel), tanel, d, az)
+    return out + (guard,) if with_dropped else out
 
 
 def _lift(p: RenderParams) -> RenderParams:
@@ -180,29 +229,45 @@ def _frame(p: RenderParams, hw: int, out_center_ij, cells_per_deg: int,
                 az_ndc_per_rad=az_ndc_per_rad)
 
 
-def _gather_raster(tanel, dists, p, f, *, width, cells_per_deg):
-    """Visibility of the polar sample nearest each cell: its column's
-    closed-form DDA inverted at the cell's distance (viewshed.py:214-269,
-    unaligned lanes)."""
-    visible = _visible(tanel)
-    b, w, ktot = visible.shape
-    q = N_NEAR
+def _gather_index(p, f, ktot: int, *, width, cells_per_deg,
+                  step_nsteps=None) -> torch.Tensor:
+    """(B, P2, P2) int64: the index into a (W, K) polar field of the
+    sample nearest each cell (viewshed.py:214-269, unaligned lanes): the
+    uniform steps' index of the cell's distance when ``step_nsteps`` is
+    given, else its column's closed-form DDA inverted at that distance."""
     xc, dist = f["xc"], f["dist"]
-    az_col = samples(f["az_center"]) + (
-        (2.0 * (xc.to(torch.float32) + 0.5)) * recip(width) - 1.0
-    ) / samples(f["az_ndc_per_rad"])
-    geo = crossing_geometry_at(p, az_col.reshape(b, -1), cells_per_deg)
-    e_x, sc_x = (v.view_as(dist) for v in (geo.e, geo.scale))
     znear = samples(p.znear)
-    m_star = torch.clamp(torch.ceil(znear / sc_x - e_x), min=0.0)
-    nh_x = torch.maximum((m_star + e_x) * sc_x, znear)
-    stepn = torch.clamp(nh_x - znear, min=1e-6) * recip(max(q, 1))
-    k_near = torch.clamp(torch.round((dist - znear) / stepn), 0,
-                         max(q - 1, 0))
-    m = torch.clamp(torch.round(dist / sc_x - e_x), 0, max(ktot - q - 1, 0))
-    kc = torch.where(dist < nh_x, k_near, q + m).to(torch.int64)
+    if step_nsteps is not None:
+        step = samples((p.zfar - p.znear) * recip(step_nsteps))
+        kc = torch.clamp(torch.round((dist - znear) / step - 0.5), 0,
+                         step_nsteps - 1).to(torch.int64)
+    else:
+        q = N_NEAR
+        az_col = samples(f["az_center"]) + (
+            (2.0 * (xc.to(torch.float32) + 0.5)) * recip(width) - 1.0
+        ) / samples(f["az_ndc_per_rad"])
+        geo = crossing_geometry_at(p, az_col.reshape(xc.shape[0], -1),
+                                   cells_per_deg)
+        e_x, sc_x = (v.view_as(dist) for v in (geo.e, geo.scale))
+        m_star = torch.clamp(torch.ceil(znear / sc_x - e_x), min=0.0)
+        nh_x = torch.maximum((m_star + e_x) * sc_x, znear)
+        stepn = torch.clamp(nh_x - znear, min=1e-6) * recip(max(q, 1))
+        k_near = torch.clamp(torch.round((dist - znear) / stepn), 0,
+                             max(q - 1, 0))
+        m = torch.clamp(torch.round(dist / sc_x - e_x), 0,
+                        max(ktot - q - 1, 0))
+        kc = torch.where(dist < nh_x, k_near, q + m).to(torch.int64)
+    return xc * ktot + kc
+
+
+def _gather_raster(tanel, p, f, *, width, cells_per_deg, step_nsteps=None):
+    """Visibility of the polar sample nearest each cell (_gather_index)."""
+    visible = _visible(tanel)
+    b = visible.shape[0]
+    idx = _gather_index(p, f, visible.shape[-1], width=width,
+                        cells_per_deg=cells_per_deg, step_nsteps=step_nsteps)
     vis = torch.gather(visible.reshape(b, -1), 1,
-                       (xc * ktot + kc).reshape(b, -1)).view_as(xc)
+                       idx.reshape(b, -1)).view_as(idx)
     return vis & f["in_az"] & f["in_r"]
 
 
@@ -292,7 +357,7 @@ def _arc_covered(f, region_a, width: int):
     return torch.remainder(f["xc"] - s, width) < sq
 
 
-def _contract_raster(dem, tanel, dists, az_cols, p, f, *, hw, surface,
+def _contract_raster(dem, tanel, d, half, az_cols, p, f, *, hw, surface,
                      full_circle, plain):
     """(visible (B, P2, P2), uncovered (B,) int32) of the contract
     resampler (viewshed.py:372-579; the quarter-arc forms :582-898 through
@@ -301,8 +366,7 @@ def _contract_raster(dem, tanel, dists, az_cols, p, f, *, hw, surface,
     mask = f["in_az"] & f["in_r"] & ing
     nn, ee, xc = f["nn"], f["ee"], f["xc"]
     region_a = nn.abs()[:, :, None] >= ee.abs()[:, None, :]
-    half = (0.5 * dists.scale)[:, :, None]
-    d = _distances(dists, tanel)
+    half = half[:, :, None]
     r_a = nn[:, None, :] / torch.cos(az_cols)[:, :, None] - half  # (B, W, P2)
     r_b = ee[:, None, :] / torch.sin(az_cols)[:, :, None] - half
     t_a, t_b = (_tables_direct if plain else _tables_sorted)(
@@ -327,7 +391,7 @@ def _raster_chunk(b: int, width: int, k: int, hw: int) -> int:
     return max(1, min(b, BATCH_BYTES // one))
 
 
-def viewshed_grid(dem: torch.Tensor, params: RenderParams, *, width, nsteps,
+def viewshed_grid(dem, params: RenderParams, *, width, nsteps,
                   cells_per_deg, surface="bilinear", out_halfwidth=None,
                   sampler="step", lat_hint_deg=45.0, znear_hint_m=100.0,
                   with_dropped=False, aligned_scene=None, out_center_ij=None,
@@ -339,114 +403,142 @@ def viewshed_grid(dem: torch.Tensor, params: RenderParams, *, width, nsteps,
     beyond zfar, outside the azimuth window or the grid.
 
     ``method``: "contract" (each cell's own tangent against its column's
-    horizon strictly nearer, see the module docstring), "gather" (the
-    visibility of the polar sample nearest the cell) or "auto" (contract on
-    a raw 2D grid). ``full_circle`` promises a 360-degree window: cells
-    outside the quarter arcs of the JAX package's full-circle forms then
-    read the empty horizon and count in the ``with_dropped`` guard
-    (dropped + truncated + uncovered, int32). ``row_chunk`` is accepted for
+    horizon strictly nearer, see the module docstring; it needs the float
+    elevation grid), "gather" (the visibility of the polar sample nearest
+    the cell) or "auto" (contract for the crossing samplers on a float
+    grid, gather for the step sampler and for packed scenes, as in the JAX
+    package). ``full_circle`` promises a 360-degree window: cells outside
+    the quarter arcs of the JAX package's full-circle forms then read the
+    empty horizon and count in the ``with_dropped`` guard (dropped +
+    truncated + uncovered, int32). ``row_chunk`` is accepted for
     signature parity; a batch is chunked under ``BATCH_BYTES``.
 
     (B,) params give (B, 2 hw, 2 hw) rasters and (B,) guards, the batch
-    marched in one launch per chunk. ``plain`` runs the march's plain
-    version and the direct masked max."""
+    marched at once per chunk. ``plain`` runs the march's plain version
+    and the direct masked max."""
     _check_port("viewshed_grid", sampler, aligned_scene)
     if out_halfwidth is None:
         raise ValueError("out_halfwidth is required")
     if surface not in ("bilinear", "triangulated"):
         raise ValueError(f"unknown surface mode {surface!r}")
+    raw_grid = (isinstance(dem, torch.Tensor) and dem.dim() == 2
+                and not _is_packed(dem))
     if method == "auto":
-        packed = (dem.dtype == torch.int32 and dem.dim() == 2
-                  and dem.shape[1] == dem.shape[0] - 1)
-        method = "contract" if dem.dim() == 2 and not packed else "gather"
+        method = "contract" if raw_grid and sampler != "step" else "gather"
     if method not in ("contract", "gather"):
         raise ValueError(f"unknown method {method!r}")
-    _check_grid("viewshed_grid", dem)
+    if method == "contract" and not raw_grid:
+        raise TypeError(
+            "method='contract' needs the raw 2D elevation grid (the cell "
+            f"test samples terrain heights); got {type(dem).__name__} -- "
+            "pass the float grid or method='gather'")
+    _check_grid("viewshed_grid", dem, sampler)
+    if sampler == "crossing" and not isinstance(dem, CrossingScene):
+        scene = pack_scene(dem)       # once for the batch
+    else:
+        scene = _as_packed(dem)[0] if sampler == "step" else dem
     hw = int(out_halfwidth)
     single = broadcast_params_batch(params).viewer_cell_i.dim() == 0
     p = _lift(params)
     b = p.viewer_cell_i.shape[0]
-    step = _raster_chunk(b, width, N_NEAR + step_budget(nsteps, dem.shape[0]),
-                        hw)
+    step = _raster_chunk(b, width, samples_per_column(dem, sampler, nsteps),
+                         hw)
     vis, guard = [], []
     for s in range(0, b, step):
         q = RenderParams(*(x[s:s + step] for x in p))
-        tanel, dists, az_cols = _march(
-            dem, q, width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
+        tanel, d, half, az_cols, g = _march(
+            scene, q, sampler=sampler, width=width, nsteps=nsteps,
+            cells_per_deg=cells_per_deg, surface=surface,
             lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
             plain=plain)
         f = _frame(q, hw, out_center_ij, cells_per_deg, width)
         if method == "contract":
             v, uncovered = _contract_raster(
-                dem, tanel, dists, az_cols, q, f, hw=hw, surface=surface,
+                dem, tanel, d, half, az_cols, q, f, hw=hw, surface=surface,
                 full_circle=full_circle, plain=plain)
         else:
-            v = _gather_raster(tanel, dists, q, f, width=width,
-                               cells_per_deg=cells_per_deg)
+            v = _gather_raster(
+                tanel, q, f, width=width, cells_per_deg=cells_per_deg,
+                step_nsteps=nsteps if sampler == "step" else None)
             uncovered = 0
         vis.append(v)
-        guard.append(_guard(dists) + uncovered)
+        guard.append(g + uncovered)
     vis, guard = torch.cat(vis), torch.cat(guard)
     if single:
         vis, guard = vis[0], guard[0]
     return (vis, guard) if with_dropped else vis
 
 
-def horizon_sweep(dem: torch.Tensor, params_batch: RenderParams, *, width,
-                  nsteps, cells_per_deg, surface="bilinear", sampler="step",
+def horizon_sweep(dem, params_batch: RenderParams, *, width, nsteps,
+                  cells_per_deg, surface="bilinear", sampler="step",
                   lat_hint_deg=45.0, znear_hint_m=100.0, aligned_scene=None,
                   plain=False):
     """(B,) stacked viewpoints -> (B, W) horizon tangents, the max of each
-    column's samples: one batched window-march launch per chunk
-    (``chunk_size`` under ``BATCH_BYTES``). ``lat_hint_deg`` sizes the near
-    patch: pass the viewer latitude."""
+    column's samples, in chunks under ``BATCH_BYTES`` (``chunk_size``); the
+    window sampler marches a chunk in one launch. ``dem`` as the sampler
+    takes it (module docstring); ``lat_hint_deg`` sizes the window march's
+    near patch: pass the viewer latitude."""
     _check_port("horizon_sweep", sampler, aligned_scene)
-    _check_grid("horizon_sweep", dem)
+    _check_grid("horizon_sweep", dem, sampler)
     p = broadcast_params_batch(params_batch)
     if p.viewer_cell_i.dim() != 1:
         raise ValueError(f"horizon_sweep takes RenderParams with (B,) "
                          f"fields, got {tuple(p.viewer_cell_i.shape)}")
+    if sampler == "crossing" and not isinstance(dem, CrossingScene):
+        dem = pack_scene(dem)
+    elif sampler == "step":
+        dem = _as_packed(dem)[0]
     b = p.viewer_cell_i.shape[0]
-    step = chunk_size(b, width, 0, N_NEAR + step_budget(nsteps,
-                                                        dem.shape[0]))
+    step = chunk_size(b, width, 0, samples_per_column(dem, sampler, nsteps))
     outs = []
     for s in range(0, b, step):
-        tanel, _, _ = _march(
-            dem, RenderParams(*(x[s:s + step] for x in p)), width=width,
-            nsteps=nsteps, cells_per_deg=cells_per_deg,
-            lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
-            plain=plain)
+        tanel = _march(
+            dem, RenderParams(*(x[s:s + step] for x in p)), sampler=sampler,
+            width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
+            surface=surface, lat_hint_deg=lat_hint_deg,
+            znear_hint_m=znear_hint_m, plain=plain)[0]
         outs.append(tanel.amax(dim=-1))
     return torch.cat(outs)
 
 
 def _sweep_prep(dem, viewpoints_ij, viewer_height_m, *, nsteps,
-                cells_per_deg, zfar, cos_viewer_lat, lat_deg, device):
+                cells_per_deg, zfar, cos_viewer_lat, lat_deg, device,
+                sampler="window"):
     """Shared prep of the viewpoint sweeps (viewshed.py:982-1035): the
-    float32 grid on ``device``, the viewpoints, their elevations (the
-    bilinear terrain of the 0.5 m pair planes + viewer_height_m), the step
-    budget, the latitude hint and cos_viewer_lat (either derives the
-    other)."""
+    sampler's scene on ``device`` (the float32 grid for the window march,
+    a CrossingScene, or the pair-packed plane for the uniform steps), the
+    viewpoints, their elevations (the bilinear terrain of the 0.5 m pair
+    planes + viewer_height_m), the step budget (k_cross_for, or 512
+    uniform steps), the latitude hint and cos_viewer_lat (either derives
+    the other)."""
     if cos_viewer_lat is None:
         cos_viewer_lat = (math.cos(math.radians(lat_deg))
                           if lat_deg is not None else 1.0)
     dem_t = (dem if isinstance(dem, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(dem))).to(device)
-    if (dem_t.dtype == torch.int32 and dem_t.dim() == 2
-            and dem_t.shape[1] == dem_t.shape[0] - 1):
-        raise TypeError("viewpoint sweeps with sampler='window' need the "
-                        "elevation grid, not a pack_dem_pairs plane")
+    if sampler != "step" and _is_packed(dem_t):
+        raise TypeError("viewpoint sweeps with sampler='crossing'/'window' "
+                        "need the elevation grid, not a pack_dem_pairs "
+                        "plane")
     packed, n = _as_packed(dem_t)
     pts = torch.from_numpy(np.asarray(viewpoints_ij, np.float32).reshape(
         -1, 2)).to(device)
     vz = _sample_surface(packed, n, pts[:, 0], pts[:, 1],
                          "bilinear") + viewer_height_m
-    if lat_deg is None:
-        lat_deg = math.degrees(math.acos(min(1.0, cos_viewer_lat)))
-    if nsteps is None:
-        nsteps = k_cross_for(zfar, cells_per_deg, lat_deg, n=n)
-    return (dem_t.to(torch.float32), pts, vz, nsteps, float(lat_deg),
-            cos_viewer_lat)
+    lat_hint = 45.0
+    if sampler == "step":
+        scene = packed
+        if nsteps is None:
+            nsteps = 512
+    else:
+        if lat_deg is None:
+            lat_deg = math.degrees(math.acos(min(1.0, cos_viewer_lat)))
+        if nsteps is None:
+            nsteps = k_cross_for(zfar, cells_per_deg, lat_deg, n=n)
+        lat_hint = float(lat_deg)
+        grid = dem_t.to(torch.float32)
+        scene = pack_scene(grid) if sampler == "crossing" else grid
+    return scene, pts, vz, nsteps, lat_hint, cos_viewer_lat
 
 
 def _observer_params(pts, vz, cos_viewer_lat, znear, zfar) -> RenderParams:
@@ -467,17 +559,19 @@ def viewshed_sweep(dem, viewpoints_ij, *, viewer_height_m=2.0, width=256,
     """Horizon profiles of many viewpoints: (N, width) from (N, 2) float
     cell coords ``viewpoints_ij``, observers ``viewer_height_m`` above the
     terrain, full circles, in batches of ``batch`` (horizon_sweep). ``dem``:
-    a square elevation grid (numpy or tensor, int16 accepted), moved to
-    ``device``."""
+    a square elevation grid (numpy or tensor, int16 accepted; the step
+    sampler also takes its pack_dem_pairs plane), moved to ``device``.
+    The default sampler is the crossing march, as in the JAX package;
+    ``surface`` applies to the step sampler."""
     _check_port("viewshed_sweep", sampler, mesh=mesh)
     dem_f, pts, vz, nsteps, lat_hint, cos_lat = _sweep_prep(
-        dem, viewpoints_ij, viewer_height_m, nsteps=nsteps,
+        dem, viewpoints_ij, viewer_height_m, sampler=sampler, nsteps=nsteps,
         cells_per_deg=cells_per_deg, zfar=zfar,
         cos_viewer_lat=cos_viewer_lat, lat_deg=lat_deg, device=device)
     outs = [horizon_sweep(dem_f, _observer_params(
         pts[s:s + batch], vz[s:s + batch], cos_lat, znear, zfar),
         width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
-        surface=surface, sampler="window", lat_hint_deg=lat_hint,
+        surface=surface, sampler=sampler, lat_hint_deg=lat_hint,
         znear_hint_m=float(znear), plain=plain)
         for s in range(0, pts.shape[0], batch)]
     return torch.cat(outs)
@@ -493,10 +587,11 @@ def viewshed_count(dem, viewpoints_ij, *, out_center_ij, out_halfwidth,
     cell coords), ``out_halfwidth`` cells each side. Observers as in
     viewshed_sweep, full circles; ``batch`` observers go through
     viewshed_grid(full_circle=True) at a time and accumulate on the
-    device."""
+    device. The crossing and step samplers resample with "gather" (their
+    packed scenes, as in the JAX package)."""
     _check_port("viewshed_count", sampler, mesh=mesh)
     dem_f, pts, vz, nsteps, lat_hint, cos_lat = _sweep_prep(
-        dem, viewpoints_ij, viewer_height_m, nsteps=nsteps,
+        dem, viewpoints_ij, viewer_height_m, sampler=sampler, nsteps=nsteps,
         cells_per_deg=cells_per_deg, zfar=zfar,
         cos_viewer_lat=cos_viewer_lat, lat_deg=lat_deg, device=device)
     hw = int(out_halfwidth)
@@ -507,7 +602,7 @@ def viewshed_count(dem, viewpoints_ij, *, out_center_ij, out_halfwidth,
             dem_f, _observer_params(pts[s:s + batch], vz[s:s + batch],
                                     cos_lat, znear, zfar),
             width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
-            sampler="window", lat_hint_deg=lat_hint,
+            sampler=sampler, lat_hint_deg=lat_hint,
             znear_hint_m=float(znear), out_halfwidth=hw,
             out_center_ij=center, full_circle=True, plain=plain)
         total += vis.sum(dim=0, dtype=torch.int32)

@@ -1,5 +1,5 @@
-from .sharding import (broadcast_params_batch, render_batch, render_path,
-                       stack_params)
+from .sharding import (broadcast_params_batch, horizon_batch, render_batch,
+                       render_path, stack_params)
 
-__all__ = ["broadcast_params_batch", "render_batch", "render_path",
-           "stack_params"]
+__all__ = ["broadcast_params_batch", "horizon_batch", "render_batch",
+           "render_path", "stack_params"]

@@ -13,16 +13,18 @@ whose estimated working set (``chunk_bytes``, from B, W, H and the sample
 count K) stays under ``BATCH_BYTES``. Each viewpoint's output is bitwise
 its single render's, whatever the chunk size.
 
-Not ported here: ``horizon_batch`` (it needs the step sampler's
-``march_tanel``) and the multi-device ``make_sharded_*`` (scale-out).
+``horizon_batch`` gives the uniform-step march's horizons of a batch, in
+chunks under the same budget. Not ported here: the multi-device
+``make_sharded_*`` (scale-out).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..render.crossing import N_NEAR
-from ..render.raymarch import (RenderParams, broadcast_params_batch,
+from ..render.crossing import N_NEAR, CrossingScene, pack_scene
+from ..render.raymarch import (RenderParams, _as_packed,
+                               broadcast_params_batch, march_tanel,
                                render_panorama, stack_params)
 from ..render.window import step_budget
 
@@ -36,14 +38,35 @@ SAMPLE_BYTES, SAMPLE_BYTES_TEX = 32, 48
 PIXEL_BYTES, PIXEL_BYTES_TEX = 64, 96
 
 __all__ = ["BATCH_BYTES", "broadcast_params_batch", "chunk_bytes",
-           "chunk_size", "render_batch", "render_path", "stack_params"]
+           "chunk_size", "horizon_batch", "render_batch", "render_path",
+           "stack_params"]
 
 
-def _samples(dem, sampler: str, nsteps: int, lod_plan) -> int:
+def samples_per_column(dem, sampler: str, nsteps: int,
+                       lod_plan=None) -> int:
     """K, the march samples a column of the render holds."""
     if sampler == "lod":
         return N_NEAR + sum(s.k_len for s in lod_plan)
+    if sampler == "step":
+        return nsteps
+    if sampler == "crossing":
+        return N_NEAR + nsteps
     return N_NEAR + step_budget(nsteps, dem.shape[-1])
+
+
+def _chunks(params: RenderParams, step: int):
+    """The batch's RenderParams in slices of ``step`` viewpoints."""
+    b = params.viewer_cell_i.shape[0]
+    return [RenderParams(*(x[s:s + step] for x in params))
+            for s in range(0, b, step)]
+
+
+def _as_batch(params: RenderParams, fn: str) -> RenderParams:
+    params = broadcast_params_batch(params)
+    if params.viewer_cell_i.dim() != 1 or not len(params.viewer_cell_i):
+        raise ValueError(f"{fn} takes RenderParams with (B,) fields, B >= "
+                         f"1; got {tuple(params.viewer_cell_i.shape)}")
+    return params
 
 
 def chunk_bytes(b: int, width: int, height: int, k: int,
@@ -74,20 +97,21 @@ def render_batch(dem, params: RenderParams, *, width, height, nsteps,
     float32), plus the (B, 2) int32 guard [dropped, truncated] per
     viewpoint under ``with_dropped``.
 
-    The DEM (or LOD pyramid), ``color_planes``, the atlas and the LOD plan
-    are shared by the batch; the arguments are render_panorama's. Only
-    the 'window' and 'lod' samplers are ported. ``plain`` runs the
-    kernels' plain PyTorch versions (for comparisons)."""
-    if sampler not in ("window", "lod"):
-        raise NotImplementedError(f"sampler={sampler!r} is not ported; "
-                                  "only 'window' and 'lod' are")
-    params = broadcast_params_batch(params)
-    if params.viewer_cell_i.dim() != 1 or not len(params.viewer_cell_i):
-        raise ValueError(f"render_batch takes RenderParams with (B,) fields, "
-                         f"B >= 1; got {tuple(params.viewer_cell_i.shape)}")
+    The scene (a DEM, an LOD pyramid, a CrossingScene or a pack_dem_pairs
+    plane, as render_panorama's ``sampler`` takes it), ``color_planes``,
+    the atlas and the LOD plan are shared by the batch; the arguments are
+    render_panorama's. The oracle samplers' scenes are packed here once
+    for the batch. ``plain`` runs the kernels' plain PyTorch versions (for
+    comparisons)."""
+    params = _as_batch(params, "render_batch")
+    if sampler == "crossing" and not isinstance(dem, CrossingScene):
+        dem = pack_scene(dem)
+    elif sampler == "step":
+        dem = _as_packed(dem)[0]
     b = params.viewer_cell_i.shape[0]
     step = chunk_size(b, width, height,
-                      _samples(dem, sampler, nsteps, lod_plan), textured)
+                      samples_per_column(dem, sampler, nsteps, lod_plan),
+                      textured)
     kw = dict(width=width, height=height, nsteps=nsteps,
               cells_per_deg=cells_per_deg, surface=surface, refine=refine,
               sampler=sampler, lat_hint_deg=lat_hint_deg, lod_plan=lod_plan,
@@ -95,9 +119,7 @@ def render_batch(dem, params: RenderParams, *, width, height, nsteps,
               znear_hint_m=znear_hint_m, atlas=atlas,
               atlas_params=atlas_params, exact_near_m=exact_near_m,
               with_dropped=True, plain=plain)
-    parts = [render_panorama(dem, RenderParams(*(x[s:s + step]
-                                                 for x in params)), **kw)
-             for s in range(0, b, step)]
+    parts = [render_panorama(dem, q, **kw) for q in _chunks(params, step)]
     out = parts[0] if len(parts) == 1 else tuple(
         torch.cat(xs) for xs in zip(*parts))
     return out if with_dropped else out[:2]
@@ -108,3 +130,22 @@ def render_path(dem, params_path: RenderParams, **kw):
     axis = frames) as one batch. Returns (images (F, H, W, 3), ranges (F,
     H, W)); keywords as render_batch's."""
     return render_batch(dem, params_path, **kw)
+
+
+def horizon_batch(dem, params: RenderParams, *, width, nsteps, cells_per_deg,
+                  surface="bilinear"):
+    """Horizon profiles of a batch from the uniform-step march
+    (sharding.py:167-180): (az (B, W), tan_el (B, W)) from (B,) params.
+    ``dem``: a float32 grid or its pack_dem_pairs plane (packed here once
+    for the batch). Runs in chunks under ``BATCH_BYTES``, each viewpoint
+    bitwise its single march's."""
+    params = _as_batch(params, "horizon_batch")
+    packed = _as_packed(dem)[0]
+    step = chunk_size(params.viewer_cell_i.shape[0], width, 0, nsteps)
+    parts = []
+    for q in _chunks(params, step):
+        tanel, _, _, az = march_tanel(packed, q, width=width, nsteps=nsteps,
+                                      cells_per_deg=cells_per_deg,
+                                      surface=surface)
+        parts.append((az, tanel.amax(dim=-1)))
+    return tuple(torch.cat(xs) for xs in zip(*parts))

@@ -28,8 +28,10 @@ import torch
 
 from .. import geometry
 from ..geometry import const, recip
+from ..kernels.window_march import fma32
 
 DEG = math.pi / 180.0
+NEG_BIG = -3.0e38     # an invalid sample's tangent
 _ROWQ = 256.0         # pixel-row quantization of the resolve keys (1/256 px)
 _ROWQ_BITS = 8        # log2(_ROWQ)
 
@@ -126,12 +128,14 @@ def _as_packed(dem: torch.Tensor):
 
 
 def _sample_surface(dem_packed: torch.Tensor, n: int, i_pos: torch.Tensor,
-                    j_pos: torch.Tensor, surface: str) -> torch.Tensor:
+                    j_pos: torch.Tensor, surface: str,
+                    fused: bool = False) -> torch.Tensor:
     """The terrain at fractional grid coords from a pack_dem_pairs plane
     (row 0 = south): two pair lookups give the four corners of the
     bilinear or the reference's triangulated surface (raymarch.py:91-117).
     Indices are clipped into the grid; masking out-of-grid positions is the
-    caller's."""
+    caller's. ``fused``: each lerp a + (b - a) * f one multiply-add, as XLA
+    contracts it inside the uniform-step march."""
     i0 = torch.clamp(torch.floor(i_pos), 0, n - 2).to(torch.int32)
     j0 = torch.clamp(torch.floor(j_pos), 0, n - 2).to(torch.int32)
     fi = torch.clamp(i_pos - i0, 0.0, 1.0)
@@ -140,17 +144,75 @@ def _sample_surface(dem_packed: torch.Tensor, n: int, i_pos: torch.Tensor,
     base = (j0 * (n - 1) + i0).long()
     z00, z10 = _unpack_pair(flat[base])
     z01, z11 = _unpack_pair(flat[base + (n - 1)])
+
+    def lerp(a, b, f):
+        return fma32(b, f, a) if fused else a + b * f
     if surface == "bilinear":
-        top = z00 + (z10 - z00) * fi
-        bot = z01 + (z11 - z01) * fi
-        return top + (bot - top) * fj
+        top = lerp(z00, z10 - z00, fi)
+        bot = lerp(z01, z11 - z01, fi)
+        return lerp(top, bot - top, fj)
     if surface == "triangulated":
         # two triangles a cell, split along the (i, j) -> (i+1, j+1)
         # diagonal (horizonator-lib.c:496-507)
-        z_lower = z00 + (z10 - z00) * fi + (z11 - z10) * fj
-        z_upper = z00 + (z11 - z01) * fi + (z01 - z00) * fj
+        z_lower = lerp(lerp(z00, z10 - z00, fi), z11 - z10, fj)
+        z_upper = lerp(lerp(z00, z11 - z01, fi), z01 - z00, fj)
         return torch.where(fj <= fi, z_lower, z_upper)
     raise ValueError(f"unknown surface mode {surface!r}")
+
+
+def column_az(params: RenderParams, width: int) -> torch.Tensor:
+    """(W,) pixel-centre azimuths of the image columns ((B, W) in a
+    batch)."""
+    _, az_center, az_ndc_per_rad = geometry.az_window_rad(params.az_rad0,
+                                                          params.az_rad1)
+    x = torch.arange(width, dtype=torch.float32, device=az_center.device)
+    az_ndc = (x + 0.5) * recip(width) * 2.0 - 1.0
+    return cols(az_center) + az_ndc / cols(az_ndc_per_rad)
+
+
+def march_tanel(dem: torch.Tensor, params: RenderParams, *, width: int,
+                nsteps: int, cells_per_deg: int, surface: str = "bilinear"):
+    """The uniform-step march (raymarch.py:764-800): ``nsteps`` samples a
+    column at d = znear + (k + 0.5) * (zfar - znear) / nsteps, each the
+    bilinear or the reference's triangulated surface at its grid
+    position. ``dem``: an (n, n) float32 grid or its pack_dem_pairs plane.
+
+    Returns (tanel (W, K), run_max (W, K), d (K,), az (W,)); (B,) params
+    give (B, W, K), (B, K) and (B, W)."""
+    p = broadcast_params_batch(params)
+    dem_packed, n = _as_packed(dem)
+    az = column_az(p, width)
+    k = torch.arange(nsteps, dtype=torch.float32, device=az.device)
+    d = step_d_of(p, nsteps, lift=cols)(k.expand(p.znear.shape + (nsteps,)))
+    cell_m_north = geometry.EARTH_RADIUS_M * DEG / cells_per_deg
+    cell_m_east = cell_m_north * p.cos_viewer_lat
+    # XLA contracts the distances, the row position, the lerps and the
+    # curvature term into multiply-adds: so does the port (bitwise given
+    # equal sin/cos)
+    dk = d[..., None, :]
+    i_pos = (samples(p.viewer_cell_i)
+             + dk * torch.sin(az)[..., None] / samples(cell_m_east))
+    dcos = dk * torch.cos(az)[..., None]
+    j_pos = fma32(dcos, const(recip(cell_m_north), dcos).expand_as(dcos),
+                  samples(p.viewer_cell_j).expand_as(dcos))
+    in_grid = (i_pos >= 0) & (i_pos <= n - 1) & (j_pos >= 0) & (j_pos <= n - 1)
+    z = _sample_surface(dem_packed, n, i_pos, j_pos, surface, fused=True)
+    q = (z - samples(p.viewer_z)) / dk
+    tanel = torch.where(in_grid, fma32(-dk.expand_as(q),
+                                       samples(p.curv).expand_as(q), q),
+                        const(NEG_BIG, z))
+    return tanel, torch.cummax(tanel, dim=-1).values, d, az
+
+
+def horizon_profile(dem: torch.Tensor, params: RenderParams, *, width: int,
+                    nsteps: int, cells_per_deg: int,
+                    surface: str = "bilinear"):
+    """Per-column horizon (az (W,), tan_el (W,)) of the uniform-step march
+    (raymarch.py:1066-1074); (B, W) each in a batch."""
+    tanel, _, _, az = march_tanel(dem, params, width=width, nsteps=nsteps,
+                                  cells_per_deg=cells_per_deg,
+                                  surface=surface)
+    return az, tanel.amax(dim=-1)
 
 
 def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
@@ -161,32 +223,42 @@ def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
                     color_planes=None, znear_hint_m=100.0,
                     with_dropped: bool = False, exact_near_m=None,
                     lod_plan=None, plain: bool = False):
-    """Render one panorama from a square (n, n) float32 DEM tensor
-    (dem[j, i], row 0 = SOUTH edge) on its device.
+    """Render one panorama on the device of its scene.
 
-    ``nsteps``: the crossing budget (crossing.k_cross_for). ``surface`` is
-    accepted for signature parity: crossings sample grid lines, where the
-    bilinear and triangulated surfaces agree. ``textured``: blend colors
-    into the image; they come from ``color_planes`` in the march (see
+    ``sampler`` picks the march and what ``dem`` holds:
+
+    - "window" (the crossing march through the window-march kernel): a
+      square (n, n) float32 DEM tensor (dem[j, i], row 0 = SOUTH edge);
+      ``nsteps`` is the crossing budget (crossing.k_cross_for);
+    - "crossing" (the grid-crossing oracle, crossing.march_crossing): a
+      crossing.CrossingScene, or a float32 grid packed here;
+    - "step" (the uniform-step oracle, march_tanel): a float32 grid or
+      its pack_dem_pairs plane; ``nsteps`` uniform steps over [znear,
+      zfar], sampling ``surface`` ("bilinear" or the reference's
+      "triangulated" mesh surface);
+    - "lod" marches the bands of ``lod_plan`` (lod.lod_plan) on a mip
+      chain: ``dem`` is lod.build_pyramid's tuple or a grid (pooled here),
+      ``color_planes`` lod.build_color_pyramid's tuple or planes (pooled
+      here); ``nsteps`` and ``exact_near_m`` are not read.
+
+    Crossings sample grid lines, where the bilinear and triangulated
+    surfaces agree, so ``surface`` matters to the step sampler alone.
+    ``textured``: blend colors into the image; with the window and LOD
+    samplers they come from ``color_planes`` in the march (see
     window.march_from_geometry; ``atlas``, ``atlas_params`` and
-    ``exact_near_m`` add the hybrid near field), or without planes from a
-    per-pixel gather of the packed ``atlas``. ``plain`` runs the kernels'
+    ``exact_near_m`` add the hybrid near field), otherwise (no planes, or
+    an oracle sampler) from a per-pixel gather of the packed ``atlas``.
+    Every sampler ends in the resolve kernel; ``plain`` runs the kernels'
     plain PyTorch versions on any device.
 
-    ``sampler="lod"`` marches the bands of ``lod_plan`` (lod.lod_plan) on a
-    mip chain: ``dem`` is lod.build_pyramid's tuple or a grid (pooled
-    here), ``color_planes`` lod.build_color_pyramid's tuple or planes
-    (pooled here); ``nsteps`` and ``exact_near_m`` are not read.
-
     Returns (image (H, W, 3) uint8 BGR, ranges (H, W) float32), plus the
-    (2,) int32 guard [dropped, truncated] under ``with_dropped``. With (B,)
-    params fields the batch renders in one pass, each kernel launched once
-    for it: (B, H, W, 3), (B, H, W) and a (B, 2) guard, each viewpoint
-    bitwise its own render's (parallel.sharding runs large batches in
-    chunks)."""
-    if sampler not in ("window", "lod"):
-        raise NotImplementedError(f"sampler={sampler!r} is not ported; "
-                                  "only 'window' and 'lod' are")
+    (2,) int32 guard [dropped, truncated] under ``with_dropped`` (zeros
+    for the oracle samplers, which mask nothing). With (B,) params fields
+    the batch renders in one pass, each kernel launched once for it: (B,
+    H, W, 3), (B, H, W) and a (B, 2) guard, each viewpoint bitwise its
+    own render's (parallel.sharding runs large batches in chunks)."""
+    if sampler not in ("window", "lod", "crossing", "step"):
+        raise ValueError(f"unknown sampler {sampler!r}")
     if surface not in ("bilinear", "triangulated"):
         raise ValueError(f"unknown surface mode {surface!r}")
     params = broadcast_params_batch(params)
@@ -210,9 +282,10 @@ def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
                             znear_hint_m=znear_hint_m, color_pyramid=cpyr,
                             plain=plain)
         tanel, dists, az = out[:3]
+        d_of = dists.d_of
         if cpyr is not None:
             tex_samples = out[3]
-    else:
+    elif sampler == "window":
         from .window import march_from_geometry
         from .crossing import crossing_geometry
         geo = crossing_geometry(params, width=width,
@@ -227,15 +300,46 @@ def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
                 atlas_params=atlas_params, exact_near_m=exact_near_m, **mkw)
         else:
             tanel, dists = march_from_geometry(dem, params, geo, **mkw)
-    out = resolve_to_image(tanel, dists.d_of, az, params, width=width,
+        d_of = dists.d_of
+    elif sampler == "crossing":
+        from .crossing import CrossingScene, march_crossing, pack_scene
+        scene = dem if isinstance(dem, CrossingScene) else pack_scene(dem)
+        tanel, _, dists, az = march_crossing(
+            scene, params, width=width, k_cross=nsteps,
+            cells_per_deg=cells_per_deg)
+        d_of = dists.d_of
+    else:
+        tanel, _, _, az = march_tanel(dem, params, width=width,
+                                      nsteps=nsteps,
+                                      cells_per_deg=cells_per_deg,
+                                      surface=surface)
+        d_of = step_d_of(params, nsteps)
+    out = resolve_to_image(tanel, d_of, az, params, width=width,
                            height=height, cells_per_deg=cells_per_deg,
                            refine=refine, textured=textured, atlas=atlas,
                            atlas_params=atlas_params,
                            tex_samples=tex_samples, plain=plain)
-    if with_dropped:
-        return out + (torch.stack([dists.dropped, dists.truncated],
-                                  dim=-1),)
-    return out
+    if not with_dropped:
+        return out
+    if sampler in ("window", "lod"):
+        guard = torch.stack([dists.dropped, dists.truncated], dim=-1)
+    else:                        # the oracle samplers mask nothing
+        guard = torch.zeros(params.znear.shape + (2,), dtype=torch.int32,
+                            device=tanel.device)
+    return out + (guard,)
+
+
+def step_d_of(params: RenderParams, nsteps: int, lift=samples):
+    """The uniform-step march's sample distances, znear + (idx + 0.5) *
+    step as one multiply-add, for (W, X) sample indices ((B, W, X) in a
+    batch); ``lift=cols`` takes (K,) ((B, K)) indices instead."""
+    step = (params.zfar - params.znear) * recip(nsteps)
+
+    def d_of(idx: torch.Tensor) -> torch.Tensor:
+        x = idx.to(torch.float32) + 0.5
+        return fma32(x, lift(step).expand_as(x),
+                     lift(params.znear).expand_as(x))
+    return d_of
 
 
 def horizon_rows(tanel: torch.Tensor, params: RenderParams, *, width: int,

@@ -41,11 +41,11 @@ import warnings
 import torch
 
 from .. import geometry
-from ..geometry import const, recip
+from ..geometry import const
 from ..kernels.window_march import (fma32, march, march_plain,
                                     march_textured)
 from .crossing import (CrossingDists, CrossingGeom, N_NEAR, NEG_BIG,
-                       crossing_geometry)
+                       _grid_pos, _near_samples, crossing_geometry)
 from .raymarch import RenderParams, cols, samples
 from .texture import (AtlasParams, ColorPlanes2x, atlas_px_from_grid,
                       pack_cell_colors, unpack_color_planes)
@@ -159,31 +159,6 @@ def _gather(src: torch.Tensor, rows, columns, per_view: bool = False):
     if src.dtype == torch.int32:
         return _take(src, rows, columns, per_view)
     return torch.stack([_take(c, rows, columns, per_view) for c in src])
-
-
-def _near_samples(p: RenderParams, geo: CrossingGeom, n_near: int,
-                  near_hi: torch.Tensor):
-    """(dq, iq, jq) (W, n_near): the near band's uniform distances over
-    [znear, near_hi) and their grid positions (window.py:1027-1038)."""
-    q = torch.arange(n_near, dtype=torch.float32, device=near_hi.device)[
-        None, :]
-    znear = samples(p.znear)
-    # 1 mm floor: znear == 0 would put the first sample at d = 0
-    dq = torch.clamp(
-        znear + q * ((near_hi[..., None] - znear) * recip(n_near)),
-        min=1e-3)
-    return (dq,) + _grid_pos(p, geo, dq)
-
-
-def _grid_pos(p: RenderParams, geo: CrossingGeom, d: torch.Tensor):
-    """Grid coordinates (i, j) at horizontal distance d along each column."""
-    sin_az = torch.sin(geo.az)[..., None]
-    cos_az = torch.cos(geo.az)[..., None]
-    iq = samples(p.viewer_cell_i) + d * sin_az / samples(geo.cell_m_east)
-    # cell_m_north is a Python constant in the JAX package: XLA multiplies
-    # by its float32 reciprocal
-    jq = samples(p.viewer_cell_j) + d * cos_az * (1.0 / geo.cell_m_north)
-    return iq, jq
 
 
 def _patch_origin(p: RenderParams, patch_n: int, n: int):

@@ -150,7 +150,8 @@ def test_chunks_are_bitwise_one_batch(monkeypatch, sampler):
         dem = torch.from_numpy(dem)
     else:
         _, dem, _, kw, _, tx = _lod_scene("half-float")
-    k = sharding._samples(dem, sampler, kw["nsteps"], kw.get("lod_plan"))
+    k = sharding.samples_per_column(dem, sampler, kw["nsteps"],
+                                    kw.get("lod_plan"))
     views = 5
     p = make_params(
         device="cpu", viewer_cell_i=[128.3 + 7 * i for i in range(views)],
@@ -205,11 +206,33 @@ def test_broadcast_params_batch_keeps_dtypes_and_batched_leaves():
 @pytest.mark.parametrize("entry", ["render_batch", "render_path"])
 @pytest.mark.parametrize("sampler", ["step", "crossing"])
 def test_unported_samplers_raise(entry, sampler):
+    """The oracle samplers, which the port once refused here, batched: the
+    window scene's three viewpoints (the step sampler on the triangulated
+    surface) against the JAX package's vmap batch (``_compare``), each
+    viewpoint bitwise its single render, the guard zeros, and the batch in
+    chunks of one bitwise the whole."""
     _, dem, jps, kw, _, _ = _window_scene()
     kw["sampler"] = sampler
-    with pytest.raises(NotImplementedError, match="not ported"):
-        getattr(sharding, entry)(torch.from_numpy(dem),
-                                 params_from_jax(j_stack(jps), "cpu"), **kw)
+    if sampler == "step":
+        kw.update(nsteps=384, surface="triangulated")
+    j_fn = j_render_batch if entry == "render_batch" else j_render_path
+    img_j, rng_j = (np.asarray(a) for a in j_fn(jnp.asarray(dem),
+                                                 j_stack(jps), **kw))
+    tdem, tp = torch.from_numpy(dem), params_from_jax(j_stack(jps), "cpu")
+    img_t, rng_t, guard = getattr(sharding, entry)(tdem, tp,
+                                                   with_dropped=True, **kw)
+    assert guard.tolist() == [[0, 0]] * len(jps)
+    for b, jp in enumerate(jps):
+        _compare(img_j[b], rng_j[b], img_t[b].numpy(), rng_t[b].numpy())
+        img_1, rng_1 = render_panorama(tdem, params_from_jax(jp, "cpu"),
+                                       **kw)
+        assert torch.equal(img_t[b], img_1) and torch.equal(rng_t[b], rng_1)
+    k = sharding.samples_per_column(tdem, sampler, kw["nsteps"])
+    one = sharding.chunk_bytes(1, kw["width"], kw["height"], k)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sharding, "BATCH_BYTES", one + 1)
+        parts = getattr(sharding, entry)(tdem, tp, **kw)
+    assert torch.equal(parts[0], img_t) and torch.equal(parts[1], rng_t)
 
 
 def test_render_batch_needs_a_batch():

@@ -37,6 +37,7 @@ import math
 import re
 import subprocess
 import sys
+import warnings
 import zlib
 
 import numpy as np
@@ -49,9 +50,10 @@ from horizonator_tpu import horizonator as JHorizonator
 from horizonator_tpu_torch import cli as tcli
 from horizonator_tpu_torch import geometry as tgeom
 from horizonator_tpu_torch import horizonator as THorizonator
+from horizonator_tpu_torch.render.crossing import k_cross_for
 from tests.conftest import make_synthetic_dem_dir
 from tests.test_golden import CANONICAL, GOLDEN_DIR, _scene
-from tests.test_torch_geometry import ulps
+from tests.test_torch_geometry import CPD, ulps
 from tests.test_torch_render import REPO, _compare
 from tests.test_torch_textured import _compare_textured, _write_tiles
 
@@ -173,6 +175,82 @@ def test_horizon_matches_jax(apis, az0, az1, width):
     assert ulps(azj, azt) <= 1
     np.testing.assert_allclose(tt, tj, atol=1e-5)
     assert np.isfinite(tt).all() and tt.max() > 0.01
+
+
+ORACLE_APIS = [dict(sampler="step"), dict(sampler="crossing"),
+               dict(surface="triangulated"),
+               dict(sampler="crossing", render_texture=True)]
+
+
+@pytest.mark.parametrize("kw", ORACLE_APIS,
+                         ids=["step", "crossing", "triangulated",
+                              "crossing textured"])
+def test_api_oracle_samplers_match_jax(dem_dir, tmp_path, kw):
+    """The API through the oracle samplers (surface="triangulated" takes
+    the step sampler under "auto"; a textured oracle render gathers the
+    atlas per pixel): render and render_batch within _compare's (textured:
+    _compare_textured's) tolerances, each batch viewpoint bitwise its own
+    render(); horizon and skyline (the crossing march for every sampler
+    but the window one) within 1e-5 and az within 2 ulps, pick within 1
+    ulp, the uniform-step
+    budget equal; no coverage warning (the oracles mask nothing)."""
+    kw = dict(kw, dir_dems=dem_dir, render_radius_m=25000.0)
+    cmp = _compare
+    if kw.get("render_texture"):
+        _write_tiles(tmp_path, LAT, LON, 420)
+        kw.update(dir_tiles=str(tmp_path), allow_downloads=False)
+        cmp = _compare_textured
+    hj = JHorizonator(LAT, LON, 200, 80, **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ht = THorizonator(LAT, LON, 200, 80, device="cpu", **kw)
+        assert ht.sampler == hj.sampler != "window"
+        assert ht._auto_nsteps(100.0, 25000.0) == hj._auto_nsteps(100.0,
+                                                                  25000.0)
+        cmp(*hj.render(-60, 60, zfar=20000.0),
+            *ht.render(-60, 60, zfar=20000.0))
+        azj, tj = hj.horizon(-60, 60, zfar=20000.0)
+        azt, tt = ht.horizon(-60, 60, zfar=20000.0)
+        # XLA folds the column azimuths by the march that takes them
+        # (test_torch_geometry): 2 ulps here
+        assert ulps(azj, azt) <= 2
+        np.testing.assert_allclose(tt, tj, atol=1e-5)
+        sj, st = hj.skyline(-60, 60, zfar=20000.0), ht.skyline(-60, 60,
+                                                               zfar=20000.0)
+        np.testing.assert_allclose(np.tan(np.radians(st["el_deg"])),
+                                   np.tan(np.radians(sj["el_deg"])),
+                                   atol=1e-5)
+        _, rj = hj.render(-60, 60)
+        _, rt = ht.render(-60, 60)
+        y, x = np.argwhere((rt > 2000.0) & (rt == rj))[0]
+        assert ulps(np.array(hj.pick(x, y)), np.array(ht.pick(x, y))) <= 1
+        lats, lons = [34.40, 34.43], [-117.45, -117.49]
+        bj = hj.render_batch(-60, 60, lats, lons, zfar=20000.0)
+        bt = ht.render_batch(-60, 60, lats, lons, zfar=20000.0)
+        for b in range(2):
+            cmp(bj[0][b], bj[1][b], bt[0][b], bt[1][b])
+            one = ht.render(-60, 60, lat=lats[b], lon=lons[b], zfar=20000.0)
+            np.testing.assert_array_equal(bt[0][b], one[0])
+            np.testing.assert_array_equal(bt[1][b], one[1])
+
+
+def test_api_sampler_choices(dem_dir):
+    """"auto" is window on the bilinear surface and step on the
+    triangulated one; the step sampler's pair plane serves the LOS ops;
+    the JAX package's silent misrenders and refusals raise here: 'lod'
+    (there it marches the pair planes as elevations), hillshade off the
+    window sampler, an unknown sampler or surface."""
+    kw = dict(dir_dems=dem_dir, render_radius_m=8000.0, device="cpu")
+    assert THorizonator(LAT, LON, 32, 16, **kw).sampler == "window"
+    hs = THorizonator(LAT, LON, 32, 16, surface="triangulated", **kw)
+    assert hs.sampler == "step" and hs._dem_packed_pairs() is hs._scene
+    for bad, match in ((dict(sampler="lod"), "not a scene sampler"),
+                       (dict(sampler="step", hillshade=True),
+                        "hillshade requires"),
+                       (dict(sampler="bogus"), "unknown sampler"),
+                       (dict(surface="smooth"), "unknown surface")):
+        with pytest.raises(ValueError, match=match):
+            THorizonator(LAT, LON, 32, 16, **bad, **kw)
 
 
 def test_horizon_guard_warns(dem_dir):
@@ -392,10 +470,8 @@ def test_cli_validation_matches_jax(tmp_path, capsys, argv):
 
 
 UNPORTED = [
-    (["--viewshed", "v.tif", "--viewshed-sampler", "step"], "ops/viewshed"),
     (["--horizon-out", "h.csv", "--dem-url", "http://example.invalid/%s"],
      "dem_url_fmt"),
-    (["--surface", "triangulated"], "step sampler"),
     (["--allow-dem-downloads"], "DEM downloader"),
     ([], "viewer.py"),
 ]
@@ -413,6 +489,72 @@ def test_cli_unported_flags_exit(dem_dir, tmp_path, capsys, extra, module):
     err = capsys.readouterr().err
     assert rc == 1 and module in err and "not ported" in err
     assert not (tmp_path / "x.png").exists()
+
+
+@pytest.mark.parametrize("sampler", ["step", "crossing"])
+def test_cli_viewshed_sampler_matches_jax(dem_dir, tmp_path, sampler):
+    """--viewshed --viewshed-sampler step|crossing through both CLIs, each
+    with its JAX budget (1.5 uniform steps a cell; k_cross_for): the TIFFs'
+    tags equal and the rasters within test_torch_viewshed's tolerance
+    (assert_raster_close, in the frame and params the CLIs compute: the
+    step sampler's gather raster, the crossing sampler's contract)."""
+    from horizonator_tpu_torch.dem import load_mosaic
+    from tests.test_torch_geotiff import parse_tiff
+    from tests.test_torch_viewshed import CELL_M, assert_raster_close, \
+        jparams
+    lat, lon, znear, zfar = 34.43, -117.47, 100.0, 9000.0
+    rasters = {}
+    for side, cli, extra in (("jax", jcli, []),
+                             ("torch", tcli, ["--device", "cpu"])):
+        out = tmp_path / f"{side}.tif"
+        assert cli.main([*extra, "--dirdems", dem_dir, "--zfar", str(zfar),
+                         "--viewshed", str(out), "--viewshed-sampler",
+                         sampler, str(lat), str(lon), "0", "180"]) == 0
+        tags, pix = parse_tiff(out)
+        rasters[side] = tags, np.frombuffer(pix, np.uint8).reshape(
+            tags[257][0], tags[256][0])[::-1]
+    (jt, jv), (tt, tv) = rasters["jax"], rasters["torch"]
+    assert tt == jt and tv.shape == jv.shape and tv.any() and not tv.all()
+    m = load_mosaic(lat, lon, render_radius_m=zfar, datadir=dem_dir)
+    n, (ci, cj) = m.grid.shape[0], m.viewer_cell(lat, lon)
+    cos_lat = math.cos(math.radians(lat))
+    hw = tv.shape[0] // 2
+    width = int(min(4096, max(256, -(-2.0 * math.pi * hw // 256) * 256)))
+    nsteps = (int(-(-1.5 * (zfar - znear) / CELL_M // 128) * 128)
+              if sampler == "step" else k_cross_for(zfar, CPD, lat, n=n))
+    p = jparams(ci, cj, m.auto_viewer_z(lat, lon), zfar=zfar,
+                az0=math.radians(-180.0), az1=math.radians(180.0),
+                znear=znear, cos_lat=cos_lat)
+    assert_raster_close(jv.astype(bool), tv.astype(bool),
+                        m.grid.astype(np.float32), p,
+                        dict(out_halfwidth=hw, width=width, nsteps=nsteps,
+                             sampler=sampler, lat_hint_deg=lat,
+                             full_circle=True), cos_lat)
+
+
+@pytest.mark.parametrize("extra", [["--surface", "triangulated"],
+                                   ["--surface", "triangulated",
+                                    "--horizon-out", "{out}.csv"]],
+                         ids=["image", "image and skyline"])
+def test_cli_surface_triangulated_matches_jax(dem_dir, tmp_path, extra):
+    """--surface triangulated renders through the uniform-step sampler in
+    both CLIs: image and ranges within _compare's tolerances, and the
+    skyline (the crossing march there, k_cross_for's budget) within one
+    printed unit (1e-4 deg) in azimuth and elevation."""
+    res = _run_both(tmp_path, "tri.png", [
+        "--width", "300", "--height", "100", "--image", "{out}", "--ranges",
+        "{out}.npy", "--dirdems", dem_dir, "--zfar", "25000", *extra,
+        "34.40", "-117.45", "0", "60"])
+    (rj, dj, _), (rt, dt, _) = res["jax"], res["torch"]
+    assert rj == rt == 0
+    _compare(_png_bgr(dj / "tri.png"), np.load(dj / "tri.png.npy"),
+             _png_bgr(dt / "tri.png"), np.load(dt / "tri.png.npy"))
+    if len(extra) > 2:
+        sj = np.loadtxt(dj / "tri.png.csv", delimiter=",", skiprows=1)
+        st = np.loadtxt(dt / "tri.png.csv", delimiter=",", skiprows=1)
+        assert sj.shape == st.shape
+        np.testing.assert_allclose(st[:, :2], sj[:, :2], atol=1.01e-4,
+                                   rtol=0)
 
 
 def test_cli_not_ported_render_exits(dem_dir, tmp_path, capsys):

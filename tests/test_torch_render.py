@@ -196,9 +196,9 @@ def test_api_guard_and_unported(dem_dir):
     hl = THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, nsteps=2048, **kw)
     _, rng = hl.render(-60, 60)
     assert hl._pyramid is not None and (rng > 0).any()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown sampler"):
         render_panorama(torch.zeros(8, 8), None, width=8, height=8,
-                        nsteps=64, cells_per_deg=CPD, sampler="step")
+                        nsteps=64, cells_per_deg=CPD, sampler="bogus")
 
 
 def test_port_never_imports_jax(dem_dir):

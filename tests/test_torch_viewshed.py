@@ -114,13 +114,13 @@ def _ties(dem, p, kw):
     hw, width = kw["out_halfwidth"], kw["width"]
     f = tview._frame(q, hw, kw.get("out_center_ij"), CPD, width)
     dem_t = torch.from_numpy(dem)
-    tanel, dists, az = tview._march(
-        dem_t, q, width=width, nsteps=kw["nsteps"], cells_per_deg=CPD,
+    surface = kw.get("surface", "bilinear")
+    tanel, d, half, az, _ = tview._march(
+        dem_t, q, sampler=kw.get("sampler", "window"), width=width,
+        nsteps=kw["nsteps"], cells_per_deg=CPD, surface=surface,
         lat_hint_deg=kw["lat_hint_deg"], znear_hint_m=100.0, plain=True)
-    t, _ = tview._cell_tangent(dem_t, q, f, hw,
-                               kw.get("surface", "bilinear"))
-    d = tview._distances(dists, tanel)
-    half = (0.5 * dists.scale)[:, :, None]
+    t, _ = tview._cell_tangent(dem_t, q, f, hw, surface)
+    half = half[:, :, None]
     r_a = f["nn"][:, None, :] / torch.cos(az)[:, :, None] - half
     r_b = f["ee"][:, None, :] / torch.sin(az)[:, :, None] - half
     region_a = f["nn"].abs()[:, :, None] >= f["ee"].abs()[:, None, :]
@@ -137,6 +137,39 @@ def _ties(dem, p, kw):
             | ((t - mid).abs() <= eps * t.abs()))[0].numpy()
 
 
+def _gather_ties(dem, p, kw):
+    """Gather cells of the oracle samplers whose polar sample's visibility
+    an ulp of sin or cos decides: in the port's own field its tangent lies
+    within 1e-5 (the tolerance of an oracle tangent against the JAX
+    package's, whose every sample moves with its column's sin and cos) of
+    the running horizon before it."""
+    q = tview._lift(tp(p))
+    hw, width = kw["out_halfwidth"], kw["width"]
+    sampler = kw.get("sampler", "window")
+    f = tview._frame(q, hw, kw.get("out_center_ij"), CPD, width)
+    tanel = tview._march(
+        torch.from_numpy(dem), q, sampler=sampler, width=width,
+        nsteps=kw["nsteps"], cells_per_deg=CPD,
+        surface=kw.get("surface", "bilinear"),
+        lat_hint_deg=kw.get("lat_hint_deg", 45.0), znear_hint_m=100.0,
+        plain=True)[0]
+    run = torch.cummax(tanel, dim=-1).values
+    prev = torch.cat([torch.full_like(run[..., :1], -3e38), run[..., :-1]],
+                     dim=-1)
+    tie = ((tanel - prev).abs() <= 1e-5).reshape(1, -1)
+    idx = tview._gather_index(
+        q, f, tanel.shape[-1], width=width, cells_per_deg=CPD,
+        step_nsteps=kw["nsteps"] if sampler == "step" else None)
+    return torch.gather(tie, 1, idx.reshape(1, -1)).view_as(idx)[0].numpy()
+
+
+def _auto_gather(kw) -> bool:
+    method = kw.get("method", "auto")
+    if method == "auto":
+        return kw.get("sampler", "step") == "step"
+    return method == "gather"
+
+
 def assert_raster_close(jv, tv, dem, p, kw, cos_lat=1.0):
     jv, tv = np.asarray(jv), np.asarray(tv)
     assert jv.shape == tv.shape
@@ -144,17 +177,19 @@ def assert_raster_close(jv, tv, dem, p, kw, cos_lat=1.0):
     assert bad.mean() <= SHARE, f"{bad.mean():.4%} of cells differ"
     hw, center = kw["out_halfwidth"], kw.get("out_center_ij")
     stray = bad & ~_edge(jv) & ~_ring(p, hw, center, cos_lat)
-    if kw.get("method", "auto") != "gather":
+    if not _auto_gather(kw):
         stray &= ~_ties(dem, p, kw)
+    elif kw.get("sampler", "step") != "window":
+        stray &= ~_gather_ties(dem, p, kw)
     assert not stray.any(), f"{int(stray.sum())} differing cells off any " \
                             f"boundary, e.g. {np.argwhere(stray)[:5]}"
 
 
-def check_grid(dem, p, cos_lat=1.0, **kw):
+def check_grid(dem, p, cos_lat=1.0, sampler="window", **kw):
     """The JAX and the port's rasters with_dropped: guards equal, the
     port's fast resampler bitwise its direct masked max, the rasters close.
     Returns the port's (raster, guard)."""
-    kw = dict(kw, sampler="window", with_dropped=True, cells_per_deg=CPD)
+    kw = dict(kw, sampler=sampler, with_dropped=True, cells_per_deg=CPD)
     jv, jg = jops.viewshed_grid(jnp.asarray(dem), p, **kw)
     dem_t = torch.from_numpy(dem)
     tv, tg = tops.viewshed_grid(dem_t, tp(p), **kw)
@@ -541,22 +576,18 @@ def test_viewshed_count_single_and_flat():
 
 
 def test_unported_options_raise():
-    """The oracle samplers (the JAX defaults of viewshed_polar,
-    viewshed_grid and viewshed_sweep), mesh= and an aligned scene raise
-    rather than silently change what is computed."""
+    """mesh= and an aligned scene raise rather than silently change what
+    is computed; an unknown sampler raises as in the JAX package (the
+    oracle samplers run: test_oracle_* below)."""
     dem = torch.zeros((160, 160))
     p = tp(jparams(80.0, 80.0, 2.0, zfar=4000.0))
     kw = dict(width=32, nsteps=64, cells_per_deg=CPD)
     pts = np.array([[80.0, 80.0]])
     for call in (
-            lambda: tops.viewshed_polar(dem, p, **kw),
-            lambda: tops.viewshed_grid(dem, p, out_halfwidth=8, **kw),
-            lambda: tops.horizon_sweep(dem, stack_params([p]), **kw),
-            lambda: tops.viewshed_sweep(dem, pts, device="cpu", **kw),
-            lambda: tops.viewshed_grid(dem, p, out_halfwidth=8,
-                                       sampler="crossing", **kw),
             lambda: tops.viewshed_polar(dem, p, sampler="window",
                                         aligned_scene=object(), **kw),
+            lambda: tops.viewshed_grid(dem, p, out_halfwidth=8,
+                                       aligned_scene=object(), **kw),
             lambda: tops.viewshed_sweep(dem, pts, sampler="window",
                                         mesh=object(), device="cpu", **kw),
             lambda: tops.viewshed_count(dem, pts, out_center_ij=(80, 80),
@@ -564,5 +595,182 @@ def test_unported_options_raise():
                                         device="cpu", **kw)):
         with pytest.raises(NotImplementedError):
             call()
+    with pytest.raises(ValueError, match="unknown sampler"):
+        tops.viewshed_polar(dem, p, sampler="lod", **kw)
     with pytest.raises(ValueError, match="out_halfwidth"):
         tops.viewshed_grid(dem, p, sampler="window", **kw)
+
+
+# ---- the oracle samplers (the JAX defaults) -------------------------------
+# Their marches run on the port's own geometry and sin/cos, so the
+# tolerances above hold unchanged: the polar fields' tangents within 1e-5
+# (tests/test_torch_step.py and test_torch_crossing_march.py hold the
+# marches themselves), rasters within SHARE and only on boundaries, rings
+# and ties, guards equal (0: the oracles mask nothing).
+
+ORACLES = ["step", "crossing"]
+
+
+@pytest.mark.parametrize("sampler", ORACLES)
+def test_oracle_polar_matches_jax(sampler):
+    """viewshed_polar through each oracle on the smooth terrain, the step
+    sampler as the JAX default (no sampler= given): the same valid
+    samples, tangents within 1e-5, d of the JAX shape ((K,) for the
+    uniform steps) within 1e-6 relative, visibility within SHARE, guard
+    0; a batch bitwise its single fields."""
+    dem = smooth_dem(200)
+    cos_lat = math.cos(math.radians(LAT))
+    p = jparams(100.3, 99.6, 1300.0, zfar=7000.0, cos_lat=cos_lat)
+    kw = dict(width=96, nsteps=320 if sampler == "step" else 192,
+              cells_per_deg=CPD, with_dropped=True)
+    if sampler != "step":
+        kw["sampler"] = sampler
+    jvis, jtan, jd, jaz, jdrop = jops.viewshed_polar(jnp.asarray(dem), p,
+                                                     **kw)
+    dem_t = torch.from_numpy(dem)
+    vis, tan, d, az, drop = tops.viewshed_polar(dem_t, tp(p), **kw)
+    jtan = np.asarray(jtan)
+    valid = jtan > -1e30
+    np.testing.assert_array_equal(tan.numpy() > -1e30, valid)
+    np.testing.assert_allclose(tan.numpy()[valid], jtan[valid], atol=1e-5,
+                               rtol=0)
+    assert d.shape == np.asarray(jd).shape
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-6)
+    assert (vis.numpy() != np.asarray(jvis)).mean() <= SHARE
+    assert int(drop) == int(jdrop) == 0
+    p2 = stack_params([tp(p), tp(jparams(60.2, 140.7, 1200.0, zfar=7000.0,
+                                         cos_lat=cos_lat))])
+    bvis, btan, bd, _, bdrop = tops.viewshed_polar(dem_t, p2, **kw)
+    assert torch.equal(bvis[0], vis) and torch.equal(btan[0], tan)
+    assert torch.equal(bd[0], d) and bdrop.tolist() == [0, 0]
+
+
+# (sampler, method, viewer, window, frame centre, full circle)
+ORACLE_RASTERS = [
+    (s, m, v, w, c, fc) for s in ORACLES for m in ("gather", "contract")
+    for v, w, c, fc in (((150.25, 150.5), None, None, True),
+                        ((141.3, 152.6), (100, 300), (150.0, 150.0),
+                         False))]
+
+
+@pytest.mark.parametrize(
+    "sampler,method,viewer,window,center,full", ORACLE_RASTERS,
+    ids=[f"{r[0]}-{r[1]}-{'full' if r[5] else 'frame'}"
+         for r in ORACLE_RASTERS])
+def test_oracle_grid_matches_jax(sampler, method, viewer, window, center,
+                                 full):
+    """viewshed_grid through each oracle with both resamplers, centred on
+    a full circle and in a fixed frame on a partial window: rasters within
+    SHARE and on boundaries, guards equal, the sorted resampler bitwise
+    the direct masked max."""
+    cos_lat = math.cos(math.radians(LAT))
+    az = {} if window is None else dict(az0=math.radians(window[0]),
+                                        az1=math.radians(window[1]))
+    p = jparams(*viewer, 1400.0, zfar=8000.0, cos_lat=cos_lat, **az)
+    tv, tg = check_grid(smooth_dem(300), p, cos_lat, sampler=sampler,
+                        width=256, nsteps=400 if sampler == "step" else 256,
+                        out_halfwidth=80, lat_hint_deg=LAT,
+                        out_center_ij=center, method=method,
+                        full_circle=full)
+    assert tg == 0 and tv.any() and not tv.all()
+
+
+def test_oracle_grid_auto_and_scenes():
+    """method="auto" is gather for the step sampler (the JAX default,
+    sampler= not given) and contract for the crossing sampler on a float
+    grid; a CrossingScene and a pack_dem_pairs plane resample with gather
+    and equal the float grid's gather rasters bitwise; the contract refuses
+    them."""
+    from horizonator_tpu_torch.render.crossing import pack_scene
+    from horizonator_tpu_torch.render.raymarch import pack_dem_pairs
+    cos_lat = math.cos(math.radians(LAT))
+    dem = smooth_dem(300)
+    dem_t = torch.from_numpy(dem)
+    p = jparams(150.25, 150.5, 1400.0, zfar=8000.0, cos_lat=cos_lat)
+    kw = dict(width=256, nsteps=256, cells_per_deg=CPD, out_halfwidth=80)
+    step = tops.viewshed_grid(dem_t, tp(p), **kw)
+    assert torch.equal(step, tops.viewshed_grid(dem_t, tp(p), method="gather",
+                                                sampler="step", **kw))
+    assert_raster_close(jops.viewshed_grid(jnp.asarray(dem), p, **kw), step,
+                        dem, p, dict(kw, sampler="step"), cos_lat)
+    cross = tops.viewshed_grid(dem_t, tp(p), sampler="crossing", **kw)
+    assert torch.equal(cross, tops.viewshed_grid(
+        dem_t, tp(p), sampler="crossing", method="contract", **kw))
+    for scene, sampler in ((pack_scene(dem_t), "crossing"),
+                           (pack_dem_pairs(dem_t), "step")):
+        assert torch.equal(
+            tops.viewshed_grid(scene, tp(p), sampler=sampler, **kw),
+            tops.viewshed_grid(dem_t, tp(p), sampler=sampler,
+                               method="gather", **kw))
+        with pytest.raises(TypeError, match="raw 2D elevation grid"):
+            tops.viewshed_grid(scene, tp(p), sampler=sampler,
+                               method="contract", **kw)
+
+
+@pytest.mark.parametrize("sampler", ORACLES)
+def test_oracle_sweeps_match_jax(sampler, monkeypatch):
+    """viewshed_sweep (crossing: the JAX default) and horizon_sweep through
+    each oracle on the sine ridges: horizons within 1e-5 of the JAX
+    package's with the same valid columns, the batch bitwise its single
+    sweeps and its chunks of one (BATCH_BYTES down)."""
+    n = 256
+    jj, ii = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    dem = (100 + 50 * np.sin(ii / 11.0) + 30 * np.cos(jj / 7.0)).astype(
+        np.float32)
+    pts = np.stack(np.meshgrid(np.linspace(60, 190, 3),
+                               np.linspace(60, 190, 3)), -1).reshape(-1, 2)
+    kw = dict(width=64, zfar=5000.0, batch=4, lat_deg=LAT,
+              cells_per_deg=CPD)
+    if sampler == "step":
+        kw.update(sampler="step", nsteps=256)
+    jh = np.asarray(jops.viewshed_sweep(dem, pts, **kw))
+    th = tops.viewshed_sweep(dem, pts, device="cpu", **kw)
+    valid = jh > -1e30
+    np.testing.assert_array_equal(th.numpy() > -1e30, valid)
+    np.testing.assert_allclose(th.numpy()[valid], jh[valid], atol=1e-5,
+                               rtol=0)
+    assert np.std(jh.max(axis=1)) > 0
+    dem_t = torch.from_numpy(dem)
+    cos_lat = math.cos(math.radians(LAT))
+    views = [(80.0, 90.0, 180.0, cos_lat), (150.3, 120.7, 160.0, cos_lat),
+             (40.2, 200.9, 200.0, cos_lat)]
+    p = tp(_sweep_params(views))
+    hkw = dict(width=64, nsteps=256 if sampler == "step" else 192,
+               cells_per_deg=CPD, sampler=sampler)
+    whole = tops.horizon_sweep(dem_t, p, **hkw)
+    for v in range(3):
+        one = tops.horizon_sweep(dem_t, type(p)(*(x[v:v + 1] for x in p)),
+                                 **hkw)
+        assert torch.equal(one[0], whole[v])
+    monkeypatch.setattr(sharding, "BATCH_BYTES", 1)
+    assert torch.equal(tops.horizon_sweep(dem_t, p, **hkw), whole)
+
+
+@pytest.mark.parametrize("sampler", ORACLES)
+def test_oracle_count_matches_jax(sampler):
+    """viewshed_count through each oracle (the gather resampler on the
+    packed scenes, as in the JAX package) on the wall scene: counts within
+    SHARE of the JAX package's, and bitwise the sum of the port's own
+    single rasters on the same scene."""
+    dem = wall_dem(512, 280, 283, 300.0)
+    pts = np.array([[246.0, 246.0], [266.0, 266.0], [256.0, 240.0]])
+    kw = dict(out_center_ij=(256.0, 256.0), out_halfwidth=32,
+              viewer_height_m=2.0, width=256, nsteps=256, cells_per_deg=CPD,
+              znear=50.0, zfar=6000.0, batch=2, sampler=sampler)
+    jc = np.asarray(jops.viewshed_count(jnp.asarray(dem), pts, **kw))
+    tc = tops.viewshed_count(dem, pts, device="cpu", **kw)
+    assert tc.dtype == torch.int32 and tc.shape == (64, 64)
+    assert (tc.numpy() != jc).mean() <= SHARE and tc.max() >= 2
+    scene, pts_t, vz, nsteps, lat_hint, cos_lat = tview._sweep_prep(
+        dem, pts, 2.0, nsteps=256, cells_per_deg=CPD, zfar=6000.0,
+        cos_viewer_lat=None, lat_deg=None, device="cpu", sampler=sampler)
+    total = torch.zeros_like(tc)
+    for v in range(len(pts)):
+        p = tview._observer_params(pts_t[v:v + 1], vz[v:v + 1], cos_lat,
+                                   50.0, 6000.0)
+        total += tops.viewshed_grid(
+            scene, type(p)(*(x[0] for x in p)), width=256, nsteps=nsteps,
+            cells_per_deg=CPD, sampler=sampler, lat_hint_deg=lat_hint,
+            out_halfwidth=32, out_center_ij=(256.0, 256.0),
+            full_circle=True).to(torch.int32)
+    assert torch.equal(tc, total)
