@@ -14,6 +14,7 @@ then drive the main render path and the API on the card.
         # the bench DEM at phase 26's suns (median of 5 each), the same
         # way round
     python3 chip_smoke.py --oracle        # only: build, then phases 29-31
+    python3 chip_smoke.py --front         # only: build, then phase 32
 
 Phases, in order; any failure raises and exits nonzero:
  1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the card;
@@ -207,9 +208,25 @@ Phases, in order; any failure raises and exits nonzero:
     1's number), the step render's and the mesh's; the window march alone
     bitwise, timed, against its bound; render_mesh of the tests' 192^2
     scene on the card against the CPU (test_torch_mesh's tolerances).
-Phases 26-31 add no kernel (their ops are the JAX package's XLA ops, in
-plain PyTorch); phase 27 runs the two textured kernels, phases 29-30 the
-resolve, phase 31 the march and the resolve.
+32. the host front ends over phase 6's tiles: the native DEM loader built
+    with g++ (no fallback) and load_mosaic of those tiles and of phase 17's
+    SRTM1 tile at 40 km bitwise through the native and the numpy path
+    (median ms of 5 each); the API with allow_dem_downloads from a
+    loopback server of those tiles (raw, gzip, zip, a multi-member zip)
+    into an empty dir: files byte for byte, the 4096x1024 render bitwise
+    phase 6's, no fetch on a second construction; the viewer's
+    ViewerState at 1200x400 served on 127.0.0.1 (routes, the offline map
+    tile, frames decoded with zlib bitwise the API's renders after each
+    move: pan, both zoom clamps, 4096x1024 and back, the w overlay, the e
+    fills through the textured kernels, a re-centre; pick on terrain and
+    sky), the median ms of a move over 20 pans split into render, PNG
+    encode and the rest; `python -m horizonator_tpu_torch.viewer` in a
+    subprocess, the CLI's interactive mode (viewer.serve stood in), and
+    the CLI's --image .png decoded bitwise the API's image.
+Phases 26-32 add no kernel (their ops are the JAX package's XLA ops, in
+plain PyTorch, or host code); phase 27 runs the two textured kernels,
+phases 29-30 the resolve, phase 31 the march and the resolve, phase 32
+all four render entries.
 Each phase group prints its seconds ("[t]" lines).
 A kernel's "device ms" (the ``ms`` of its record) is the replay time of a
 CUDA graph of back-to-back launches over their count, so no Python runs in
@@ -3614,6 +3631,470 @@ def oracle_phases(dev, card, int32_rate):
             "window_march": [mesh_phase(dev, card, int32_rate)]}
 
 
+def decode_png(data):
+    """The pixels of an 8-bit RGB PNG, decoded with zlib alone (no PIL on
+    the card's machine): every row must carry filter 0, as the port's
+    writer puts it."""
+    import struct
+    import zlib
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"not a PNG: {data[:8]!r}")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] \
+                != zlib.crc32(kind + body):
+            fail(f"PNG chunk {kind!r}: bad CRC")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = hdr
+    if (depth, ctype, interlace) != (8, 2, 0):
+        fail(f"PNG is not 8-bit RGB: {hdr}")
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        fail(f"PNG rows with filters {sorted(set(rows[:, 0].tolist()))}")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+class LoopbackFiles:
+    """An HTTP server on 127.0.0.1 of ``payloads`` (path -> bytes) in a
+    thread, counting its hits; 404 elsewhere."""
+
+    def __init__(self, payloads):
+        import threading
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+        self.hits = []
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                outer.hits.append(self.path)
+                body = payloads.get(self.path)
+                self.send_response(200 if body is not None else 404)
+                self.send_header("Content-Length", str(len(body or b"")))
+                self.end_headers()
+                self.wfile.write(body or b"")
+
+        self.srv = HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=10)
+
+
+def http(url, path, body=None):
+    """GET (or POST ``body`` as JSON) to a loopback server: (bytes, type)."""
+    import urllib.request
+    req = urllib.request.Request(
+        url + path, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read(), r.headers.get("Content-Type")
+
+
+def native_loads(card, tiles):
+    """Phase 32, part 1: load_mosaic through the native loader (g++ on this
+    machine, no fallback accepted) and through numpy, bitwise; ms of each."""
+    from horizonator_tpu_torch import _native
+    from horizonator_tpu_torch.dem import load_mosaic
+    if _native.get_lib() is None:
+        fail("the native DEM loader did not build (g++)")
+    t0 = time.perf_counter()
+    if not _native._build():                  # once more, to time g++
+        fail("the native DEM loader did not rebuild (g++)")
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as s1:
+        write_srtm1_tile(s1)
+        cases = [("3x3 SRTM3 tiles, radius 1000 cells", 34.4, -117.6,
+                  dict(render_radius_cells=1000, datadir=tiles)),
+                 ("SRTM1 tile at 40 km", 34.5, -117.5,
+                  dict(render_radius_m=40000.0, datadir=s1, srtm1=True,
+                       warn_missing=False))]
+        for name, lat, lon, kw in cases:
+            grids, ms = {}, {}
+            for path in ("native", "numpy"):
+                if path == "numpy":
+                    os.environ["HORIZONATOR_TPU_NO_NATIVE"] = "1"
+                _native._tried, _native._lib = False, None
+                try:
+                    if (_native.get_lib() is None) != (path == "numpy"):
+                        fail(f"the {path} path did not take effect")
+                    times = []
+                    for _ in range(5):
+                        t1 = time.perf_counter()
+                        grids[path] = load_mosaic(lat, lon, **kw).grid
+                        times.append(1e3 * (time.perf_counter() - t1))
+                    ms[path] = statistics.median(times)
+                finally:
+                    os.environ.pop("HORIZONATOR_TPU_NO_NATIVE", None)
+                    _native._tried, _native._lib = False, None
+            if not np.array_equal(grids["native"], grids["numpy"]):
+                fail(f"native load != numpy load ({name})")
+            log(f"[32] load_mosaic {name} {grids['native'].shape}: native "
+                f"{ms['native']:.3f} ms, numpy {ms['numpy']:.3f} ms (median "
+                f"of 5), {ms['numpy'] / ms['native']:.2f}x, grids bitwise "
+                f"equal; {card}")
+    log(f"[32] native loader: g++ builds it in {build_s:.2f} s; {card}")
+
+
+def dem_download(dev, card, tiles, img6, rng6):
+    """Phase 32, part 2: the API with allow_dem_downloads over a loopback
+    server of phase 6's tiles (raw, gzip, zip, a multi-member zip) into an
+    empty dir: files byte for byte, the render bitwise phase 6's, and a
+    second construction fetches nothing."""
+    import gzip
+    import io
+    import zipfile
+    from horizonator_tpu_torch import horizonator
+    from horizonator_tpu_torch.kernels.resolve import resolve
+    from horizonator_tpu_torch.kernels.window_march import march
+
+    def zipped(members):
+        b = io.BytesIO()
+        with zipfile.ZipFile(b, "w") as z:
+            for k, v in members.items():
+                z.writestr(k, v)
+        return b.getvalue()
+
+    names = sorted(f for f in os.listdir(tiles) if f.endswith(".hgt"))
+    raw = {f: open(os.path.join(tiles, f), "rb").read() for f in names}
+    payloads, kinds = {}, {}
+    for i, f in enumerate(names):
+        kind = ("raw", "gzip", "zip", "multi-member zip")[i % 4]
+        kinds[kind] = kinds.get(kind, 0) + 1
+        payloads[f"/dem/{f[:3]}/{f}"] = (
+            raw[f] if kind == "raw" else gzip.compress(raw[f])
+            if kind == "gzip" else zipped({f: raw[f]}) if kind == "zip"
+            else zipped({f"r/{g}": raw[g] for g in names}))
+    srv = LoopbackFiles(payloads)
+    try:
+        with tempfile.TemporaryDirectory() as empty:
+            fmt = srv.url + "/dem/{ns}/{name}"
+            t0 = time.perf_counter()
+            h = horizonator(34.4, -117.6, W, H, dir_dems=empty, device=dev,
+                            allow_dem_downloads=True, dem_url_fmt=fmt)
+            build_s = time.perf_counter() - t0
+            n_hits = len(srv.hits)
+            if sorted(srv.hits) != sorted(payloads):
+                fail(f"downloader fetched {sorted(srv.hits)}")
+            for f in names:
+                with open(os.path.join(empty, f), "rb") as fh:
+                    if fh.read() != raw[f]:
+                        fail(f"downloaded {f} differs from its source")
+            march.launches = resolve.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, rng = h.render(-180, 180)
+            render_ms = 1e3 * (time.perf_counter() - t0)
+            if min(march.launches, resolve.launches) < 1:
+                fail(f"downloaded-DEM render launches: march "
+                     f"{march.launches}, resolve {resolve.launches}")
+            if not (np.array_equal(img, img6) and np.array_equal(rng, rng6)):
+                fail("render of downloaded tiles != phase 6's render")
+            horizonator(34.4, -117.6, 64, 32, dir_dems=empty, device=dev,
+                        allow_dem_downloads=True, dem_url_fmt=fmt)
+            if len(srv.hits) != n_hits:
+                fail("second construction fetched again")
+    finally:
+        srv.close()
+    log(f"[32] DEM download: {len(names)} tiles ({kinds}) from 127.0.0.1 "
+        f"into an empty dir, byte for byte; constructor {build_s:.3f} s with "
+        f"the fetches; render {W}x{H} {render_ms:.3f} ms, bitwise phase 6's; "
+        f"a second construction fetched nothing; {card}")
+
+
+def viewer_in_process(dev, card, tiles):
+    """Phase 32, part 3: ViewerState over phase 6's scene at the viewer's
+    default 1200x400, served on 127.0.0.1: routes, frames bitwise the
+    API's renders, the moves and their kernel launches, pick; ms a move."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    from horizonator_tpu_torch import horizonator, tiles as tiles_mod, viewer
+    from horizonator_tpu_torch._png import encode_png
+    from horizonator_tpu_torch.kernels.resolve import (resolve,
+                                                       resolve_textured)
+    from horizonator_tpu_torch.kernels.window_march import (march,
+                                                            march_textured)
+    kernels = {"window_march": march, "window_march_tex": march_textured,
+               "resolve": resolve, "resolve_tex": resolve_textured}
+
+    def reset():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    h = horizonator(34.4, -117.6, 1200, 400, dir_dems=tiles, device=dev)
+    map_tiles = tempfile.TemporaryDirectory()
+    state = viewer.ViewerState(h, 0.0, 45.0, 100.0, 40000.0,
+                               dir_tiles=map_tiles.name,
+                               tiles_url_fmt="http://127.0.0.1:9/%d/%d/%d.png")
+    state.render({})
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), viewer.make_handler(state))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def frame_is_api_render(tag):
+        """/pano.png decoded == the API's render of the state's view."""
+        got = decode_png(http(url, "/pano.png")[0])
+        want = h.render(state.az_center - state.az_radius,
+                        state.az_center + state.az_radius,
+                        return_range=False, znear=state.znear,
+                        zfar=state.zfar, debug_fill=state.fill)
+        if state.debug:
+            want = state._overlay_horizon(want)
+        if not np.array_equal(got, want[:, :, ::-1]):
+            fail(f"viewer frame ({tag}) != the API's render, "
+                 f"{int((got != want[:, :, ::-1]).any(-1).sum())} px")
+
+    def move(tag, body, want_kernels):
+        reset()
+        s = json.loads(http(url, "/api/render", body)[0])
+        c = counts()
+        if any(c[k] < 1 for k in want_kernels):
+            fail(f"viewer move {tag} launched {c}")
+        frame_is_api_render(tag)
+        log(f"[32] move {tag}: launches {c}, frame bitwise the API's; "
+            f"{card}")
+        return s
+
+    try:
+        page = http(url, "/")[0]
+        if b'src="http' in page or b'href="http' in page \
+                or b'src="/map.js"' not in page:
+            fail("viewer page references a resource off this origin")
+        js, ctype = http(url, "/map.js")
+        if "javascript" not in ctype or b"tileLayer" not in js:
+            fail(f"/map.js not served ({ctype})")
+        s = json.loads(http(url, "/api/state")[0])
+        if (s["width"], s["height"], s["az_radius"]) != (1200, 400, 45.0):
+            fail(f"bad /api/state {s}")
+        gray = decode_png(http(url, "/tiles/12/701/1635.png")[0])
+        if gray.shape != (256, 256, 3) or (gray != 200).any():
+            fail("offline map tile is not the gray placeholder")
+        p = tiles_mod.tile_path(state.tiles_dir, state.tiles_name, 12, 7, 9)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(encode_png(np.full((256, 256, 3), 55, np.uint8)))
+        if http(url, "/tiles/12/7/9.png")[0] != p.read_bytes():
+            fail("seeded cache tile not served as it is")
+        log(f"[32] viewer routes: / same-origin only, /map.js "
+            f"{len(js)} B, /api/state, /tiles/ gray offline and the cache "
+            f"tile as it is")
+        frame_is_api_render("first")
+        plain = ("window_march", "resolve")
+        tex = ("window_march_tex", "resolve_tex")
+        move("pan", {"az_center": 30.0}, plain)
+        if move("zoom out", {"az_radius": 500.0}, plain)["az_radius"] != 179:
+            fail("az_radius not clamped at 179")
+        if move("zoom in", {"az_radius": 0.01}, plain)["az_radius"] != 1:
+            fail("az_radius not clamped at 1")
+        move("zoom back", {"az_radius": 45.0}, plain)
+        s = move("resize", {"width": 4096, "height": 1024}, plain)
+        if (s["width"], s["height"]) != (4096, 1024):
+            fail(f"resize gave {s['width']}x{s['height']}")
+        move("resize back", {"width": 1200, "height": 400}, plain)
+        move("w overlay", {"debug": True}, plain)
+        move("w off", {"debug": False}, plain)
+        move("e wireframe", {"fill": "wireframe"}, tex)
+        move("e point", {"fill": "point"}, tex)
+        move("e off", {"fill": ""}, plain)
+        s = move("re-centre", {"lat": 34.45, "lon": -117.55}, plain)
+        if (s["lat"], s["lon"]) != (34.45, -117.55):
+            fail(f"re-centre gave {s['lat']}, {s['lon']}")
+        ranges = h._last_ranges()
+        ys, xs = np.nonzero(ranges > 2000.0)
+        y, x = int(ys[len(ys) // 2]), int(xs[len(xs) // 2])
+        hit = json.loads(http(url, "/api/pick", {"x": (x + 0.5) / 1200,
+                                                 "y": (y + 0.5) / 400})[0])
+        want = h.pick(x, y)
+        if not hit["hit"] or (hit["lat"], hit["lon"]) != want:
+            fail(f"pick terrain {hit} != h.pick {want}")
+        sky = json.loads(http(url, "/api/pick", {"x": 0.5, "y": 0.0})[0])
+        if sky["hit"] or ranges[0, 600] > 0:
+            fail(f"pick sky {sky}")
+        log(f"[32] pick ({x}, {y}) at {ranges[y, x]:.1f} m -> {want}, == "
+            f"h.pick; the top row is sky, no hit; {card}")
+
+        # ms a move over 20 pans: POST -> frame, split into the render
+        # (the API call, host copy included), the PNG encode and the rest
+        # (HTTP, JSON, the handler thread)
+        spent = {"render": 0.0, "encode": 0.0}
+
+        def timed(key, fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                spent[key] += 1e3 * (time.perf_counter() - t)
+                return out
+            return run
+
+        h.render = timed("render", h.render)
+        viewer.encode_png = timed("encode", encode_png)
+        rows = []
+        try:
+            for i in range(20):
+                spent["render"] = spent["encode"] = 0.0
+                reset()
+                t = time.perf_counter()
+                http(url, "/api/render", {"az_center": 30.0 + 7.0 * (i + 1)})
+                png = http(url, "/pano.png")[0]
+                total = 1e3 * (time.perf_counter() - t)
+                rows.append((total, spent["render"], spent["encode"],
+                             sum(counts().values()), len(png)))
+        finally:
+            del h.render
+            viewer.encode_png = encode_png
+        tot, ren, enc, nk, nb = (statistics.median(c) for c in zip(*rows))
+        log(f"[32] viewer move 1200x400 (median of 20 pans, POST to PNG): "
+            f"{tot:.3f} ms = render {ren:.3f} + PNG encode {enc:.3f} + HTTP "
+            f"and the rest {tot - ren - enc:.3f}; kernel launches a move "
+            f"{nk:g}; PNG {nb / 1e3:.1f} kB; {card}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=10)
+        map_tiles.cleanup()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def viewer_entry_points(dev, card, tiles):
+    """Phase 32, part 4: the viewer's own main in a subprocess on a free
+    port, the CLI's interactive mode in-process (viewer.serve stood in),
+    and the CLI's --image .png through the port's PNG writer."""
+    import urllib.error
+    from horizonator_tpu_torch import cli, horizonator, viewer
+    from horizonator_tpu_torch.kernels.resolve import resolve
+    from horizonator_tpu_torch.kernels.window_march import march
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    err = tempfile.TemporaryFile()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horizonator_tpu_torch.viewer", "34.4",
+         "-117.6", "0", "45", "--dirdems", tiles, "--port", str(port)],
+        stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        while True:
+            if proc.poll() is not None:
+                err.seek(0)
+                fail(f"viewer exited {proc.returncode}: "
+                     f"{err.read().decode()[-2000:]}")
+            if time.perf_counter() - t0 > 120:
+                fail("viewer did not answer /api/state within 120 s")
+            try:
+                s = json.loads(http(url, "/api/state")[0])
+                break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.25)
+        up_s = time.perf_counter() - t0
+        s = json.loads(http(url, "/api/render", {"az_center": 90.0})[0])
+        frame = decode_png(http(url, "/pano.png")[0])
+        if s["az_center"] != 90.0 or frame.shape != (400, 1200, 3):
+            fail(f"viewer subprocess: state {s}, frame {frame.shape}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        err.close()
+    log(f"[32] python -m horizonator_tpu_torch.viewer: /api/state after "
+        f"{up_s:.1f} s, one move, a {frame.shape[1]}x{frame.shape[0]} frame; "
+        f"terminated; {card}")
+
+    seen = []
+
+    def stand_in(state, port=8080, **kw):
+        march.launches = resolve.launches = 0
+        seen.append((state, port, state.render({"az_center": 20.0}),
+                     march.launches, resolve.launches))
+
+    real_serve = viewer.serve
+    viewer.serve = stand_in
+    try:
+        rc = cli.main(["--dirdems", tiles, "34.4", "-117.6", "0", "45"])
+    finally:
+        viewer.serve = real_serve
+    if rc != 0 or len(seen) != 1:
+        fail(f"CLI interactive mode rc {rc}, served {len(seen)}")
+    state, port, s, n_march, n_resolve = seen[0]
+    if state.h.device.type != "cuda" or min(n_march, n_resolve) < 1 \
+            or port != 8080 or s["az_center"] != 20.0:
+        fail(f"CLI interactive mode: device {state.h.device}, port {port}, "
+             f"launches {n_march} / {n_resolve}")
+    log(f"[32] CLI interactive mode: viewer on {state.h.device}, port "
+        f"{port}, one move launched march {n_march} / resolve {n_resolve}; "
+        f"{card}")
+
+    with tempfile.TemporaryDirectory() as td:
+        png = os.path.join(td, "pano.png")
+        t0 = time.perf_counter()
+        rc = cli.main(["--width", str(W), "--height", str(H), "--image", png,
+                       "--dirdems", tiles, "34.4", "-117.6", "0", "180"])
+        cli_s = time.perf_counter() - t0
+        with open(png, "rb") as f:
+            data = f.read()
+    img = horizonator(34.4, -117.6, W, H, dir_dems=tiles,
+                      render_radius_m=40000.0).render(-180, 180)[0]
+    if rc != 0 or not np.array_equal(decode_png(data), img[:, :, ::-1]):
+        fail("CLI --image .png != the API's image")
+    log(f"[32] CLI {W}x{H} -> .png ({len(data) / 1e6:.2f} MB) in "
+        f"{cli_s:.2f} s, decoded bitwise the API's image; {card}")
+
+
+def front_phase(dev, card, tiles, img6=None, rng6=None):
+    """Phase 32: the host front ends on the card, over phase 6's tiles
+    (``img6``, ``rng6``: phase 6's render of them, made here when None)."""
+    from horizonator_tpu_torch import horizonator
+    t0 = time.perf_counter()
+    if img6 is None:
+        img6, rng6 = horizonator(34.4, -117.6, W, H, dir_dems=tiles,
+                                 device=dev).render(-180, 180)
+    native_loads(card, tiles)
+    dem_download(dev, card, tiles, img6, rng6)
+    viewer_in_process(dev, card, tiles)
+    viewer_entry_points(dev, card, tiles)
+    log(f"[t] phase 32: {time.perf_counter() - t0:.1f} s")
+
+
+def front_only():
+    """--front: build the kernels, then phase 32 alone."""
+    from horizonator_tpu_torch.kernels import build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    build.build()
+    build.library()
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tiles:
+        write_tiles(tiles, 34, -118)
+        front_phase(torch.device("cuda"), card, tiles)
+    print(card)
+    return 0
+
+
 def oracle_only():
     """--oracle: build the kernels, then phases 29-31 alone."""
     from horizonator_tpu_torch.kernels import build
@@ -3932,6 +4413,9 @@ def main(profile_dir=None):
         api_shadow_phase(dev, card, tiles)
         los_phase(dev, card, tiles)
     oracle_records = oracle_phases(dev, card, int32_rate)
+    with tempfile.TemporaryDirectory() as tiles:      # phase 6's tiles again
+        write_tiles(tiles, 34, -118)
+        front_phase(dev, card, tiles, img6, rng6)
 
     kernels = [
         kernel_entry("window_march",
@@ -4040,5 +4524,7 @@ if __name__ == "__main__":
         sys.exit(time_shadows(args[i + 1], args[i + 2]))
     if "--oracle" in args:
         sys.exit(oracle_only())
+    if "--front" in args:
+        sys.exit(front_only())
     sys.exit(main(profile_dir=args[args.index("--profile") + 1]
                   if "--profile" in args else None))

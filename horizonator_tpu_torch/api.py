@@ -17,7 +17,9 @@ that long clip ranges swap to), or the JAX package's oracles "crossing"
 (grid crossings) and "step" (uniform steps, the one that samples the
 reference's ``surface="triangulated"`` mesh); "auto" is "window" on the
 bilinear surface and "step" on the triangulated one. Every sampler ends in
-the resolve kernel. Region sharding and multi-device batches raise
+the resolve kernel. ``allow_dem_downloads`` fetches missing .hgt tiles
+from ``dem_url_fmt`` (SRTM1 defaults to DEM_URL_FMT_SRTM1) into
+``dir_dems``. Region sharding and multi-device batches raise
 NotImplementedError.
 """
 
@@ -78,8 +80,6 @@ class horizonator:
             raise ValueError(f"unknown texture_quality {texture_quality!r}")
         if region_mesh is not None:
             raise NotImplementedError("region_mesh is not ported")
-        if allow_dem_downloads:
-            raise NotImplementedError("DEM downloads are not ported")
         if surface not in ("bilinear", "triangulated"):
             raise ValueError(f"unknown surface mode {surface!r}")
         if sampler == "auto":
@@ -109,11 +109,20 @@ class horizonator:
         self.oversample = float(oversample)
         self._nsteps_fixed = nsteps
         self.device = torch.device(device)
+        if allow_dem_downloads and dem_url_fmt is None:
+            if not SRTM1:
+                raise ValueError(
+                    "allow_dem_downloads needs dem_url_fmt for SRTM3 (no "
+                    "canonical free mirror of raw 1201^2 .hgt exists); "
+                    "SRTM1 defaults to the AWS terrain-tiles skadi bucket")
+            from .dem.mosaic import DEM_URL_FMT_SRTM1
+            dem_url_fmt = DEM_URL_FMT_SRTM1
         self.mosaic = load_mosaic(
             lat, lon,
             render_radius_cells=render_radius_cells,
             render_radius_m=render_radius_m,
-            datadir=dir_dems, srtm1=SRTM1, dem_url_fmt=dem_url_fmt)
+            datadir=dir_dems, srtm1=SRTM1,
+            dem_url_fmt=dem_url_fmt if allow_dem_downloads else None)
         self._dem = torch.from_numpy(
             self.mosaic.grid.astype(np.float32)).to(self.device)
         n = self.mosaic.grid.shape[0]

@@ -26,10 +26,14 @@ renders the reference's mesh surface through the uniform-step sampler.
 ``--hillshade --shadows`` shades the panorama with cast terrain shadows
 (ops/shadows).
 
-``--device`` (default ``cuda``) picks where the render runs; the JAX CLI
-takes its backend from JAX_PLATFORMS instead. Flags whose code is not
-ported yet (``--allow-dem-downloads``, ``--dem-url``, and the interactive
-viewer) exit with status 1 and a message naming the missing module.
+``--allow-dem-downloads`` fetches missing .hgt tiles into ``--dirdems``
+from ``--dem-url`` (SRTM1 has a default source). With none of ``--image``,
+``--horizon-out``, ``--pois-out`` and ``--viewshed`` the CLI starts the
+interactive web viewer (viewer.py) on the same view, as the reference
+opens its GLUT window.
+
+``--device`` (default ``cuda``) picks where the render runs, the viewer's
+too; the JAX CLI takes its backend from JAX_PLATFORMS instead.
 
 Usage: python -m horizonator_tpu_torch.cli [options] LAT LON AZ_C AZ_R
 """
@@ -83,8 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="allow_downloads")
     p.add_argument("--allow-dem-downloads", action="store_true",
                    dest="allow_dem_downloads",
-                   help="fetch missing .hgt tiles into --dirdems (not "
-                        "ported: needs the DEM downloader)")
+                   help="fetch missing .hgt tiles into --dirdems from "
+                        "--dem-url (SRTM1: the AWS terrain-tiles bucket "
+                        "by default)")
     p.add_argument("--dem-url", type=str, default=None, dest="dem_url_fmt",
                    metavar="FMT",
                    help="DEM download URL template: %%s or {name} = "
@@ -167,23 +172,6 @@ def _validate(args) -> str | None:
         return "AZ_RADIUS_DEG must be > 0"
     if args.pois_out is not None and args.pois is None:
         return "--pois-out needs --pois"
-    return None
-
-
-def _unported(args) -> str | None:
-    """The first requested feature whose code the port lacks, as a message."""
-    missing = [
-        (args.allow_dem_downloads, "--allow-dem-downloads",
-         "the DEM downloader"),
-        (args.image is None and args.horizon_out is None
-         and args.pois_out is None and args.viewshed is None,
-         "interactive mode (no --image)",
-         "viewer.py"),
-    ]
-    for wanted, flag, module in missing:
-        if wanted:
-            return (f"{flag} needs {module}, which is not ported to "
-                    f"horizonator_tpu_torch")
     return None
 
 
@@ -294,20 +282,16 @@ def _az_radius(args, width: int) -> float:
 
 
 def _horizonator(args, width: int, height: int, **kw):
-    """The API instance for the flags, or None (after a message) where the
-    constructor reaches a code path that is not ported, e.g. --dem-url."""
+    """The API instance for the flags."""
     from .api import horizonator
-    try:
-        return horizonator(args.lat, args.lon, width, height,
-                           SRTM1=args.SRTM1, dir_dems=args.dirdems,
-                           render_radius_m=args.zfar,   # standalone.c:437
-                           nsteps=args.nsteps, surface=args.surface,
-                           curvature=args.curvature,
-                           dem_url_fmt=args.dem_url_fmt, device=args.device,
-                           **kw)
-    except NotImplementedError as e:
-        print(f"not ported to horizonator_tpu_torch: {e}", file=sys.stderr)
-        return None
+    return horizonator(args.lat, args.lon, width, height,
+                       SRTM1=args.SRTM1, dir_dems=args.dirdems,
+                       render_radius_m=args.zfar,   # standalone.c:437
+                       nsteps=args.nsteps, surface=args.surface,
+                       curvature=args.curvature,
+                       allow_dem_downloads=args.allow_dem_downloads,
+                       dem_url_fmt=args.dem_url_fmt, device=args.device,
+                       **kw)
 
 
 def _gis_only(args) -> int:
@@ -317,8 +301,6 @@ def _gis_only(args) -> int:
     az_radius = _az_radius(args, width)
     h = _horizonator(args, width,
                      max(1, int(round(width * 20.0 / az_radius))))
-    if h is None:
-        return 1
     if args.horizon_out is not None:
         _write_horizon(h, args, args.az_center_deg - az_radius,
                        args.az_center_deg + az_radius)
@@ -364,8 +346,6 @@ def _render_image(args) -> int:
                      hillshade=args.hillshade, sun_az_deg=args.sun_az,
                      sun_alt_deg=args.sun_alt, sun_time=args.sun_time,
                      shadows=args.shadows)
-    if h is None:
-        return 1
     image, ranges = h.render(az_deg0, az_deg1, znear=args.znear,
                              zfar=args.zfar, znear_color=znear_color,
                              zfar_color=zfar_color)
@@ -379,9 +359,10 @@ def _render_image(args) -> int:
         else:
             r.astype("<f4").tofile(args.ranges)
     if suffix == ".png" and not args.pois:
-        from PIL import Image
+        from ._png import encode_png
         out = image[: image.shape[0] - crop, :, ::-1]   # BGR -> RGB
-        Image.fromarray(out).save(args.image)
+        with open(args.image, "wb") as f:
+            f.write(encode_png(out))
     else:
         # .pdf/.svg (reference annotator parity) or .png with --pois
         # (labels rasterized straight into the bitmap)
@@ -399,9 +380,35 @@ def _render_image(args) -> int:
     return 0
 
 
+def _interactive(args) -> int:
+    """No output file: the reference opens a GLUT window here
+    (standalone.c:373-383); the interactive surface is the web viewer,
+    launched with the same view and device."""
+    print("interactive mode: launching the web viewer "
+          "(the GLUT window equivalent)", file=sys.stderr)
+    from . import viewer
+    vargs = [str(args.lat), str(args.lon), str(args.az_center_deg),
+             str(args.az_radius_deg), "--zfar", str(args.zfar),
+             "--znear", str(args.znear)]
+    if args.dirdems:
+        vargs += ["--dirdems", args.dirdems]
+    if args.SRTM1:
+        vargs += ["--SRTM1"]
+    if args.texture:
+        vargs += ["--texture"]
+    if args.hillshade:
+        vargs += ["--hillshade", "--sun-az", str(args.sun_az),
+                  "--sun-alt", str(args.sun_alt)]
+        if args.shadows:
+            vargs += ["--shadows"]
+    if args.curvature != "none":
+        vargs += ["--curvature", args.curvature]
+    return viewer.main(vargs + ["--device", args.device])
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    msg = _validate(args) or _unported(args)
+    msg = _validate(args)
     if msg:
         print(msg, file=sys.stderr)
         return 1
@@ -411,7 +418,11 @@ def main(argv=None) -> int:
         if rc != 0 or (args.image is None and args.horizon_out is None
                        and args.pois_out is None):
             return rc
-    return _gis_only(args) if args.image is None else _render_image(args)
+    if args.image is not None:
+        return _render_image(args)
+    if args.horizon_out is not None or args.pois_out is not None:
+        return _gis_only(args)
+    return _interactive(args)
 
 
 if __name__ == "__main__":

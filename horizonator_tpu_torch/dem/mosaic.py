@@ -13,6 +13,11 @@ from the reference (dem.c):
   missing files only (dem.c:199-221);
 - negative elevations clamp to 0 (dem.c:307-308); out-of-window point
   queries return -1 (dem.c:270, 293).
+
+Tiles are read by the native loader (``_native``, one fused C++ pass a
+tile) where it builds, else by numpy; both give the same grid. Missing
+tiles may be fetched first from a URL template (``_fetch_dem``, stdlib
+``urllib``) into ``datadir``.
 """
 
 from __future__ import annotations
@@ -95,6 +100,78 @@ class DemMosaic:
                          self.sample(i0, j0 + 1), self.sample(i0 + 1, j0 + 1))
                      ) + 1.0
 
+    def bounds_latlon_deg(self) -> tuple[float, float, float, float]:
+        """(lat0, lon0, lat1, lon1) of first/last cells, INCLUSIVE
+        (dem.c:313-330)."""
+        cpd = self.cells_per_deg
+        lon0 = self.origin_dem_lon_lat[0] + self.origin_dem_cellij[0] / cpd
+        lat0 = self.origin_dem_lon_lat[1] + self.origin_dem_cellij[1] / cpd
+        lon1 = (self.origin_dem_lon_lat[0]
+                + (self.origin_dem_cellij[0] + 2 * self.radius_cells - 1) / cpd)
+        lat1 = (self.origin_dem_lon_lat[1]
+                + (self.origin_dem_cellij[1] + 2 * self.radius_cells - 1) / cpd)
+        return lat0, lon0, lat1, lon1
+
+
+# Default DEM download source for SRTM1: the public AWS terrain-tiles
+# "skadi" bucket serves gzipped 3601^2 .hgt files. SRTM3 has no canonical
+# free mirror of raw .hgt: pass an explicit dem_url_fmt for one.
+DEM_URL_FMT_SRTM1 = ("https://s3.amazonaws.com/elevation-tiles-prod/"
+                     "skadi/{ns}/{name}.gz")
+
+
+def _fetch_dem(url_fmt: str, path, warn: bool = True) -> bool:
+    """Download one missing .hgt tile into the cache dir. ``url_fmt`` may
+    use printf ``%s`` (the filename) or format fields ``{name}``
+    (N34W118.hgt) and ``{ns}`` (N34). Transparently unwraps gzip and
+    zip payloads; writes atomically. Returns True on success."""
+    import os
+    import urllib.request
+    name = path.name
+    if "%s" in url_fmt:
+        url = url_fmt % (name,)
+    else:
+        url = url_fmt.format(name=name, ns=name[:3])
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:   # raises on 4xx
+            data = r.read()
+        if data[:4] == b"PK\x03\x04":
+            import io
+            import zipfile
+            with zipfile.ZipFile(io.BytesIO(data)) as z:
+                members = [m for m in z.namelist()
+                           if m.lower().endswith(".hgt")]
+                if not members:
+                    raise ValueError("no .hgt member in zip")
+                # multi-tile archives (e.g. viewfinderpanoramas zips hold
+                # a whole region): pick the member for THIS tile, never
+                # just the first -- caching the wrong tile's elevations
+                # would silently corrupt every later render
+                want = name.lower()
+                match = [m for m in members
+                         if m.replace("\\", "/").rsplit("/", 1)[-1].lower()
+                         == want]
+                if not match:
+                    if len(members) > 1:
+                        raise ValueError(
+                            f"zip has {len(members)} .hgt members, none "
+                            f"named {name}")
+                    match = members
+                data = z.read(match[0])
+        elif data[:2] == b"\x1f\x8b":
+            import gzip
+            data = gzip.decompress(data)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(path.name + ".part")
+        tmp.write_bytes(data)
+        os.replace(tmp, path)
+        _msg("downloaded DEM %s (%d bytes)", name, len(data))
+        return True
+    except Exception as e:           # noqa: BLE001 -- degrade to sea+warning
+        if warn:
+            _msg("Warning: DEM download failed for '%s' (%s)", url, e)
+        return False
+
 
 def load_mosaic(viewer_lat: float, viewer_lon: float, *,
                 render_radius_cells: int = -1,
@@ -103,15 +180,16 @@ def load_mosaic(viewer_lat: float, viewer_lon: float, *,
                 srtm1: bool = False,
                 warn_missing: bool = True,
                 dem_url_fmt: str | None = None) -> DemMosaic:
-    """Load the DEM window centered on the viewer from local tiles.
+    """Load the DEM window centered on the viewer.
 
     Exactly one of render_radius_cells / render_radius_m must be > 0
     (dem.c:90-99). ``datadir`` defaults to ``~/.horizonator/DEMs_SRTM3`` or
-    ``DEMs_SRTM1`` (horizonator-lib.c:94-97). Downloading missing tiles
-    (``dem_url_fmt``) is not supported."""
-    if dem_url_fmt:
-        raise NotImplementedError("DEM downloads (dem_url_fmt) are not "
-                                  "supported; place the .hgt tiles in datadir")
+    ``DEMs_SRTM1`` (horizonator-lib.c:94-97).
+
+    ``dem_url_fmt``: when set, tiles missing from ``datadir`` are fetched
+    from this URL template first (then cached on disk like the reference's
+    manually-downloaded tiles); failures degrade to the usual sea+warning.
+    See DEM_URL_FMT_SRTM1 and _fetch_dem for the template fields."""
     if (render_radius_cells > 0) == (render_radius_m > 0):
         raise ValueError("Exactly one of (render_radius_cells, "
                          "render_radius_m) must be > 0")
@@ -146,16 +224,43 @@ def load_mosaic(viewer_lat: float, viewer_lon: float, *,
     grid = np.zeros((n, n), dtype=np.int16)
     missing: list[str] = []
     wi0, wj0 = origin_cell
+
+    from .. import _native
+    native = _native.get_lib()
+
+    def sea(path):
+        missing.append(str(path))
+        if warn_missing:
+            _msg("Warning: couldn't open DEM file '%s'. Assuming "
+                 "elevation=0 (sea surface?)", path)
+
     for tj in range(ndems[1]):
         for ti in range(ndems[0]):
             path = hgt.hgt_path(datadir, origin_dem[1] + tj,
                                 origin_dem[0] + ti)
+            if not path.exists() and dem_url_fmt:
+                _fetch_dem(dem_url_fmt, path, warn=warn_missing)
             if not path.exists():
-                missing.append(str(path))
-                if warn_missing:
-                    _msg("Warning: couldn't open DEM file '%s'. Assuming "
-                         "elevation=0 (sea surface?)", path)
+                sea(path)
                 continue
+            if native is not None:
+                # fused native pass: decode+flip+clamp+window-copy
+                rc = _native.blit_window(path, cpd + 1, grid,
+                                         ti * cpd - wi0, tj * cpd - wj0)
+                if rc == 0 or rc == 1:   # 1: zero-size -> silent sea
+                    continue
+                if rc == 2:
+                    raise ValueError(
+                        f"The DEM file '{path}' has unexpected size. Is this "
+                        f"a {'1' if srtm1 else '3'}-arc-sec SRTM DEM?")
+                if rc == 4:
+                    # exists but unreadable (permissions, a race after the
+                    # exists() check): warn and treat as sea like the
+                    # reference's couldn't-open path (dem.c:199-208), not
+                    # silently like a zero-size file
+                    sea(path)
+                    continue
+                raise OSError(f"couldn't read DEM file '{path}' (rc={rc})")
             tile = hgt.read_hgt(path, srtm1)
             if tile is None:
                 continue  # zero-size: silent sea, dem.c:210-221

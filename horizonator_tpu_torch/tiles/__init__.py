@@ -5,8 +5,8 @@ JAX package. The reference's disk-cache layout
 ``{dir_tiles}/{name}/{z}/{x}/{y}.png`` is kept (horizonator-lib.c:272-275).
 PIL decodes tiles and ``requests`` downloads them; both are imported only
 when a tile is decoded or fetched, so a cache-free ``allow_downloads=False``
-call needs neither. The JAX package's florb ``settings.xml`` tile-server
-lookup is not ported: the default URL format applies when none is given.
+call needs neither. With no URL format given, the florb ``settings.xml``
+tile server (``settings.py``) applies when the user set one.
 """
 
 from __future__ import annotations
@@ -24,6 +24,19 @@ from ..render.texture import (AtlasParams, OSM_RENDER_ZOOM, OSM_TILE_PX,
 
 DEFAULT_TILES_NAME = "mapnik"                                     # horizonator-lib.c:91
 DEFAULT_TILES_URL_FMT = "https://a.tile.openstreetmap.org/%d/%d/%d.png"  # :93
+
+
+def _settings_url_fmt():
+    """The florb settings.xml tileserver (osm::tileserver,
+    orb_settings.cpp:41) as a %d/%d/%d.png format, if the user set one."""
+    try:
+        from ..settings import instance
+        base = instance().get("osm::tileserver", None)
+    except Exception:
+        return None
+    if not base or "openstreetmap.org" in base:
+        return None         # default server: keep the reference URL format
+    return base.rstrip("/") + "/%d/%d/%d.png"
 DEFAULT_DIR_TILES = "~/.horizonator/tiles"                        # :101
 USER_AGENT = "horizonator"                                        # :314
 
@@ -144,8 +157,8 @@ def build_atlas(viewer_lat: float, viewer_lon: float, radius_cells: int,
                          f"got {on_error!r}")
     dir_tiles = DEFAULT_DIR_TILES if dir_tiles is None else dir_tiles
     tiles_name = DEFAULT_TILES_NAME if tiles_name is None else tiles_name
-    tiles_url_fmt = (DEFAULT_TILES_URL_FMT if tiles_url_fmt is None
-                     else tiles_url_fmt)
+    tiles_url_fmt = ((_settings_url_fmt() or DEFAULT_TILES_URL_FMT)
+                     if tiles_url_fmt is None else tiles_url_fmt)
 
     lowest_e = viewer_lon - radius_cells / cells_per_deg
     lowest_n = viewer_lat - radius_cells / cells_per_deg

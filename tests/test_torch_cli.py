@@ -32,6 +32,7 @@ the same synthetic SRTM3 tile. Tolerances, and why:
   differing and terrain within 1 (measured bitwise).
 """
 
+import io
 import json
 import math
 import re
@@ -39,6 +40,7 @@ import subprocess
 import sys
 import warnings
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -469,26 +471,75 @@ def test_cli_validation_matches_jax(tmp_path, capsys, argv):
     assert et.strip() and et.strip() == ej.strip().splitlines()[-1]
 
 
+# the flags the port once refused (they exited 1 as not ported): each now
+# runs through both CLIs against a loopback DEM server
 UNPORTED = [
-    (["--horizon-out", "h.csv", "--dem-url", "http://example.invalid/%s"],
-     "dem_url_fmt"),
-    (["--allow-dem-downloads"], "DEM downloader"),
+    (["--horizon-out", "{out}.csv", "--dem-url", "{url}/%s"], "dem_url_fmt"),
+    (["--image", "{out}.png", "--ranges", "{out}.npy", "--allow-dem-downloads",
+      "--dem-url", "{url}/{name}.gz"], "DEM downloader"),
     ([], "viewer.py"),
 ]
 
 
 @pytest.mark.parametrize("extra,module", UNPORTED,
                          ids=[u[1] for u in UNPORTED])
-def test_cli_unported_flags_exit(dem_dir, tmp_path, capsys, extra, module):
-    image = [] if not extra else ["--width", "64", "--image",
-                                  str(tmp_path / "x.png")]
-    if extra and extra[0] == "--horizon-out":
-        image = ["--width", "64"]
-    rc = tcli.main(["--device", "cpu", "--dirdems", dem_dir, *image, *extra,
-                    "34.40", "-117.45", "0", "60"])
-    err = capsys.readouterr().err
-    assert rc == 1 and module in err and "not ported" in err
-    assert not (tmp_path / "x.png").exists()
+def test_cli_unported_flags_exit(dem_dir, tmp_path, capsys, monkeypatch,
+                                 extra, module):
+    """The formerly unported flags match the JAX CLI: --dem-url alone
+    fetches nothing (the tiles are local) and writes the same skyline;
+    --allow-dem-downloads fetches the tile into an empty --dirdems and
+    renders the same image and ranges; no output file starts the viewer,
+    whose served scene agrees (viewer.serve stubbed in both packages)."""
+    import gzip
+    from horizonator_tpu import viewer as jviewer
+    from horizonator_tpu_torch import viewer as tviewer
+    from tests.test_torch_dem_fetch import Served
+    from tests.test_torch_viewer import _same_state
+    tile = (Path(dem_dir) / "N34W118.hgt").read_bytes()
+    states = {}
+    for side, mod in (("jax", jviewer), ("torch", tviewer)):
+        monkeypatch.setattr(mod, "serve", lambda state, port, _s=side:
+                            states.setdefault(_s, state))
+    with Served({"/N34W118.hgt": tile,
+                 "/N34W118.hgt.gz": gzip.compress(tile)}) as s:
+        res = {}
+        for side, cli, dev in (("jax", jcli, []),
+                               ("torch", tcli, ["--device", "cpu"])):
+            d = tmp_path / side
+            d.mkdir()
+            dems = str(d / "dems") if module == "DEM downloader" else dem_dir
+            args = [a.replace("{out}", str(d / "o")).replace("{url}", s.url)
+                    for a in extra]
+            width = ["--width", "200", "--height", "80"] if extra else []
+            rc = cli.main([*dev, *width, "--dirdems", dems, "--zfar", "20000",
+                           *args, "34.40", "-117.45", "0", "60"])
+            assert rc == 0, capsys.readouterr().err
+            res[side] = d
+        if module == "dem_url_fmt":
+            assert s.hits == []
+            sj = np.loadtxt(res["jax"] / "o.csv", delimiter=",", skiprows=1)
+            st = np.loadtxt(res["torch"] / "o.csv", delimiter=",",
+                            skiprows=1)
+            assert sj.shape == st.shape == (200, st.shape[1])
+            np.testing.assert_allclose(st[:, :2], sj[:, :2], atol=1.01e-4,
+                                       rtol=0)
+        elif module == "DEM downloader":
+            assert sorted(s.hits) == ["/N34W118.hgt.gz"] * 2
+            for d in res.values():
+                assert (d / "dems" / "N34W118.hgt").read_bytes() == tile
+            _compare(_png_bgr(res["jax"] / "o.png"),
+                     np.load(res["jax"] / "o.npy"),
+                     _png_bgr(res["torch"] / "o.png"),
+                     np.load(res["torch"] / "o.npy"))
+        else:
+            sj, st = states["jax"], states["torch"]
+            _same_state(sj.state_json(), st.state_json())
+            assert str(st.h.device) == "cpu"
+            _compare(np.asarray(Image.open(io.BytesIO(sj.png)))[:, :, ::-1],
+                     sj.h._last_ranges(),
+                     np.asarray(Image.open(io.BytesIO(st.png)))[:, :, ::-1],
+                     st.h._last_ranges())
+    assert "not ported" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("sampler", ["step", "crossing"])
@@ -557,16 +608,21 @@ def test_cli_surface_triangulated_matches_jax(dem_dir, tmp_path, extra):
                                    rtol=0)
 
 
-def test_cli_not_ported_render_exits(dem_dir, tmp_path, capsys):
-    """A render whose scene set-up is not ported (a DEM download URL) exits
-    with the API's message and writes nothing."""
-    rc = tcli.main(["--device", "cpu", "--width", "64", "--image",
-                    str(tmp_path / "x.png"), "--dirdems", dem_dir,
-                    "--dem-url", "http://example.invalid/%s", "34.40",
-                    "-117.45", "0", "60"])
-    err = capsys.readouterr().err
-    assert rc == 1 and "not ported" in err and "dem_url_fmt" in err
-    assert not (tmp_path / "x.png").exists()
+def test_cli_not_ported_render_exits(dem_dir, tmp_path):
+    """A render given a DEM download URL (which the port once refused) runs
+    as the JAX CLI's: --dem-url without --allow-dem-downloads fetches
+    nothing, and the PNG and ranges agree."""
+    from tests.test_torch_dem_fetch import Served
+    with Served({}) as s:
+        res = _run_both(tmp_path, "x.png", [
+            "--width", "64", "--image", "{out}", "--ranges", "{out}.npy",
+            "--dirdems", dem_dir, "--dem-url", s.url + "/%s", "34.40",
+            "-117.45", "0", "60"])
+    assert s.hits == []
+    (rj, dj, _), (rt, dt, _) = res["jax"], res["torch"]
+    assert rj == rt == 0
+    _compare(_png_bgr(dj / "x.png"), np.load(dj / "x.png.npy"),
+             _png_bgr(dt / "x.png"), np.load(dt / "x.png.npy"))
 
 
 def test_cli_lod_render_matches_jax(dem_dir, tmp_path):
@@ -583,13 +639,17 @@ def test_cli_lod_render_matches_jax(dem_dir, tmp_path):
 
 
 def test_cli_runs_without_jax(dem_dir, tmp_path):
-    """The port's CLI, annotator, LOD march, geojson writer and probe import
+    """The port's CLI, annotator, LOD march, geojson writer, probe, viewer,
+    map widget, settings, GPX reader, PNG writer and native loader import
     no JAX and nothing of horizonator_tpu, as `python -m
     horizonator_tpu_torch.cli` runs them."""
     code = f"""
 import sys
 from horizonator_tpu_torch import cli
+from horizonator_tpu_torch import (_native, _png, gpx, mapwidget, settings,
+                                   viewer)
 from horizonator_tpu_torch.benchmarks import profile_roll_ceiling
+assert _native.get_lib() is not None
 rc = cli.main(["--device", "cpu", "--width", "96", "--height", "32",
                "--image", {str(tmp_path / "p.pdf")!r}, "--dirdems",
                {dem_dir!r}, "--zfar", "20000", "--nsteps", "2048",

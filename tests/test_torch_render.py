@@ -76,7 +76,7 @@ def _compare(img_j, rng_j, img_t, rng_t):
     assert (rel > 1e-4).mean() <= 0.001
 
 
-def test_mosaic_grid_bitwise(dem_dir):
+def test_mosaic_grid_bitwise(dem_dir, tmp_path):
     kw = dict(render_radius_cells=128, datadir=dem_dir)
     mj = j_load_mosaic(VIEW["lat"], VIEW["lon"], **kw)
     mt = t_load_mosaic(VIEW["lat"], VIEW["lon"], **kw)
@@ -86,9 +86,17 @@ def test_mosaic_grid_bitwise(dem_dir):
     at = (VIEW["lat"], VIEW["lon"])
     assert mt.auto_viewer_z(*at) == mj.auto_viewer_z(*at)
     assert mt.viewer_cell(*at) == mj.viewer_cell(*at)
-    with pytest.raises(NotImplementedError):
-        t_load_mosaic(34.5, -117.5, render_radius_cells=8, datadir=dem_dir,
-                      dem_url_fmt="http://example.invalid/%s")
+    # the same window with its tiles fetched from a loopback server into an
+    # empty directory: the same grid through both loaders
+    from tests.test_torch_dem_fetch import Served
+    tiles = {f"/{p.name}": p.read_bytes() for p in Path(dem_dir).iterdir()}
+    with Served(tiles) as s:
+        for side, load in (("jax", j_load_mosaic), ("torch", t_load_mosaic)):
+            m = load(VIEW["lat"], VIEW["lon"], render_radius_cells=128,
+                     datadir=str(tmp_path / side), dem_url_fmt=s.url + "/%s")
+            np.testing.assert_array_equal(m.grid, mj.grid)
+            assert m.missing_tiles == []
+    assert sorted(s.hits) == sorted(list(tiles) * 2)     # one fetch a tile
 
 
 @pytest.mark.parametrize("width,height,az0,az1,zfar", [
