@@ -15,6 +15,7 @@ then drive the main render path and the API on the card.
         # way round
     python3 chip_smoke.py --oracle        # only: build, then phases 29-31
     python3 chip_smoke.py --front         # only: build, then phase 32
+    python3 chip_smoke.py --scale-out     # only: build, then phase 33
 
 Phases, in order; any failure raises and exits nonzero:
  1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the card;
@@ -222,7 +223,19 @@ Phases, in order; any failure raises and exits nonzero:
     sky), the median ms of a move over 20 pans split into render, PNG
     encode and the rest; `python -m horizonator_tpu_torch.viewer` in a
     subprocess, the CLI's interactive mode (viewer.serve stood in), and
-    the CLI's --image .png decoded bitwise the API's image.
+    the CLI's --image .png decoded bitwise the API's image;
+33. scale-out: the banded march entries (untextured and half-cell
+    textured) on the 4 row bands (850 rows + a halo row) of phase 2's
+    grid bitwise their plain version, their MAX bitwise the square march;
+    every rank's local function of the region renderer (4 bands; 2 bands
+    x 2 wedges), combined as the collectives combine them, against the
+    single render (bitwise; the wedges within the JAX tests' tolerance at
+    all but 0.2% of pixels), untextured and textured hybrid, launching
+    the band entry once a band; through a one-rank NCCL group, the API's
+    region_mesh="auto" (untextured, and textured hybrid from a seeded
+    tile cache) bitwise the plain API's renders, render_batch(mesh="auto")
+    of 8 viewpoints and config 10's viewshed_count(mesh="auto") against
+    one device; the band entries' device ms a band against their bound.
 Phases 26-32 add no kernel (their ops are the JAX package's XLA ops, in
 plain PyTorch, or host code); phase 27 runs the two textured kernels,
 phases 29-30 the resolve, phase 31 the march and the resolve, phase 32
@@ -252,7 +265,10 @@ each with its cell, ``batch`` (viewpoints), ``launches`` (per batch),
 over the levels, with ``levels`` itemized), ``ms_per_frame`` (per frame,
 viewpoint, raster or observer), ``ms_per_frame_single_loop``,
 ``device_busy`` (under --profile; else null), ``peak_mb`` and ``chunks``.
-The resolve and window_march entries carry ``oracle``: the records of
+The banded entries (window_march_band, window_march_band_textured) are
+timed per band; their ``ms`` and ``bound_ms`` are the means over the 4
+bands, ``bands`` lists each, and ``launches`` are those of one region
+render of 4 bands. The resolve and window_march entries carry ``oracle``: the records of
 their launches on phases 29-31's paths (cell, K, launches, ms, plain_ms,
 bound_ms, bound_by; config 1's also its render's ms_per_frame).
 Every number printed stands beside the card's name and power limit
@@ -1270,13 +1286,14 @@ def cli_phase(tiles):
         f"{lon:.6f}), projects to column {px:.3f}")
 
 
-def annulus_cells(n, vi, vj, d_lo, d_hi, cell_n, lat):
+def annulus_cells(n, vi, vj, d_lo, d_hi, cell_n, lat, rows=None):
     """Cells of an (n, n) grid with cell size cell_n (north) whose distance
     from the viewer lies in [d_lo - one cell diagonal, d_hi]: the cells a
-    march of that band must read (d_lo 0: the disk within zfar)."""
+    march of that band must read (d_lo 0: the disk within zfar); ``rows``
+    (a range): those of a row band alone."""
     cell_e = cell_n * math.cos(math.radians(lat))
     i = ((np.arange(n) - vi) * cell_e) ** 2
-    j = ((np.arange(n) - vj) * cell_n) ** 2
+    j = ((np.arange(n)[rows or slice(None)] - vj) * cell_n) ** 2
     d2 = j[:, None] + i[None, :]
     lo = max(0.0, d_lo - math.hypot(cell_n, cell_e))
     return int(((d2 <= d_hi * d_hi) & (d2 >= lo * lo)).sum())
@@ -4079,6 +4096,449 @@ def front_phase(dev, card, tiles, img6=None, rng6=None):
     log(f"[t] phase 32: {time.perf_counter() - t0:.1f} s")
 
 
+SCALE_R = 4                   # phase 33: row bands of the bench grid
+SCALE_BATCH = 8               # phase 33: render_batch(mesh="auto") viewpoints
+API_RUNS = 11                 # phase 33: region and plain API renders timed
+WEDGE_OFF = 4                 # phase 33: wedged pixels past 5e-3 + 1 m
+
+
+def interleaved_ms(fa, fb, n):
+    """Median ms of fa(i) and of fb(i), n calls each in turns (a, b, a,
+    b, ...) after one of each, CUDA events around each call."""
+    fa(0)
+    fb(0)
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(n):
+        for f, t in zip((fa, fb), times):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            f(i)
+            t1.record()
+            t1.synchronize()
+            t.append(t0.elapsed_time(t1))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def profile_gap(fa, fb, n=5, top=6):
+    """Where a call of fa() spends host time that fb() does not:
+    torch.profiler over n calls of each, in the order a, b, b, a (so
+    neither pays alone for what comes first). Returns per call the host ops
+    (a, b), their self CPU ms (a, b), the device busy ms (a, b), and the
+    ``top`` ops by extra self CPU ms and by extra device ms: (name, calls
+    a, calls b, ms)."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+    per = ({}, {})
+    for which in (0, 1, 1, 0):
+        f = (fa, fb)[which]
+        f()
+        torch.cuda.synchronize()
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                f()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            v = (e.count / n / 2, e.self_cpu_time_total / n / 2e3,
+                 e.self_device_time_total / n / 2e3)
+            per[which][e.key] = tuple(x + y for x, y in zip(
+                per[which].get(e.key, (0, 0, 0)), v))
+    a, b = per
+    none = (0, 0, 0)
+
+    def extra(c):
+        return sorted(((k, a.get(k, none)[0], b.get(k, none)[0],
+                        a.get(k, none)[c] - b.get(k, none)[c])
+                       for k in set(a) | set(b)), key=lambda x: -x[3])[:top]
+    return {"ops": tuple(sum(v[0] for v in d.values()) for d in per),
+            "cpu_ms": tuple(sum(v[1] for v in d.values()) for d in per),
+            "dev_ms": tuple(sum(v[2] for v in d.values()) for d in per),
+            "top": extra(1), "top_dev": extra(2)}
+
+
+def seeded_tile(path):
+    """A stand-in for a tile cache's PNG decoder, so the phase runs where
+    PIL is missing: a 256x256 BGR tile made from the tile's path, the
+    same every call."""
+    h = sum(ord(c) * (k + 1) for k, c in enumerate(str(path))) % 251
+    yy, xx = np.mgrid[0:256, 0:256]
+    return np.stack([(xx + h) % 256, (yy * 3 + h) % 256,
+                     (xx + yy + 7 * h) % 256], -1).astype(np.uint8)
+
+
+def scale_out_phase(dev, card, tiles):
+    """Phase 33: scale-out on one card. The banded march entries on the
+    SCALE_R row bands of phase 2's scene against their plain version and
+    their MAX against the square march; the region renderer's per-rank
+    local functions for every rank of SCALE_R bands (and of 2 bands x 2
+    wedges), combined as the collectives combine them, against the
+    single-device render, untextured and textured (phase 9's half-cell
+    planes, atlas and hybrid near field); then through a one-rank NCCL
+    group: the API's region_mesh="auto" (untextured, and textured hybrid
+    from a seeded tile cache), render_batch(mesh="auto") of SCALE_BATCH
+    viewpoints and viewshed_count(mesh="auto") at config 10's shape.
+    Returns the banded entries' JSON records."""
+    import torch.distributed as dist
+    from horizonator_tpu_torch import horizonator, tiles as tiles_mod
+    from horizonator_tpu_torch.kernels.resolve import (resolve,
+                                                       resolve_textured)
+    from horizonator_tpu_torch.kernels.window_march import (
+        march, march_band, march_band_textured, march_plain, march_textured)
+    from horizonator_tpu_torch.ops import viewshed_count
+    from horizonator_tpu_torch.parallel.regions import (
+        band_bounds, local_band, make_region_sharded_renderer)
+    from horizonator_tpu_torch.render import make_params, render_panorama
+    from horizonator_tpu_torch.render.crossing import (crossing_geometry,
+                                                       k_cross_for)
+    from horizonator_tpu_torch.render.texture import (AtlasParams,
+                                                      pack_cell_colors,
+                                                      prepare_color_planes,
+                                                      tile_xy_from_latlon)
+    from horizonator_tpu_torch.render.window import step_budget
+    t0 = time.perf_counter()
+    r, nb = SCALE_R, N // SCALE_R
+    dem = torch.from_numpy(bench_dem()).to(dev)
+    p = make_params(device=dev, viewer_cell_i=N / 2, viewer_cell_j=N / 2,
+                    viewer_z=900.0, cos_viewer_lat=math.cos(math.radians(
+                        LAT)), az_rad0=-math.pi, az_rad1=math.pi,
+                    znear=100.0, zfar=ZFAR, znear_color=100.0,
+                    zfar_color=ZFAR)
+    geo = crossing_geometry(p, width=W, cells_per_deg=CPD)
+    pcol, fscal = pcol_fscal(geo, p)
+    k = k_cross_for(ZFAR, CPD, LAT, n=N)
+    k_lim = step_budget(k, N)
+    # phase 9's half-cell planes and atlas
+    cp2 = prepare_color_planes(torch.from_numpy(np.random.default_rng(
+        3).integers(0, 256, (3, 2 * N, 2 * N), dtype=np.uint8)).to(
+            dev).float())
+    o_lon = LON - float(p.viewer_cell_i) / CPD
+    o_lat = LAT - float(p.viewer_cell_j) / CPD
+    tx0, ty0 = tile_xy_from_latlon(LAT, LON, 12)
+    ap = AtlasParams(o_lon, o_lat, tx0 - 4, ty0 - 4, 8, 8)
+    atlas = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 1 << 24, (2048, 2048), dtype=np.int32)).to(dev)
+    plane = cp2.full_packed
+    # a cell-resolution packed plane, for the textured entries at s = 1
+    plane1 = pack_cell_colors(torch.from_numpy(np.random.default_rng(
+        6).integers(0, 256, (3, N, N), dtype=np.uint8)).to(dev).float())
+
+    # 1-2. each band's banded march (both entries; textured at s = 2 and
+    # s = 1) against its plain version, their MAX against the square march
+    sq = march(dem, pcol, fscal, k_lim)
+    sq_t, sq_x = march_textured(dem, pcol, fscal, k_lim, plane, 2)
+    sq_t1, sq_x1 = march_textured(dem, pcol, fscal, k_lim, plane1, 1)
+    cell_n = 6371000.0 * math.pi / 180.0 / CPD
+    bands, parts, parts_x, parts_x1 = [], [], [], []
+    for idx in range(r):
+        j_off, j_hi = band_bounds(idx, r, nb)
+        loc = local_band(dem, idx, r)
+        loc_c = local_band(cp2, idx, r).full_packed
+        loc_1 = local_band(plane1, idx, r)
+        t_k = march_band(loc, pcol, fscal, k_lim, j_off, j_hi)
+        t_p = march_plain(loc, pcol, fscal, k_lim, j_offset=j_off,
+                          j_hi=j_hi)
+        tt_k, tx_k = march_band_textured(loc, pcol, fscal, k_lim, loc_c, 2,
+                                         j_off, j_hi)
+        tt_p, tx_p = march_plain(loc, pcol, fscal, k_lim, loc_c, 2,
+                                 j_offset=j_off, j_hi=j_hi)
+        t1_k, x1_k = march_band_textured(loc, pcol, fscal, k_lim, loc_1, 1,
+                                         j_off, j_hi)
+        t1_p, x1_p = march_plain(loc, pcol, fscal, k_lim, loc_1, 1,
+                                 j_offset=j_off, j_hi=j_hi)
+        torch.cuda.synchronize()
+        if not (torch.equal(t_k, t_p) and torch.equal(tt_k, tt_p)
+                and torch.equal(tx_k, tx_p) and torch.equal(tt_k, t_k)):
+            fail(f"band {idx}: banded march != plain: "
+                 f"{int((t_k != t_p).sum())} tangents, "
+                 f"{int((tx_k != tx_p).sum())} colors differ")
+        if not (torch.equal(t1_k, t1_p) and torch.equal(x1_k, x1_p)
+                and torch.equal(t1_k, t_k)):
+            fail(f"band {idx}: banded textured march at s = 1 != plain: "
+                 f"{int((t1_k != t1_p).sum())} tangents, "
+                 f"{int((x1_k != x1_p).sum())} colors differ")
+        # (bands past zfar of the viewer have none)
+        valid = int((t_k > -1e30).sum())
+        parts.append(t_k)
+        parts_x.append(torch.where(t_k > -1e30, tx_k, -1))
+        parts_x1.append(torch.where(t_k > -1e30, x1_k, -1))
+        cells = annulus_cells(N, N / 2, N / 2, 0.0, ZFAR, cell_n, LAT,
+                              slice(j_off, j_off + nb + 1))
+        bands.append(dict(band=idx, rows=(j_off, j_off + nb), j_hi=j_hi,
+                          valid=valid, cells=cells))
+    if sum(b["valid"] > 0 for b in bands) < 2:
+        fail(f"fewer than two bands marched a valid sample: {bands}")
+    comb = torch.stack(parts).amax(0)
+    comb_x = torch.stack(parts_x).amax(0)
+    comb_x1 = torch.stack(parts_x1).amax(0)
+    ok = sq > -1e30
+    if not torch.equal(comb, sq):
+        fail(f"bands' MAX != square march: {int((comb != sq).sum())} differ")
+    if not (torch.equal(sq_t, sq) and torch.equal(comb_x[ok], sq_x[ok])):
+        fail("bands' masked color MAX != square textured march (s = 2)")
+    if not (torch.equal(sq_t1, sq) and torch.equal(comb_x1[ok], sq_x1[ok])):
+        fail("bands' masked color MAX != square textured march (s = 1)")
+    log(f"[33] {r} bands of {nb} rows + halo of the {N}^2 grid at "
+        f"({W}, {k_lim}): both banded entries (textured at s = 2 and 1) == "
+        f"plain bitwise in every band; MAX of the bands == square march "
+        f"bitwise, masked color MAX == square textured march (s = 2 and 1) "
+        f"at its {int(ok.sum())} valid samples; valid samples a band "
+        + ", ".join(str(b["valid"]) for b in bands))
+
+    # 3. the region renderer's per-rank local functions, every rank
+    rkw = dict(width=W, height=H, k_cross=k, cells_per_deg=CPD,
+               lat_hint_deg=LAT)
+    hyb = dict(atlas_params=ap, exact_near_m=EXACT_NEAR_M)
+    single = render_panorama(dem, p, nsteps=k, **{
+        kk: v for kk, v in rkw.items() if kk != "k_cross"})
+    single_t = render_panorama(dem, p, nsteps=k, textured=True,
+                               color_planes=cp2, atlas=atlas, **hyb, **{
+                                   kk: v for kk, v in rkw.items()
+                                   if kk != "k_cross"})
+
+    def drive(shape, textured):
+        fn = make_region_sharded_renderer(
+            shape, textured=textured, texture_scale=2,
+            az_axis="az" if "az" in shape else None, **rkw,
+            **(hyb if textured else {}))
+        rr, wedges = shape["region"], []
+        for a in range(shape.get("az", 1)):
+            bms = [fn.local(i, a, local_band(dem, i, rr), p,
+                            local_band(cp2, i, rr) if textured else None,
+                            atlas if textured else None)
+                   for i in range(rr)]
+            wedges.append(fn.resolve(*fn.combine(bms), bms[0]))
+        return tuple(torch.cat(xs, dim=1) for xs in zip(*wedges))
+
+    launches = {}
+    for textured, ref in ((False, single), (True, single_t)):
+        march_band.launches = march_band_textured.launches = 0
+        resolve.launches = resolve_textured.launches = 0
+        img, rng = drive({"region": r}, textured)
+        torch.cuda.synchronize()
+        name = "window_march_band" + ("_textured" if textured else "")
+        res_name = "resolve_textured" if textured else "resolve"
+        launches[name] = (march_band_textured if textured
+                          else march_band).launches
+        res_launches = (resolve_textured if textured else resolve).launches
+        if launches[name] != r or res_launches != 1:
+            fail(f"region render launches: {name} {launches[name]}, "
+                 f"{res_name} {res_launches}")
+        if not (torch.equal(img, ref[0]) and torch.equal(rng, ref[1])):
+            fail(f"region render ({name}) != single render: "
+                 f"{int((rng != ref[1]).sum())} ranges differ")
+        img_w, rng_w = drive({"region": 2, "az": 2}, textured)
+        r1, rs = ref[1].cpu().numpy(), rng_w.cpu().numpy()
+        # the wedge tolerance of tests/test_torch_regions.py (the JAX
+        # tests', tests/test_regions.py:146-152): under 0.2% of the pixels
+        # flip between sky and terrain, and the pixels that both renders
+        # agree on are within 5e-3 relative + 1 m. At this size a wedge's
+        # own float32 azimuths also move the first crossing of a ray that
+        # grazes far terrain by a few samples, as they flip sky: at most
+        # WEDGE_OFF such pixels (a wrong column at a seam is some 1000),
+        # each with its range inside the span of its 3x3 neighbourhood's
+        # terrain ranges in the single render
+        def tol(v):
+            return 1.0 + 5e-3 * np.abs(v)
+
+        agree = (rs > 0) == (r1 > 0)
+        both = agree & (r1 > 0)
+        rel = np.abs(rs[both] - r1[both]) / r1[both]
+        bad = agree & (np.abs(rs - r1) > tol(r1))
+        offs = []
+        for y, x in zip(*np.nonzero(bad)):
+            around = r1[max(y - 1, 0):y + 2, [(x - 1) % W, x, (x + 1) % W]]
+            around = around[around > 0]
+            lo, hi = float(around.min()), float(around.max())
+            v = float(rs[y, x])
+            offs.append(dict(
+                row=int(y), col=int(x), single=float(r1[y, x]), wedged=v,
+                around=(lo, hi), seam=int(min(x % (W // 2), -x % (W // 2))),
+                within=lo - tol(lo) <= v <= hi + tol(hi)))
+        if ((~agree).mean() >= 0.002 or len(offs) > WEDGE_OFF
+                or not all(o["within"] for o in offs)):
+            fail(f"2x2 region x az render off the wedge tolerance: sky "
+                 f"flips {(~agree).mean():.5f}, pixels beyond 5e-3 "
+                 f"relative + 1 m {offs[:8]}")
+        kind = " textured hybrid" if textured else ""
+        log(f"[33] region render {W}x{H}{kind}, every rank's local function of {r} bands: {launches[name]} "
+            f"{name} launches, {res_launches} {res_name}; image and ranges "
+            f"== single render bitwise; 2 bands x 2 wedges: sky flips "
+            f"{(~agree).mean():.6f} (< 0.002), pixels beyond 5e-3 rel + 1 m "
+            f"{len(offs)} (at most {WEDGE_OFF}, each inside its "
+            f"neighbourhood's span): "
+            f"{offs}; largest relative {rel.max():.4f}")
+
+    # 4-5. through a one-rank NCCL group
+    h = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device=dev)
+    # the plain API render before the process group exists, and after
+    ms_solo = cuda_ms(lambda i: h.render(-180 + i, 180 + i), API_RUNS,
+                      warmup=1)
+    hr = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device=dev,
+                     region_mesh="auto")
+    backend = str(dist.get_backend())
+    if backend != "nccl" or dist.get_world_size() != 1:
+        fail(f"region_mesh='auto' made a {backend} group of "
+             f"{dist.get_world_size()}")
+    march_band.launches = resolve.launches = 0
+    img_r, rng_r = hr.render(-180, 180)
+    api_launches = {"window_march_band": march_band.launches,
+                    "resolve": resolve.launches}
+    img_1, rng_1 = h.render(-180, 180)
+    if min(api_launches.values()) < 1 or not (
+            np.array_equal(img_r, img_1) and np.array_equal(rng_r, rng_1)):
+        fail(f"API region render (launches {api_launches}) != plain API "
+             f"render")
+    tile_dir = tempfile.mkdtemp(dir=tiles)
+    decode = tiles_mod._decode_tile_bgr
+    tiles_mod._decode_tile_bgr = seeded_tile
+    try:
+        for x in range(tx0 - 30, tx0 + 31):
+            for y in range(ty0 - 30, ty0 + 31):
+                t = tiles_mod.tile_path(tile_dir, "mapnik", 12, x, y)
+                t.parent.mkdir(parents=True, exist_ok=True)
+                t.touch()
+        tkw = dict(dir_dems=tiles, device=dev, render_texture=True,
+                   dir_tiles=tile_dir, allow_downloads=False)
+        ht = horizonator(34.4, -117.6, W, H, **tkw)
+        htr = horizonator(34.4, -117.6, W, H, region_mesh="auto", **tkw)
+    finally:
+        tiles_mod._decode_tile_bgr = decode
+    march_band_textured.launches = resolve_textured.launches = 0
+    img_tr, rng_tr = htr.render(-180, 180)
+    api_launches.update(window_march_band_textured=(
+        march_band_textured.launches), resolve_textured=(
+        resolve_textured.launches))
+    img_t1, rng_t1 = ht.render(-180, 180)
+    if min(api_launches.values()) < 1 or not (
+            np.array_equal(img_tr, img_t1) and np.array_equal(rng_tr,
+                                                              rng_t1)):
+        fail(f"textured API region render (launches {api_launches}) != "
+             f"plain textured API render")
+    vis_t = float((rng_tr > 0).mean())
+    if not 0.05 < vis_t < 0.95 or int(img_tr[rng_tr > 0][:, 1].sum()) == 0:
+        fail(f"textured API region render: visible {vis_t}, no colors")
+    ms_region, ms_plain_api = interleaved_ms(
+        lambda i: hr.render(-180 + i, 180 + i),
+        lambda i: h.render(-180 + i, 180 + i), API_RUNS)
+    log(f"[33] API region_mesh='auto' through a one-rank {backend} group "
+        f"({hr.mosaic.grid.shape} grid, 1 band + masked halo row): "
+        f"untextured and textured hybrid (seeded tile cache, "
+        f"{htr._atlas.shape} atlas) == the plain API's renders bitwise, "
+        f"launches {api_launches}; ms a render (median of {API_RUNS} in "
+        f"turns, host copies included) region {ms_region:.3f}, plain "
+        f"{ms_plain_api:.3f}; the plain one before the group existed "
+        f"{ms_solo:.3f}")
+    gap = profile_gap(lambda: hr.render(-180, 180),
+                      lambda: h.render(-180, 180))
+    log(f"[33] region - plain API render, torch.profiler over 2 x 5 "
+        f"renders each, a render: profiler events {gap['ops'][0]:.0f} / "
+        f"{gap['ops'][1]:.0f}, their self CPU ms {gap['cpu_ms'][0]:.3f} / "
+        f"{gap['cpu_ms'][1]:.3f}"
+        f", device busy ms {gap['dev_ms'][0]:.4f} / {gap['dev_ms'][1]:.4f}; "
+        f"the ops with the most extra host ms: " + "; ".join(
+            f"{k} {n_a:g}/{n_b:g} calls, {ms:+.3f} ms"
+            for k, n_a, n_b, ms in gap["top"]) + "; most extra device ms: "
+        + "; ".join(f"{k[:60]} {n_a:g}/{n_b:g} calls, {ms:+.4f} ms"
+                    for k, n_a, n_b, ms in gap["top_dev"]))
+    del ht, htr
+    rng8 = np.random.default_rng(8)
+    lats = list(34.4 + rng8.uniform(-0.2, 0.2, SCALE_BATCH))
+    lons = list(-117.6 + rng8.uniform(-0.2, 0.2, SCALE_BATCH))
+    march.launches = resolve.launches = 0
+    imgs_m, rngs_m = h.render_batch(-180, 180, lats, lons, mesh="auto")
+    b_launches = {"window_march": march.launches,
+                  "resolve": resolve.launches}
+    imgs_1, rngs_1 = h.render_batch(-180, 180, lats, lons)
+    if min(b_launches.values()) < 1 or not (
+            np.array_equal(imgs_m, imgs_1) and np.array_equal(rngs_m,
+                                                              rngs_1)):
+        fail(f"render_batch(mesh='auto') (launches {b_launches}) != the "
+             f"one-device batch")
+    vdem = torch.from_numpy(bench_dem(n=VS_N)).to(dev)
+    pts = np.random.default_rng(5).uniform(*COUNT_SPREAD, (COUNT_OBS, 2))
+    vkw = dict(out_center_ij=(COUNT_CENTER, COUNT_CENTER),
+               out_halfwidth=VS_HW, width=VS_W, cells_per_deg=CPD,
+               znear=50.0, zfar=VS_ZFAR, lat_deg=LAT, batch=COUNT_BATCH,
+               device=dev)
+    march.launches = 0
+    counts_m = viewshed_count(vdem, pts.astype(np.float32), mesh="auto",
+                              **vkw)
+    c_launches = march.launches
+    counts_1 = viewshed_count(vdem, pts.astype(np.float32), **vkw)
+    if c_launches < 1 or not torch.equal(counts_m, counts_1):
+        fail(f"viewshed_count(mesh='auto') != one-device counts")
+    log(f"[33] render_batch(mesh='auto') of {SCALE_BATCH} viewpoints "
+        f"{W}x{H} == the one-device batch bitwise, launches {b_launches}; "
+        f"viewshed_count(mesh='auto') of {COUNT_OBS} observers (config 10's "
+        f"shape) == one-device counts exactly, {c_launches} march launches")
+    dist.destroy_process_group()
+
+    # 6. the band march's device time against its bound, and the square's
+    outs = 4 * W * k_lim
+    recs = []
+    for name, fn_k, tex in (
+            ("window_march_band", march_band, False),
+            ("window_march_band_textured", march_band_textured, True)):
+        ms_b, pl_b, bd_b = [], [], []
+        for b in bands:
+            idx = b["band"]
+            j_off, j_hi = band_bounds(idx, r, nb)
+            loc = local_band(dem, idx, r)
+            args = (local_band(cp2, idx, r).full_packed, 2) if tex else ()
+            ms_b.append(graph_ms(lambda: fn_k(loc, pcol, fscal, k_lim, *args,
+                                              j_off, j_hi), GRAPH_LAUNCHES))
+            pl_b.append(cuda_ms_run(lambda i: march_plain(
+                loc, pcol, fscal, k_lim, *args, j_offset=j_off, j_hi=j_hi),
+                10))
+            nbytes = (4 * b["cells"] + pcol.nbytes + fscal.nbytes + outs
+                      + (16 * b["cells"] + outs if tex else 0))
+            flops = (MARCH_TEX_FLOPS if tex else MARCH_FLOPS) * W * k_lim
+            bd_b.append(bound(nbytes, flops, FP32_OPS_PER_S))
+            b[name + "_ms"], b[name + "_bound_ms"] = ms_b[-1], bd_b[-1][0]
+        rec = kernel_entry(
+            name, "horizonator_tpu_torch/kernels/csrc/window_march.cu",
+            "horizonator_tpu/render/window.py:" + ("452" if tex else "446"),
+            launches[name], 0.0, statistics.mean(ms_b),
+            statistics.mean(pl_b), 0, 0, FP32_OPS_PER_S)
+        rec["bound_ms"] = statistics.mean(x[0] for x in bd_b)
+        rec["bound_by"] = bd_b[0][1]
+        rec["bands"] = [dict(band=b["band"], rows=b["rows"],
+                             cells=b["cells"], ms=b[name + "_ms"],
+                             bound_ms=b[name + "_bound_ms"]) for b in bands]
+        recs.append(rec)
+        log(f"[33] {name} device ms a band (graph replay, {GRAPH_LAUNCHES} "
+            f"launches): " + ", ".join(
+                f"band {b['band']} {b[name + '_ms']:.4f} (bound "
+                f"{b[name + '_bound_ms']:.5f}, {b['cells']} cells)"
+                for b in bands) + f"; plain {statistics.mean(pl_b):.4f}; "
+            f"{card}")
+    t_sq = graph_ms(lambda: march(dem, pcol, fscal, k_lim), GRAPH_LAUNCHES)
+    t_sq_t = graph_ms(lambda: march_textured(dem, pcol, fscal, k_lim, plane,
+                                             2), GRAPH_LAUNCHES)
+    log(f"[33] square march device ms in this run: {t_sq:.4f}, textured "
+        f"{t_sq_t:.4f} (against the parent: --time-march); {card}")
+    log(f"[t] phase 33: {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def scale_out_only():
+    """--scale-out: build the kernels, then phase 33 alone."""
+    from horizonator_tpu_torch.kernels import build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    build.build()
+    build.library()
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tiles:
+        write_tiles(tiles, 34, -118)
+        recs = scale_out_phase(torch.device("cuda"), card, tiles)
+    print(card)
+    print(json.dumps({"kernels": recs}))
+    return 0
+
+
 def front_only():
     """--front: build the kernels, then phase 32 alone."""
     from horizonator_tpu_torch.kernels import build
@@ -4416,6 +4876,7 @@ def main(profile_dir=None):
     with tempfile.TemporaryDirectory() as tiles:      # phase 6's tiles again
         write_tiles(tiles, 34, -118)
         front_phase(dev, card, tiles, img6, rng6)
+        scale_kernels = scale_out_phase(dev, card, tiles)
 
     kernels = [
         kernel_entry("window_march",
@@ -4430,6 +4891,7 @@ def main(profile_dir=None):
                      resolve_bytes, resolve_ops, int32_rate),
         *tex_kernels,
         *probe_kernels,
+        *scale_kernels,
     ]
     for entry in kernels:     # the LOD render's launches of the same entry
         entry.update(lod_records.get(entry["name"], {}))
@@ -4526,5 +4988,7 @@ if __name__ == "__main__":
         sys.exit(oracle_only())
     if "--front" in args:
         sys.exit(front_only())
+    if "--scale-out" in args:
+        sys.exit(scale_out_only())
     sys.exit(main(profile_dir=args[args.index("--profile") + 1]
                   if "--profile" in args else None))

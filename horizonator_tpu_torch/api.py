@@ -19,8 +19,15 @@ reference's ``surface="triangulated"`` mesh); "auto" is "window" on the
 bilinear surface and "step" on the triangulated one. Every sampler ends in
 the resolve kernel. ``allow_dem_downloads`` fetches missing .hgt tiles
 from ``dem_url_fmt`` (SRTM1 defaults to DEM_URL_FMT_SRTM1) into
-``dir_dems``. Region sharding and multi-device batches raise
-NotImplementedError.
+``dir_dems``.
+
+Scale-out: ``region_mesh`` ("auto", a rank count or a DeviceMesh with a
+"region" dim, parallel.mesh) splits the DEM into row bands over the mesh's
+ranks, each holding only its band, and render(), horizon() and
+render_batch() run through parallel.regions, bitwise the unsharded
+render; ``render_batch(mesh=)`` shards a batch over ranks. Several ranks
+are one process each (torchrun); "auto" on one process makes a one-rank
+group.
 """
 
 from __future__ import annotations
@@ -78,8 +85,6 @@ class horizonator:
             raise ValueError("shadows=True requires hillshade=True")
         if texture_quality not in ("grid", "grid2x", "hybrid", "exact"):
             raise ValueError(f"unknown texture_quality {texture_quality!r}")
-        if region_mesh is not None:
-            raise NotImplementedError("region_mesh is not ported")
         if surface not in ("bilinear", "triangulated"):
             raise ValueError(f"unknown surface mode {surface!r}")
         if sampler == "auto":
@@ -97,7 +102,13 @@ class horizonator:
             raise ValueError(f"unknown sampler {sampler!r}")
         if hillshade and sampler != "window":
             raise ValueError("hillshade requires sampler='window'")
+        if region_mesh is not None and sampler != "window":
+            raise ValueError("region_mesh requires the 'window' sampler")
         self.sampler = sampler
+        # region_mesh: the grid and its colour planes are placed band by
+        # band in _init_region, never whole on the device
+        self._region = None
+        self._region_pending = region_mesh
 
         self.width = int(width)
         self.height = int(height)
@@ -123,8 +134,8 @@ class horizonator:
             render_radius_m=render_radius_m,
             datadir=dir_dems, srtm1=SRTM1,
             dem_url_fmt=dem_url_fmt if allow_dem_downloads else None)
-        self._dem = torch.from_numpy(
-            self.mosaic.grid.astype(np.float32)).to(self.device)
+        self._dem = (torch.from_numpy(self.mosaic.grid.astype(np.float32))
+                     .to(self.device) if region_mesh is None else None)
         n = self.mosaic.grid.shape[0]
         cpd = self.mosaic.cells_per_deg
         # the sampler's scene: the grid for the window march, a
@@ -173,8 +184,12 @@ class horizonator:
                     lat, lon, sun_time)
             self.sun_az_deg, self.sun_alt_deg = sun_az_deg, sun_alt_deg
             scale = 2 if texture_quality == "grid2x" else 1
+            # (a region instance's grid comes to the device for this once,
+            # as the JAX package's hillshade_planes takes it)
+            dem = (self._dem if self._dem is not None else torch.from_numpy(
+                self.mosaic.grid.astype(np.float32)).to(self.device))
             self._put_color_planes(texture.hillshade_planes(
-                self._dem, cpd, lat, sun_az_deg=sun_az_deg,
+                dem, cpd, lat, sun_az_deg=sun_az_deg,
                 sun_alt_deg=sun_alt_deg, scale=scale,
                 cast_shadows=bool(shadows)), scale)
             self.render_texture = True   # drives the textured render path
@@ -191,14 +206,79 @@ class horizonator:
         self._los_packed = None         # the pair-packed DEM for LOS
         self._skyline_scene = None      # the oracles' skyline march scene
         self._warned_lod_hybrid = False
+        if region_mesh is not None:
+            self._init_region(region_mesh)
 
     def _put_color_planes(self, planes, scale):
         """Half-cell planes are packed once per scene (ColorPlanes2x);
         cell-resolution float planes stay as they are (the march packs them
         for the kernel and samples them unpacked in the near band, as the
-        JAX package does)."""
-        self._color_planes = (texture.prepare_color_planes(planes)
-                              if scale == 2 else planes)
+        JAX package does). A region instance keeps them on the host, for
+        _init_region to place band by band."""
+        planes = texture.prepare_color_planes(planes) if scale == 2 else planes
+        if self._region_pending is not None:
+            self._color_scale = scale
+            planes = (planes.full_packed if scale == 2 else planes).cpu(
+                ).numpy()
+        self._color_planes = planes
+
+    def _init_region(self, region_mesh):
+        """Row bands of the grid over the mesh's "region" dim (api.py:
+        220-285): the grid zero-padded to a band multiple (the padding
+        masked through n_valid_rows), each rank's band and colour band
+        copied to its device from the host and given its halo once (the
+        scene does not change), the z12 atlas (the hybrid near field's)
+        replicated."""
+        from .parallel.mesh import coord, dim_size, resolve_mesh
+        from .parallel.regions import band_of, exchange_halo
+        mesh = resolve_mesh(region_mesh, ("region",), self.device)
+        r, idx = dim_size(mesh, "region"), coord(mesh, "region")
+        n = self.mosaic.grid.shape[0]
+        n_pad = -(-n // r) * r
+        grid = np.pad(self.mosaic.grid.astype(np.float32),
+                      ((0, n_pad - n), (0, 0)))
+        colors, tex_scale = None, 0
+        if self._color_planes is not None:
+            s = tex_scale = self._color_scale
+            planes = np.pad(self._color_planes,
+                            [(0, 0)] * (self._color_planes.ndim - 2)
+                            + [(0, s * (n_pad - n)), (0, 0)])
+            colors = band_of(planes, idx, r, self.device, scale=s)
+            if s == 2:
+                colors = texture.ColorPlanes2x(colors)
+        atlas = (self._atlas if self._exact_near_m is not None
+                 and tex_scale == 2 else None)
+        band = band_of(grid, idx, r, self.device)
+        if colors is None:
+            band, = exchange_halo([band], mesh)
+        else:
+            band, colors = exchange_halo([band, colors], mesh)
+        self._region = dict(mesh=mesh, r=r, n_valid=n, colors=colors,
+                            band=band, tex_scale=tex_scale, atlas=atlas,
+                            fns={})
+
+    def _render_region(self, params, znear, zfar):
+        """render() through the region renderer, one per static config
+        (api.py:287-312); returns (image, ranges, guard)."""
+        from .parallel.regions import make_region_sharded_renderer
+        R = self._region
+        nsteps = self._auto_nsteps(znear, zfar)
+        key = ("render", self.width, self.height, nsteps, self._lat_hint())
+        if key not in R["fns"]:
+            R["fns"][key] = make_region_sharded_renderer(
+                R["mesh"], width=self.width, height=self.height,
+                k_cross=nsteps, cells_per_deg=self.mosaic.cells_per_deg,
+                refine=self.refine, lat_hint_deg=self._lat_hint(),
+                textured=R["tex_scale"] > 0,
+                texture_scale=max(R["tex_scale"], 1),
+                n_valid_rows=R["n_valid"],
+                atlas_params=(self._atlas_params if R["atlas"] is not None
+                              else None),
+                exact_near_m=(self._exact_near_m if R["atlas"] is not None
+                              else None),
+                with_guard=True)
+        fn = R["fns"][key]
+        return fn.run(R["band"], params, R["colors"], R["atlas"])
 
     # -- coverage guard -----------------------------------------------------
 
@@ -401,6 +481,18 @@ class horizonator:
         elif ele_m is not None:
             self.viewer_z = float(ele_m)
 
+        if self._region is not None:
+            if debug_fill is not None:
+                raise NotImplementedError(
+                    "debug_fill is not supported on region_mesh instances "
+                    "(the debug lattice planes are not region-sharded); "
+                    "construct an unsharded horizonator for debug views")
+            image, ranges, guard = self._render_region(
+                self._params(az_deg0, az_deg1, znear, zfar, znear_color,
+                             zfar_color), znear, zfar)
+            return self._finish_render(image, ranges, guard, "window",
+                                       az_deg0, az_deg1, return_image,
+                                       return_range)
         dem, sampler, nsteps, plan, cp, exact_near = self._render_plan(
             znear, zfar, "render")
         textured = self.render_texture
@@ -423,6 +515,11 @@ class horizonator:
             lat_hint_deg=self._lat_hint(), lod_plan=plan, color_planes=cp,
             znear_hint_m=self._znear_hint(znear), with_dropped=True,
             exact_near_m=exact_near)
+        return self._finish_render(image, ranges, guard, sampler, az_deg0,
+                                   az_deg1, return_image, return_range)
+
+    def _finish_render(self, image, ranges, guard, sampler, az_deg0,
+                       az_deg1, return_image, return_range):
         # pick() reads the ranges; the host copy is made only when asked for
         ranges_np = ranges.cpu().numpy() if return_range else None
         self._last = dict(ranges=ranges_np, ranges_dev=ranges,
@@ -448,17 +545,19 @@ class horizonator:
 
         The coverage guard is one host copy for the whole batch: it warns
         (raises under strict_coverage) naming the viewpoints at fault, where
-        the JAX package drops them silently. ``mesh``: multi-device batches
-        are not ported (scale-out) and raise.
+        the JAX package drops them silently.
+
+        ``mesh`` (api.py:752-790): "auto" (every rank on "batch") or a
+        DeviceMesh with a "batch" dim and optionally an "az" dim (columns
+        then shard into azimuth wedges; a batch-only mesh gets a size-1
+        "az"): the viewpoints, padded to a multiple of the batch dim with
+        the last one and sliced back, render over make_sharded_renderer,
+        and every rank returns the whole batch. On a region_mesh instance
+        the batch is a loop of render() calls, and ``mesh`` raises.
 
         Returns (images (B, H, W, 3) uint8 BGR, ranges (B, H, W) float32)
         as numpy arrays, one device-to-host copy each."""
         from .parallel import render_batch as _rb
-        if mesh is not None:
-            raise NotImplementedError(
-                "render_batch(mesh=): multi-device batches need the "
-                "scale-out slice (make_sharded_renderer), which is not "
-                "ported; pass mesh=None")
         if znear_color < 0.0:
             znear_color = znear
         if zfar_color < 0.0:
@@ -468,6 +567,20 @@ class horizonator:
         if len(lats) != len(lons) or not lats:
             raise ValueError(f"render_batch needs as many lats as lons, at "
                              f"least one: got {len(lats)} and {len(lons)}")
+        if self._region is not None:
+            if mesh is not None:
+                raise ValueError("render_batch(mesh=) cannot combine with "
+                                 "a region_mesh instance")
+            return self._region_batch(az_deg0, az_deg1, lats, lons, ele_m,
+                                      znear, zfar, znear_color, zfar_color)
+        b_real = len(lats)
+        if mesh is not None:
+            from .parallel.mesh import dim_size, resolve_mesh
+            mesh = resolve_mesh(mesh, ("batch", "az"), self.device)
+            pad = -b_real % dim_size(mesh, "batch")
+            lats, lons = lats + lats[-1:] * pad, lons + lons[-1:] * pad
+            if ele_m is not None:
+                ele_m = list(ele_m) + list(ele_m)[-1:] * pad
         cells = [self.mosaic.viewer_cell(la, lo) for la, lo in zip(lats,
                                                                     lons)]
         vz = ([float(v) for v in ele_m] if ele_m is not None else
@@ -483,18 +596,44 @@ class horizonator:
             zfar_color=zfar_color, curv=self._curv)
         dem, sampler, nsteps, plan, cp, exact_near = self._render_plan(
             znear, zfar, "render_batch")
-        images, ranges, guard = _rb(
-            dem, params, width=self.width, height=self.height,
-            nsteps=nsteps, cells_per_deg=self.mosaic.cells_per_deg,
-            surface=self.surface, refine=self.refine,
-            textured=self.render_texture, atlas=self._atlas,
-            atlas_params=self._atlas_params, sampler=sampler,
-            lat_hint_deg=self._lat_hint(), lod_plan=plan, color_planes=cp,
-            znear_hint_m=self._znear_hint(znear), with_dropped=True,
-            exact_near_m=exact_near)
-        out = images.cpu().numpy(), ranges.cpu().numpy()
-        self._check_dropped(guard, "render_batch", sampler=sampler)
+        kw = dict(width=self.width, height=self.height, nsteps=nsteps,
+                  cells_per_deg=self.mosaic.cells_per_deg,
+                  surface=self.surface, refine=self.refine,
+                  textured=self.render_texture,
+                  atlas_params=self._atlas_params, sampler=sampler,
+                  lat_hint_deg=self._lat_hint(), lod_plan=plan,
+                  znear_hint_m=self._znear_hint(znear),
+                  exact_near_m=exact_near)
+        if mesh is None:
+            images, ranges, guard = _rb(dem, params, color_planes=cp,
+                                        atlas=self._atlas, with_dropped=True,
+                                        **kw)
+        else:
+            from .parallel import make_sharded_renderer
+            images, ranges, guard = make_sharded_renderer(mesh, **kw)(
+                dem, params, color_planes=cp, atlas=self._atlas,
+                with_dropped=True)
+        out = images[:b_real].cpu().numpy(), ranges[:b_real].cpu().numpy()
+        self._check_dropped(guard[:b_real], "render_batch", sampler=sampler)
         return out
+
+    def _region_batch(self, az_deg0, az_deg1, lats, lons, ele_m, znear,
+                      zfar, znear_color, zfar_color):
+        """render_batch on a region instance: a loop of region renders
+        (api.py:695-711), the viewer state that pick() reads kept as it
+        was."""
+        keep = (self.viewer_lat, self.viewer_lon, self.viewer_z, self._last)
+        try:
+            out = [self.render(az_deg0, az_deg1, lat=la, lon=lo,
+                               ele_m=None if ele_m is None else ele_m[b],
+                               znear=znear, zfar=zfar,
+                               znear_color=znear_color,
+                               zfar_color=zfar_color)
+                   for b, (la, lo) in enumerate(zip(lats, lons))]
+        finally:
+            (self.viewer_lat, self.viewer_lon, self.viewer_z,
+             self._last) = keep
+        return tuple(np.stack(xs) for xs in zip(*out))
 
     def _last_ranges(self):
         """Host copy of the last render's range image (made on first use)."""
@@ -529,6 +668,19 @@ class horizonator:
         params = self._params(float(az_deg0), float(az_deg1), znear, zfar,
                               znear, zfar)
         nsteps = self._auto_nsteps(znear, zfar)
+        if self._region is not None:
+            # the region horizon (api.py:814-830), one per static config
+            from .parallel.regions import make_region_sharded_horizon
+            R = self._region
+            key = ("horizon", width, nsteps, self._lat_hint())
+            if key not in R["fns"]:
+                R["fns"][key] = make_region_sharded_horizon(
+                    R["mesh"], width=width, k_cross=nsteps,
+                    cells_per_deg=self.mosaic.cells_per_deg,
+                    lat_hint_deg=self._lat_hint(),
+                    n_valid_rows=R["n_valid"])
+            az, tan_el = R["fns"][key].run(R["band"], params)
+            return az.cpu().numpy(), tan_el.cpu().numpy()
         if self.sampler == "crossing":
             tanel, _, _, az = march_crossing(
                 self._scene, params, width=width, k_cross=nsteps,
@@ -566,7 +718,13 @@ class horizonator:
         the tangent-plane geometry that pick() uses. Every sampler but the
         window one takes the crossing march here (api.py:901-930), with
         k_cross_for's budget unless nsteps= was given: a uniform-step
-        budget would stop short of zfar above |lat| ~48 deg."""
+        budget would stop short of zfar above |lat| ~48 deg. A region
+        instance raises, as in the JAX package (api.py:879)."""
+        if self._region is not None:
+            raise NotImplementedError(
+                "skyline() on a region_mesh instance is not yet supported "
+                "(the banded march's distance table stays per-band); use "
+                "horizon() or an unsharded instance")
         width = self.width if width is None else int(width)
         params = self._params(float(az_deg0), float(az_deg1), znear, zfar,
                               znear, zfar)
@@ -618,7 +776,9 @@ class horizonator:
         if self.sampler == "step":
             return self._scene
         if self._los_packed is None:
-            self._los_packed = pack_dem_pairs(self._dem)
+            self._los_packed = pack_dem_pairs(
+                self._dem if self._dem is not None else torch.from_numpy(
+                    self.mosaic.grid.astype(np.float32)).to(self.device))
         return self._los_packed
 
     def _los_cells(self, lat0, lon0, lat1, lon1, nsteps):

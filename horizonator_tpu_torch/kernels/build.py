@@ -96,6 +96,13 @@ def library() -> ctypes.CDLL:
     lib.hz_window_march_tex.argtypes = [vp, ci, cll, vp, ci, cll, vp, vp, ci,
                                         ci, ci, vp, vp, vp]
     lib.hz_window_march_tex.restype = ci
+    lib.hz_window_march_band.argtypes = [vp, ci, ci, ci, cf, cll, vp, vp, ci,
+                                         ci, ci, vp, vp]
+    lib.hz_window_march_band.restype = ci
+    lib.hz_window_march_band_tex.argtypes = [vp, ci, ci, ci, cf, cll, vp, ci,
+                                             cll, vp, vp, ci, ci, ci, vp, vp,
+                                             vp]
+    lib.hz_window_march_band_tex.restype = ci
     lib.hz_resolve.argtypes = [vp, ci, ci, ci, cf, cf, ci, vp, vp, vp, vp]
     lib.hz_resolve.restype = ci
     lib.hz_resolve_tex.argtypes = [vp, vp, ci, ci, ci, cf, cf, ci, vp, vp,

@@ -72,6 +72,17 @@
 // --time-march, the two forms in turns in one run), so the single render
 // keeps its code as it was.
 //
+// Bands. The banded entries march a rectangular (nj, ni) grid, a row band
+// of a larger one (region sharding): its rows are band-local, global row =
+// local row + j_off, and the validity bounds are global, as in the TPU
+// kernel's per-column bounds (window.py:822-834): the row coordinate in
+// [j_off, j_off + j_hi] (the axis of row-dominant columns, the cross
+// position of column-dominant ones), the column coordinate in [0, ni-1].
+// Positions, hats and distances stay global, so a band's samples are bitwise
+// the whole grid's; only the addresses shift by j_off rows (s*j_off rows of
+// the color plane), and the row stride is ni. The square entries keep
+// their code (BAND false): the band's bounds and offsets cost them nothing.
+//
 // What bounds it on the H100. The function's bytes (the DEM cells within
 // zfar, the columns' constants, the (W, K) outputs) are a few microseconds
 // at 3.35 TB/s, and the kernel is not held by them: variants without the
@@ -109,10 +120,13 @@ __device__ __forceinline__ void hats(float x, float& fl, float& h_lo,
 
 // pcol: (W, 8) float32 per column: a, t, e, scale, axis0, sign, j_dom, 0.
 // fscal: (4,) float32: viewer z, znear, zfar, curvature coefficient.
-template <bool TEX, bool BATCH>
+// n: the grid's columns (its edge, square); BAND: nj rows from global row
+// j_off, valid up to j_off + j_hi.
+template <bool TEX, bool BATCH, bool BAND>
 __global__ void __launch_bounds__(32 * WARPS)
-window_march_kernel(const float* __restrict__ dem, int n,
-                    long long dem_bstride, const int* __restrict__ colors,
+window_march_kernel(const float* __restrict__ dem, int n, int nj, int j_off,
+                    float j_hi, long long dem_bstride,
+                    const int* __restrict__ colors,
                     int s, long long color_bstride,
                     const float* __restrict__ pcol,
                     const float* __restrict__ fscal, int W, int K,
@@ -148,6 +162,18 @@ window_march_kernel(const float* __restrict__ dem, int n,
   const float hi = (float)(n - 1);
   const unsigned nc = (unsigned)(s * n);
   const unsigned step = j_dom ? 1u : (unsigned)n, cstep = j_dom ? 1u : nc;
+  // a band's global bounds: the row coordinate in [jlo, jhi]
+  float ax_lo = 0.0f, ax_hi = hi, cr_lo = 0.0f, cr_hi = hi;
+  if (BAND) {
+    const float jlo = (float)j_off, jhi = __fadd_rn(jlo, j_hi);
+    ax_lo = j_dom ? jlo : 0.0f;
+    ax_hi = j_dom ? jhi : hi;
+    cr_lo = j_dom ? 0.0f : jlo;
+    cr_hi = j_dom ? hi : jhi;
+  }
+  // the cross axis's extent: columns for row-dominant columns, else rows
+  const unsigned n_cross = BAND && !j_dom ? (unsigned)nj : (unsigned)n;
+  const unsigned off = BAND ? (unsigned)j_off : 0u;
 
   // U steps at a time: first every step's position, validity and loads
   // (no load waits for another), then the arithmetic on what arrived
@@ -163,28 +189,38 @@ window_march_kernel(const float* __restrict__ dem, int n,
       pos[u] = __fmaf_rn(mf, t, a);
       const float axis_m = __fadd_rn(axis0, __fmul_rn(mf, sgn));
       dm[u] = __fmul_rn(__fadd_rn(mf, e), scale);
-      valid[u] = w < W && m < K && axis_m >= 0.0f && axis_m <= hi &&
-                 pos[u] >= 0.0f && pos[u] <= hi && dm[u] >= znear &&
-                 dm[u] <= zfar;
-      // the addresses of an invalid step are never used
-      const unsigned r = (unsigned)(int)floorf(pos[u]);
-      const unsigned ax = (unsigned)(int)axis_m;
+      if (BAND)
+        valid[u] = w < W && m < K && axis_m >= ax_lo && axis_m <= ax_hi &&
+                   pos[u] >= cr_lo && pos[u] <= cr_hi && dm[u] >= znear &&
+                   dm[u] <= zfar;
+      else
+        valid[u] = w < W && m < K && axis_m >= 0.0f && axis_m <= hi &&
+                   pos[u] >= 0.0f && pos[u] <= hi && dm[u] >= znear &&
+                   dm[u] <= zfar;
+      // the addresses of an invalid step are never used; a band's rows are
+      // local (the global row less j_off)
+      const unsigned r = (unsigned)(int)floorf(pos[u]) - (j_dom ? 0u : off);
+      const unsigned ax = (unsigned)(int)axis_m - (j_dom ? off : 0u);
       const unsigned long long i_lo =
           (unsigned long long)(j_dom ? ax : r) * (unsigned)n +
           (j_dom ? r : ax);
       z_lo[u] = valid[u] ? __ldg(dem + i_lo) : 0.0f;
-      // pos == n-1 exactly: the upper tap lies outside the grid with weight 0
-      z_hi[u] = (valid[u] && r + 1u < (unsigned)n) ? __ldg(dem + i_lo + step)
-                                                   : 0.0f;
+      // pos on the last line exactly: the upper tap lies outside the grid
+      // with weight 0
+      z_hi[u] = (valid[u] && r + 1u < n_cross) ? __ldg(dem + i_lo + step)
+                                               : 0.0f;
       if (TEX) {
         const unsigned rc =
-            (unsigned)(int)floorf(__fmul_rn(pos[u], (float)s));
+            (unsigned)(int)floorf(__fmul_rn(pos[u], (float)s)) -
+            (j_dom ? 0u : (unsigned)s * off);
         const unsigned axc = (unsigned)s * ax;
         const unsigned long long ci =
             (unsigned long long)(j_dom ? axc : rc) * nc + (j_dom ? rc : axc);
         c_lo[u] = valid[u] ? __ldg(colors + ci) : 0;
-        // at s = 1 the tap past pos == n-1 is outside, as for the DEM
-        c_hi[u] = (valid[u] && rc + 1u < nc) ? __ldg(colors + ci + cstep) : 0;
+        // at s = 1 the tap past the last line is outside, as for the DEM
+        c_hi[u] = (valid[u] && rc + 1u < (unsigned)s * n_cross)
+                      ? __ldg(colors + ci + cstep)
+                      : 0;
       }
     }
 #pragma unroll
@@ -228,11 +264,11 @@ window_march_kernel(const float* __restrict__ dem, int n,
   }
 }
 
-template <bool TEX>
-int launch(const void* dem, int n, long long dem_bstride, const void* colors,
-           int s, long long color_bstride, const void* pcol,
-           const void* fscal, int B, int W, int K, void* out, void* tex,
-           void* stream) {
+template <bool TEX, bool BAND>
+int launch(const void* dem, int n, int nj, int j_off, float j_hi,
+           long long dem_bstride, const void* colors, int s,
+           long long color_bstride, const void* pcol, const void* fscal,
+           int B, int W, int K, void* out, void* tex, void* stream) {
   if (B <= 0 || W <= 0 || K <= 0) return (int)cudaGetLastError();
   const unsigned col_tiles = ((unsigned)W + COLS - 1) / COLS;
   const unsigned step_tiles = ((unsigned)K + STEPS - 1) / STEPS;
@@ -241,14 +277,15 @@ int launch(const void* dem, int n, long long dem_bstride, const void* colors,
   if (step_tiles > 65535u || ((uintptr_t)pcol & 15u))
     return (int)cudaErrorInvalidValue;
   // the viewpoints ride on gridDim.z, at most MAX_Z a launch
-  auto kernel = B > 1 ? window_march_kernel<TEX, true>
-                      : window_march_kernel<TEX, false>;
+  auto kernel = B > 1 ? window_march_kernel<TEX, true, BAND>
+                      : window_march_kernel<TEX, false, BAND>;
   for (long long b0 = 0; b0 < B; b0 += MAX_Z) {
     const unsigned nb = (unsigned)(B - b0 < MAX_Z ? B - b0 : MAX_Z);
     const long long wk = b0 * W * K;
     kernel<<<dim3(col_tiles, step_tiles, nb), dim3(32, WARPS), 0,
            (cudaStream_t)stream>>>(
-            (const float*)dem + b0 * dem_bstride, n, dem_bstride,
+            (const float*)dem + b0 * dem_bstride, n, nj, j_off, j_hi,
+            dem_bstride,
             TEX ? (const int*)colors + b0 * color_bstride : nullptr, s,
             color_bstride, (const float*)pcol + b0 * W * PCOL,
             (const float*)fscal + b0 * 4, W, K, (float*)out + wk,
@@ -266,8 +303,8 @@ int launch(const void* dem, int n, long long dem_bstride, const void* colors,
 extern "C" int hz_window_march(const void* dem, int n, long long dem_bstride,
                                const void* pcol, const void* fscal, int B,
                                int W, int K, void* out, void* stream) {
-  return launch<false>(dem, n, dem_bstride, nullptr, 1, 0, pcol, fscal, B, W,
-                       K, out, nullptr, stream);
+  return launch<false, false>(dem, n, n, 0, 0.0f, dem_bstride, nullptr, 1, 0,
+                              pcol, fscal, B, W, K, out, nullptr, stream);
 }
 
 // colors: (s*n, s*n) int32 at colors + b * color_bstride; tex (B, W, K)
@@ -277,6 +314,31 @@ extern "C" int hz_window_march_tex(const void* dem, int n,
                                    const void* pcol, const void* fscal, int B,
                                    int W, int K, void* out, void* tex,
                                    void* stream) {
-  return launch<true>(dem, n, dem_bstride, colors, s, color_bstride, pcol,
-                      fscal, B, W, K, out, tex, stream);
+  return launch<true, false>(dem, n, n, 0, 0.0f, dem_bstride, colors, s,
+                             color_bstride, pcol, fscal, B, W, K, out, tex,
+                             stream);
+}
+
+// a band: dem (nj, ni) float32, global rows j_off .. j_off + nj - 1, valid
+// up to global row j_off + j_hi; at dem + b * dem_bstride for viewpoint b
+extern "C" int hz_window_march_band(const void* dem, int nj, int ni,
+                                    int j_off, float j_hi,
+                                    long long dem_bstride, const void* pcol,
+                                    const void* fscal, int B, int W, int K,
+                                    void* out, void* stream) {
+  return launch<false, true>(dem, ni, nj, j_off, j_hi, dem_bstride, nullptr,
+                             1, 0, pcol, fscal, B, W, K, out, nullptr,
+                             stream);
+}
+
+// colors: the band's (s*nj, s*ni) int32 plane, its rows from global 2x row
+// s*j_off
+extern "C" int hz_window_march_band_tex(
+    const void* dem, int nj, int ni, int j_off, float j_hi,
+    long long dem_bstride, const void* colors, int s, long long color_bstride,
+    const void* pcol, const void* fscal, int B, int W, int K, void* out,
+    void* tex, void* stream) {
+  return launch<true, true>(dem, ni, nj, j_off, j_hi, dem_bstride, colors, s,
+                            color_bstride, pcol, fscal, B, W, K, out, tex,
+                            stream);
 }

@@ -30,6 +30,15 @@ sample's packed 0x00RRGGBB color from an (s*n, s*n) int32 plane, s = 1
 ``floor(s*pos) + {0, 1}`` across it, weighted ``relu(1 - |s*pos - r|)``,
 per channel ``fma(h_hi, c_hi, h_lo*c_lo)`` (the same accumulation XLA
 fuses), then round half to even and clip to u8. Invalid samples get 0.
+
+``march_band`` and ``march_band_textured`` (the source's banded entries)
+march a rectangular (nj, ni) grid whose rows are a band of a larger one:
+local row = global row - ``j_offset``, with the row coordinate valid in
+[j_offset, j_offset + j_hi] (global, float32) and the column coordinate in
+[0, ni - 1]. Positions, hats and distances stay global, so each sample is
+bitwise the whole grid's march (window.py:822-834); the band's color
+plane is (s*nj, s*ni), its rows from global 2x row s*j_offset. With
+j_offset 0, j_hi n - 1 and a square grid every bound is the square one.
 """
 
 from __future__ import annotations
@@ -67,51 +76,67 @@ def _hats(x: torch.Tensor):
 
 
 def _taps(plane: torch.Tensor, r: torch.Tensor, ax: torch.Tensor,
-          jd: torch.Tensor):
-    """The two values of a square plane at cross positions r and r + 1 on
-    line ``ax`` (a row for j-dominant rays, else a column); the upper one
-    is 0 where r + 1 lies outside (its weight is 0 there). A plane of
-    shape (B, rows, rows) holds one plane per viewpoint of (B, W, k)
-    positions; a 2-D plane is shared by all."""
-    rows = plane.shape[-1]
-    i_lo = torch.where(jd, ax * rows + r, r * rows + ax)
+          jd: torch.Tensor, off: int = 0):
+    """The two values of a (rows, cols) plane at global cross positions r
+    and r + 1 on global line ``ax`` (a row for j-dominant rays, else a
+    column); the plane's row 0 is global row ``off``. The upper value is 0
+    where r + 1 lies outside (its weight is 0 there); indices of invalid
+    samples are clamped into the plane. A plane of shape (B, rows, cols)
+    holds one plane per viewpoint of (B, W, k) positions; a 2-D plane is
+    shared by all."""
+    rows, ncols = plane.shape[-2:]
+    row = torch.where(jd, ax, r) - off
+    col = torch.where(jd, r, ax)
+    row, col = row.clamp(0, rows - 1), col.clamp(0, ncols - 1)
+    i_lo = row * ncols + col
     if plane.dim() == 3:
         b = torch.arange(plane.shape[0], device=plane.device)[:, None, None]
-        i_lo = i_lo + b * (rows * rows)
-    has_hi = r + 1 < rows
-    i_hi = torch.where(has_hi, i_lo + torch.where(jd, 1, rows), i_lo)
+        i_lo = i_lo + b * (rows * ncols)
+    has_hi = torch.where(jd, col + 1 < ncols, row + 1 < rows)
+    i_hi = torch.where(has_hi, i_lo + torch.where(jd, 1, ncols), i_lo)
     flat = plane.reshape(-1)
     return flat[i_lo], torch.where(has_hi, flat[i_hi], 0)
 
 
 def march_plain(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
-                k: int, colors: torch.Tensor | None = None, scale: int = 1):
+                k: int, colors: torch.Tensor | None = None, scale: int = 1,
+                j_offset: int = 0, j_hi: float | None = None):
     """(W, k) float32 samples, plus their (W, k) int32 packed colors when
     ``colors`` is given; the gather form of the kernel's math. Batched as
     the kernel's wrappers are: pcol (B, W, 8) and fscal (B, 4) give (B, W,
-    k), from a shared (n, n) DEM or one (B, n, n) per viewpoint (colors
-    likewise)."""
-    n = dem.shape[-1]
+    k), from a shared DEM or one (B, nj, ni) per viewpoint (colors
+    likewise). A band (``j_offset``, ``j_hi``, the banded entries' module
+    docstring) may be rectangular; j_hi defaults to nj - 1."""
+    nj, ni = dem.shape[-2:]
     a, t, e, dscale, axis0, sgn, jdom = (pcol[..., c:c + 1] for c in range(7))
     vz, znear, zfar, curv = (fscal[..., c, None, None] for c in range(4))
     mf = torch.arange(k, dtype=torch.float32, device=dem.device)[None, :]
     pos = fma32(mf, t, a)
     axis_m = axis0 + mf * sgn
     dm = (mf + e) * dscale
-    hi = float(n - 1)
-    valid = ((axis_m >= 0.0) & (axis_m <= hi) & (pos >= 0.0) & (pos <= hi)
-             & (dm >= znear) & (dm <= zfar))
-    fl, h_lo, h_hi = _hats(pos)
-    ax = axis_m.clamp(0, n - 1).to(torch.int64)
     jd = jdom != 0.0
-    z_lo, z_hi = _taps(dem, fl.clamp(0, n - 1).to(torch.int64), ax, jd)
+    # global bounds: the row coordinate in [jlo, jhi], columns [0, ni - 1]
+    jlo = torch.tensor(float(j_offset), dtype=torch.float32,
+                       device=dem.device)
+    jhi = jlo + torch.tensor(float(nj - 1 if j_hi is None else j_hi),
+                             dtype=torch.float32, device=dem.device)
+    hi = float(ni - 1)
+    ax_lo, ax_hi = torch.where(jd, jlo, 0.0), torch.where(jd, jhi, hi)
+    cr_lo, cr_hi = torch.where(jd, 0.0, jlo), torch.where(jd, hi, jhi)
+    valid = ((axis_m >= ax_lo) & (axis_m <= ax_hi) & (pos >= cr_lo)
+             & (pos <= cr_hi) & (dm >= znear) & (dm <= zfar))
+    fl, h_lo, h_hi = _hats(pos)
+    big = j_offset + max(nj, ni)       # clamped, so the int64 casts hold
+    ax = axis_m.clamp(-1, big).to(torch.int64)
+    z_lo, z_hi = _taps(dem, fl.clamp(-1, big).to(torch.int64), ax, jd,
+                       j_offset)
     z = fma32(h_hi, z_hi, h_lo * z_lo)
     tanel = torch.where(valid, fma32(-dm, curv, (z - vz) / dm), NEG_BIG)
     if colors is None:
         return tanel
     flc, hc_lo, hc_hi = _hats(pos * float(scale))
-    c_lo, c_hi = _taps(colors, flc.clamp(0, colors.shape[-1] - 1).to(
-        torch.int64), ax * scale, jd)
+    c_lo, c_hi = _taps(colors, flc.clamp(-1, scale * big).to(torch.int64),
+                       ax * scale, jd, scale * j_offset)
     packed = torch.zeros_like(c_lo)
     for sh in (0, 8, 16):                                     # B, G, R
         v = fma32(hc_hi, ((c_hi >> sh) & 0xff).to(torch.float32),
@@ -129,27 +154,29 @@ def _check(fn: str, name: str, x: torch.Tensor, shape, dtype, device):
                          f"{tuple(x.shape)} on {x.device}")
 
 
-def _plane_stride(fn: str, name: str, x: torch.Tensor, edge: int, b: int,
+def _plane_stride(fn: str, name: str, x: torch.Tensor, shape, b: int,
                   batched: bool, dtype, device) -> int:
-    """Checks a shared (edge, edge) plane or, in a batch, one (b, edge,
-    edge) plane per viewpoint; returns its batch stride in elements (0:
-    shared)."""
+    """Checks a shared plane of ``shape`` (rows, cols) or, in a batch, one
+    (b, rows, cols) plane per viewpoint; returns its batch stride in
+    elements (0: shared)."""
     per_view = batched and x.dim() == 3
-    _check(fn, name, x, (b, edge, edge) if per_view else (edge, edge), dtype,
+    _check(fn, name, x, (b, *shape) if per_view else tuple(shape), dtype,
            device)
-    return edge * edge if per_view else 0
+    return shape[0] * shape[1] if per_view else 0
 
 
-def _check_march(fn: str, dem, pcol, fscal):
+def _check_march(fn: str, dem, pcol, fscal, band: bool = False):
     """(B, W, n, DEM batch stride, batched) of a launch: pcol (W, 8) and
     fscal (4,) march one viewpoint of a 2-D DEM; pcol (B, W, 8) and fscal
-    (B, 4) a batch, of a shared (n, n) DEM or one (B, n, n) each."""
+    (B, 4) a batch, of a shared (n, n) DEM or one (B, n, n) each (``band``:
+    (nj, ni) and (B, nj, ni))."""
     if dem.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {dem.device}")
     batched = pcol.dim() == 3
     b, w = (pcol.shape[0], pcol.shape[1]) if batched else (1, pcol.shape[0])
     n = dem.shape[-1]
-    stride = _plane_stride(fn, "dem", dem, n, b, batched, torch.float32,
+    shape = tuple(dem.shape[-2:]) if band else (n, n)
+    stride = _plane_stride(fn, "dem", dem, shape, b, batched, torch.float32,
                            dem.device)
     _check(fn, "pcol", pcol, (b, w, PCOL_WIDTH) if batched
            else (w, PCOL_WIDTH), torch.float32, dem.device)
@@ -199,8 +226,9 @@ def march_textured(dem: torch.Tensor, pcol: torch.Tensor,
                                             fscal)
     if scale not in (1, 2):
         raise ValueError(f"march_textured: scale must be 1 or 2, got {scale}")
-    cstride = _plane_stride("march_textured", "colors", colors, scale * n, b,
-                            batched, torch.int32, dem.device)
+    cstride = _plane_stride("march_textured", "colors", colors,
+                            (scale * n, scale * n), b, batched, torch.int32,
+                            dem.device)
     shape = (b, w, k) if batched else (w, k)
     out = torch.empty(shape, dtype=torch.float32, device=dem.device)
     tex = torch.empty(shape, dtype=torch.int32, device=dem.device)
@@ -216,3 +244,70 @@ def march_textured(dem: torch.Tensor, pcol: torch.Tensor,
 
 
 march_textured.launches = 0
+
+
+def _band_args(fn: str, dem, j_offset: int, j_hi: float):
+    nj, ni = dem.shape[-2:]
+    if not 0 <= int(j_offset) < 1 << 30:
+        raise ValueError(f"{fn}: j_offset {j_offset} out of range")
+    return nj, ni, int(j_offset), float(j_hi)
+
+
+def march_band(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
+               k: int, j_offset: int, j_hi: float) -> torch.Tensor:
+    """(W, k) far-field samples of a row band: a rectangular (nj, ni)
+    float32 grid whose row 0 is global row ``j_offset``, rows valid up to
+    global j_offset + j_hi (module docstring). Batched as ``march``: one
+    (nj, ni) band for every viewpoint or (B, nj, ni)."""
+    if dem.device.type == "cpu":
+        return march_plain(dem, pcol, fscal, k, j_offset=j_offset, j_hi=j_hi)
+    b, w, _, stride, batched = _check_march("march_band", dem, pcol, fscal,
+                                            band=True)
+    nj, ni, off, jh = _band_args("march_band", dem, j_offset, j_hi)
+    out = torch.empty((b, w, k) if batched else (w, k), dtype=torch.float32,
+                      device=dem.device)
+    rc = build.library().hz_window_march_band(
+        dem.data_ptr(), nj, ni, off, jh, stride, pcol.data_ptr(),
+        fscal.data_ptr(), b, w, k, out.data_ptr(),
+        torch.cuda.current_stream(dem.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"banded window march launch failed: CUDA error "
+                           f"{rc}")
+    march_band.launches += 1
+    return out
+
+
+march_band.launches = 0
+
+
+def march_band_textured(dem: torch.Tensor, pcol: torch.Tensor,
+                        fscal: torch.Tensor, k: int, colors: torch.Tensor,
+                        scale: int, j_offset: int, j_hi: float):
+    """(tanel (W, k), tex (W, k) int32): ``march_band`` plus each sample's
+    packed color from the band's (scale*nj, scale*ni) int32 plane, whose
+    row 0 is global 2x row scale*j_offset. Batched as ``march_band``."""
+    if dem.device.type == "cpu":
+        return march_plain(dem, pcol, fscal, k, colors, scale,
+                           j_offset=j_offset, j_hi=j_hi)
+    fn = "march_band_textured"
+    b, w, _, stride, batched = _check_march(fn, dem, pcol, fscal, band=True)
+    nj, ni, off, jh = _band_args(fn, dem, j_offset, j_hi)
+    if scale not in (1, 2):
+        raise ValueError(f"{fn}: scale must be 1 or 2, got {scale}")
+    cstride = _plane_stride(fn, "colors", colors, (scale * nj, scale * ni),
+                            b, batched, torch.int32, dem.device)
+    shape = (b, w, k) if batched else (w, k)
+    out = torch.empty(shape, dtype=torch.float32, device=dem.device)
+    tex = torch.empty(shape, dtype=torch.int32, device=dem.device)
+    rc = build.library().hz_window_march_band_tex(
+        dem.data_ptr(), nj, ni, off, jh, stride, colors.data_ptr(), scale,
+        cstride, pcol.data_ptr(), fscal.data_ptr(), b, w, k, out.data_ptr(),
+        tex.data_ptr(), torch.cuda.current_stream(dem.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"textured banded window march launch failed: "
+                           f"CUDA error {rc}")
+    march_band_textured.launches += 1
+    return out, tex
+
+
+march_band_textured.launches = 0

@@ -49,8 +49,17 @@ for every sampler; the crossing sampler also takes a
 render.crossing.CrossingScene and the step sampler a pack_dem_pairs plane
 (both then resample with "gather", as "auto" picks for them).
 
-``mesh=`` (scale-out) and an ``aligned_scene`` (the port marches without
-AlignedScene tables) raise NotImplementedError.
+``mesh=`` (viewshed_sweep, viewshed_count): "auto" or a DeviceMesh with a
+"batch" dim (parallel.mesh); each batch of viewpoints splits over its
+ranks, with the DEM replicated. The sweep's profiles are all-gathered and
+the count's per-rank partial counts summed by one all-reduce, so every
+rank returns the whole result. An ``aligned_scene`` (the port marches
+without AlignedScene tables) raises NotImplementedError.
+
+A window march takes a rectangular grid as the JAX package's does. The
+sweeps' viewer elevations read a pack_dem_pairs plane whose row stride the
+JAX package takes from the grid's row count (viewshed.py:1007-1009), right
+only for a square grid: the sweeps here refuse other grids.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed
 
 from .. import geometry
 from ..geometry import const, recip
@@ -86,23 +96,32 @@ DIRECT_BYTES = 1 << 30
 SAMPLERS = ("window", "crossing", "step")
 
 
-def _check_port(fn: str, sampler: str, aligned_scene=None, mesh=None):
+def _check_port(fn: str, sampler: str, aligned_scene=None):
     if sampler not in SAMPLERS:
         raise ValueError(f"{fn}: unknown sampler {sampler!r}")
     if aligned_scene is not None:
         raise NotImplementedError(
             f"{fn}: aligned_scene= is not ported (the port marches without "
             f"AlignedScene tables); pass None")
-    if mesh is not None:
-        raise NotImplementedError(f"{fn}: mesh= (scale-out) is not ported")
 
 
 def _check_grid(fn: str, dem, sampler: str):
-    """The window march takes a square float grid."""
-    if sampler == "window" and (dem.dim() != 2
-                                or dem.shape[0] != dem.shape[1]):
-        raise NotImplementedError(f"{fn}: the window sampler takes a square "
-                                  f"elevation grid, got {tuple(dem.shape)}")
+    """The window march takes one 2-D float grid, square or not."""
+    if sampler == "window" and dem.dim() != 2:
+        raise ValueError(f"{fn}: the window sampler takes a 2-D elevation "
+                         f"grid, got {tuple(dem.shape)}")
+
+
+def _batch_mesh(fn: str, mesh, batch: int, device):
+    """(mesh, ranks on "batch", this rank's index) of a sweep's ``mesh``;
+    ``batch`` must divide over the ranks (viewshed.py:1066-1070)."""
+    from ..parallel.mesh import coord, dim_size, resolve_mesh
+    mesh = resolve_mesh(mesh, ("batch",), device)
+    n_b = dim_size(mesh, "batch")
+    if batch % n_b:
+        raise ValueError(f"batch {batch} not divisible by mesh batch axis "
+                         f"{n_b}")
+    return mesh, n_b, coord(mesh, "batch")
 
 
 def _is_packed(dem) -> bool:
@@ -520,6 +539,11 @@ def _sweep_prep(dem, viewpoints_ij, viewer_height_m, *, nsteps,
         raise TypeError("viewpoint sweeps with sampler='crossing'/'window' "
                         "need the elevation grid, not a pack_dem_pairs "
                         "plane")
+    if dem_t.dim() != 2 or (dem_t.shape[0] != dem_t.shape[1]
+                            and not _is_packed(dem_t)):
+        raise ValueError(f"viewpoint sweeps take a square grid (the viewer "
+                         f"elevations' pair plane), got "
+                         f"{tuple(dem_t.shape)}")
     packed, n = _as_packed(dem_t)
     pts = torch.from_numpy(np.asarray(viewpoints_ij, np.float32).reshape(
         -1, 2)).to(device)
@@ -562,19 +586,41 @@ def viewshed_sweep(dem, viewpoints_ij, *, viewer_height_m=2.0, width=256,
     a square elevation grid (numpy or tensor, int16 accepted; the step
     sampler also takes its pack_dem_pairs plane), moved to ``device``.
     The default sampler is the crossing march, as in the JAX package;
-    ``surface`` applies to the step sampler."""
-    _check_port("viewshed_sweep", sampler, mesh=mesh)
+    ``surface`` applies to the step sampler. ``mesh``: each batch splits
+    over the ranks of its "batch" dim (the module docstring); the last
+    batch is padded with the last viewpoint, as in the JAX package."""
+    _check_port("viewshed_sweep", sampler)
     dem_f, pts, vz, nsteps, lat_hint, cos_lat = _sweep_prep(
         dem, viewpoints_ij, viewer_height_m, sampler=sampler, nsteps=nsteps,
         cells_per_deg=cells_per_deg, zfar=zfar,
         cos_viewer_lat=cos_viewer_lat, lat_deg=lat_deg, device=device)
-    outs = [horizon_sweep(dem_f, _observer_params(
-        pts[s:s + batch], vz[s:s + batch], cos_lat, znear, zfar),
-        width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
-        surface=surface, sampler=sampler, lat_hint_deg=lat_hint,
-        znear_hint_m=float(znear), plain=plain)
-        for s in range(0, pts.shape[0], batch)]
-    return torch.cat(outs)
+    kw = dict(width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
+              surface=surface, sampler=sampler, lat_hint_deg=lat_hint,
+              znear_hint_m=float(znear), plain=plain)
+    nview = pts.shape[0]
+    if mesh is None:
+        return torch.cat([horizon_sweep(dem_f, _observer_params(
+            pts[s:s + batch], vz[s:s + batch], cos_lat, znear, zfar), **kw)
+            for s in range(0, nview, batch)])
+    from ..parallel.mesh import all_gather
+    mesh, n_b, idx = _batch_mesh("viewshed_sweep", mesh, batch, device)
+    pts, vz = _pad_last(pts, vz, batch)
+    step = batch // n_b
+    outs = []
+    for s in range(0, pts.shape[0], batch):
+        lo = s + idx * step
+        mine = horizon_sweep(dem_f, _observer_params(
+            pts[lo:lo + step], vz[lo:lo + step], cos_lat, znear, zfar), **kw)
+        outs.append(all_gather(mine, mesh, "batch", 0))
+    return torch.cat(outs)[:nview]
+
+
+def _pad_last(pts, vz, batch: int):
+    """The viewpoints padded to a multiple of ``batch`` with the last one
+    (viewshed.py:1082-1085)."""
+    pad = -pts.shape[0] % batch
+    return (torch.cat([pts, pts[-1:].expand(pad, 2)]),
+            torch.cat([vz, vz[-1:].expand(pad)]))
 
 
 def viewshed_count(dem, viewpoints_ij, *, out_center_ij, out_halfwidth,
@@ -588,22 +634,38 @@ def viewshed_count(dem, viewpoints_ij, *, out_center_ij, out_halfwidth,
     viewshed_sweep, full circles; ``batch`` observers go through
     viewshed_grid(full_circle=True) at a time and accumulate on the
     device. The crossing and step samplers resample with "gather" (their
-    packed scenes, as in the JAX package)."""
-    _check_port("viewshed_count", sampler, mesh=mesh)
+    packed scenes, as in the JAX package). ``mesh``: each batch splits
+    over the ranks of its "batch" dim, each rank counts its share, and
+    one all-reduce sums the counts; the padding observers of the last
+    batch count nothing."""
+    _check_port("viewshed_count", sampler)
     dem_f, pts, vz, nsteps, lat_hint, cos_lat = _sweep_prep(
         dem, viewpoints_ij, viewer_height_m, sampler=sampler, nsteps=nsteps,
         cells_per_deg=cells_per_deg, zfar=zfar,
         cos_viewer_lat=cos_viewer_lat, lat_deg=lat_deg, device=device)
     hw = int(out_halfwidth)
     center = (float(out_center_ij[0]), float(out_center_ij[1]))
+    nview = pts.shape[0]
+    step, starts = batch, range(0, nview, batch)
+    if mesh is not None:
+        mesh, n_b, idx = _batch_mesh("viewshed_count", mesh, batch, device)
+        pts, vz = _pad_last(pts, vz, batch)
+        step = batch // n_b
+        starts = range(idx * step, pts.shape[0], batch)
     total = torch.zeros((2 * hw, 2 * hw), dtype=torch.int32, device=device)
-    for s in range(0, pts.shape[0], batch):
+    for s in starts:
+        n_real = min(step, nview - s)
+        if n_real <= 0:
+            continue
         vis = viewshed_grid(
-            dem_f, _observer_params(pts[s:s + batch], vz[s:s + batch],
+            dem_f, _observer_params(pts[s:s + n_real], vz[s:s + n_real],
                                     cos_lat, znear, zfar),
             width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
             sampler=sampler, lat_hint_deg=lat_hint,
             znear_hint_m=float(znear), out_halfwidth=hw,
             out_center_ij=center, full_circle=True, plain=plain)
         total += vis.sum(dim=0, dtype=torch.int32)
+    if mesh is not None:
+        from ..parallel.mesh import all_reduce
+        all_reduce(total, mesh, "batch", torch.distributed.ReduceOp.SUM)
     return total

@@ -1,7 +1,8 @@
 """The window march: every image column's samples along its ray.
 
-Counterpart of horizonator_tpu.render.window.march_window for a square,
-unsharded grid, untextured or textured. The output is the JAX package's
+Counterpart of horizonator_tpu.render.window.march_window, untextured or
+textured, on a square grid or a rectangular row band (``j_hi``,
+``j_offset``: region sharding). The output is the JAX package's
 ``scene=None`` lane layout, (W, N_NEAR + k_limit):
 
 - lanes [0, N_NEAR): the near band, N_NEAR bilinear samples over
@@ -23,6 +24,15 @@ kernel's textured entry, the near band bilinear at the planes' own
 resolution, and, with an atlas and ``exact_near_m`` (the API's "hybrid"
 quality), atlas-true z12 colors for the samples nearer than exact_near_m.
 
+Bands: a rectangular (nj, ni) grid whose row 0 is global row ``j_offset``
+(default 0), its rows valid up to global j_offset + ``j_hi`` (default nj -
+1). The geometry stays global, so every sample is bitwise the whole grid's
+march; the row coordinate shifts only where it indexes the band and its
+color planes (cell (3, nj, ni), packed (nj, ni), or a band-local half-cell
+ColorPlanes2x of (2 nj, 2 ni)), which are checked on both dims. The far
+field takes the kernel's banded entries; a square grid with neither
+argument keeps the square entries.
+
 Batch: with (B,) RenderParams fields every array gains a leading B, (B, W)
 per column and (B, W, N_NEAR + k_limit) per sample, the guards come back
 per viewpoint as (B,) counts, and the kernel marches the whole batch in
@@ -37,12 +47,14 @@ from __future__ import annotations
 
 import math
 import warnings
+from typing import NamedTuple
 
 import torch
 
 from .. import geometry
 from ..geometry import const
-from ..kernels.window_march import (fma32, march, march_plain,
+from ..kernels.window_march import (fma32, march, march_band,
+                                    march_band_textured, march_plain,
                                     march_textured)
 from .crossing import (CrossingDists, CrossingGeom, N_NEAR, NEG_BIG,
                        _grid_pos, _near_samples, crossing_geometry)
@@ -77,24 +89,44 @@ def step_budget(k_cross: int, n: int) -> int:
     return min(k_cross, k_kernel)
 
 
-def _truncated(geo: CrossingGeom, p: RenderParams, n: int,
+class Band(NamedTuple):
+    """A march grid's rows in global coordinates: row 0 is global row
+    ``offset``; rows are valid in [offset, offset + j_hi] (float32 values,
+    ``j_hi`` possibly below 0: no valid row)."""
+    offset: int
+    j_hi: float
+    ni: int
+
+    def bounds(self, geo: CrossingGeom):
+        """(axis_lo, axis_hi, cross_lo, cross_hi) per column, global
+        (window.py:822-834): the row coordinate is the axis of row-dominant
+        columns and the cross position of the others."""
+        jlo = const(float(self.offset), geo.a)
+        jhi = jlo + const(self.j_hi, geo.a)
+        zero, hi = const(0.0, geo.a), const(self.ni - 1.0, geo.a)
+        jd = geo.j_dom
+        return (torch.where(jd, jlo, zero), torch.where(jd, jhi, hi),
+                torch.where(jd, zero, jlo), torch.where(jd, hi, jhi))
+
+
+def _truncated(geo: CrossingGeom, p: RenderParams, band: Band,
                k_limit: int) -> torch.Tensor:
     """Columns whose valid crossing interval [m_lo, m_hi] reaches past the
-    step budget (window.py:850-877, square grid: all bounds [0, n-1])."""
-    lo = const(0.0, geo.a)
-    hi = const(n - 1.0, geo.a)
+    step budget (window.py:850-877), against the band's bounds (on a square
+    grid all of them [0, n-1])."""
+    axis_lo, axis_hi, cross_lo, cross_hi = band.bounds(geo)
     ax0f = geo.axis0.to(torch.float32)
     sgnf = geo.sign.to(torch.float32)
     big = const(3e38, geo.a)
     abs_t = torch.maximum(geo.t.abs(), const(1e-30, geo.a))
-    ax_hi_m = torch.where(sgnf > 0, hi - ax0f, ax0f - lo)
-    ax_lo_m = torch.where(sgnf > 0, lo - ax0f, ax0f - hi)
+    ax_hi_m = torch.where(sgnf > 0, axis_hi - ax0f, ax0f - axis_lo)
+    ax_lo_m = torch.where(sgnf > 0, axis_lo - ax0f, ax0f - axis_hi)
     pos_hi_m = torch.where(
         geo.t == 0.0, big,
-        torch.where(geo.t > 0, hi - geo.a, geo.a - lo) / abs_t)
+        torch.where(geo.t > 0, cross_hi - geo.a, geo.a - cross_lo) / abs_t)
     pos_lo_m = torch.where(
         geo.t == 0.0, -big,
-        torch.where(geo.t > 0, lo - geo.a, geo.a - hi) / abs_t)
+        torch.where(geo.t > 0, cross_lo - geo.a, geo.a - cross_hi) / abs_t)
     m_hi = torch.minimum(torch.minimum(ax_hi_m, pos_hi_m),
                          cols(p.zfar) / geo.scale - geo.e)
     m_lo = torch.maximum(torch.maximum(ax_lo_m, pos_lo_m),
@@ -161,31 +193,35 @@ def _gather(src: torch.Tensor, rows, columns, per_view: bool = False):
     return torch.stack([_take(c, rows, columns, per_view) for c in src])
 
 
-def _patch_origin(p: RenderParams, patch_n: int, n: int):
-    """(oi, oj) int32: the viewer-centered near patch's corner, per
-    viewpoint."""
+def _patch_origin(p: RenderParams, patch_n: int, nj: int, ni: int,
+                  offset: int = 0):
+    """(oi, oj) int32: the viewer-centered near patch's corner in the
+    (nj, ni) march grid, per viewpoint; a band's patch row is band-local,
+    clipped into the band (window.py:1061-1065)."""
+    vj = p.viewer_cell_j - float(offset) if offset else p.viewer_cell_j
     return tuple(
         torch.clamp(torch.floor(v).to(torch.int32) - (patch_n // 2 - 1),
-                    0, n - patch_n)
-        for v in (p.viewer_cell_i, p.viewer_cell_j))
+                    0, edge - patch_n)
+        for v, edge in ((p.viewer_cell_i, ni), (vj, nj)))
 
 
 def _near_band(dem: torch.Tensor, p: RenderParams, dq, iq, jq, near_hi, *,
-               n_real: int, patch_n: int | None):
-    """(tanel_q (W, n_near), dropped) -- window.py:1039-1114 for a square
-    grid. ``dem`` is the (zero-padded) march grid, or (B, n, n) one per
-    viewpoint; ``n_real`` the loaded grid's edge."""
-    n = dem.shape[-1]
+               ni_real: int, nj_real: int, j_hi: float,
+               patch_n: int | None, origin=None):
+    """(tanel_q (W, n_near), dropped) -- window.py:1039-1114. ``dem`` is the
+    (zero-padded) march grid, or (B, nj, ni) one per viewpoint; ``ni_real``
+    and ``nj_real`` the loaded grid's (or band's) columns and rows, ``jq``
+    the band-local rows (valid in [0, j_hi]), ``origin`` the patch's
+    corner (_patch_origin)."""
     per_view = dem.dim() == 3
-    edge = float(n_real - 1)
-    vq = ((iq >= 0) & (iq <= edge) & (jq >= 0) & (jq <= edge)
-          & (dq >= samples(p.znear)) & (dq <= samples(p.zfar))
-          & (dq < near_hi[..., None]))
+    vq = ((iq >= 0) & (iq <= float(ni_real - 1)) & (jq >= 0)
+          & (jq <= const(j_hi, jq)) & (dq >= samples(p.znear))
+          & (dq <= samples(p.zfar)) & (dq < near_hi[..., None]))
     dropped = torch.zeros(p.znear.shape, dtype=torch.int32,
                           device=dem.device)
     if patch_n is not None:
         # the viewer-centered patch at 0.5 m elevation resolution
-        oi, oj = (samples(o) for o in _patch_origin(p, patch_n, n))
+        oi, oj = (samples(o) for o in origin)
         ir = iq - oi.to(torch.float32)
         jr = jq - oj.to(torch.float32)
         u0, v0, rows, columns = _corners(ir, jr, patch_n)
@@ -199,8 +235,8 @@ def _near_band(dem: torch.Tensor, p: RenderParams, dq, iq, jq, near_hi, *,
     else:
         # patch too large for its cap (or the grid): bilinear from four
         # gathered corners of the 0.5 m int16-class grid (window.py:1097-1111)
-        i0 = torch.clamp(torch.floor(iq), 0, n_real - 2).to(torch.int32)
-        j0 = torch.clamp(torch.floor(jq), 0, n_real - 2).to(torch.int32)
+        i0 = torch.clamp(torch.floor(iq), 0, ni_real - 2).to(torch.int32)
+        j0 = torch.clamp(torch.floor(jq), 0, nj_real - 2).to(torch.int32)
         fi = torch.clamp(iq - i0, 0.0, 1.0)
         fj = torch.clamp(jq - j0, 0.0, 1.0)
         zq16 = torch.clamp(torch.round(dem * 2.0), -32768, 32767) * 0.5
@@ -216,17 +252,17 @@ def _near_band(dem: torch.Tensor, p: RenderParams, dq, iq, jq, near_hi, *,
     return tanel_q, dropped
 
 
-def _near_colors(src: torch.Tensor, s: int, p: RenderParams, iq, jq, *,
-                 n_real: int, patch_n: int | None,
+def _near_colors(src: torch.Tensor, s: int, iq, jq, *, ni_real: int,
+                 nj_real: int, patch_n: int | None, origin=None,
                  per_view: bool = False) -> torch.Tensor:
     """(W, n_near) packed near-band colors at the planes' own resolution s
-    (window.py:1115-1201). ``src``: the zero-padded packed (s*n, s*n)
-    plane, or (3, n, n) float planes at s = 1; with ``per_view`` one per
-    viewpoint, (B, s*n, s*n) or (3, B, n, n)."""
+    (window.py:1115-1201). ``src``: the zero-padded packed (s*nj, s*ni)
+    plane, or (3, nj, ni) float planes at s = 1; with ``per_view`` one per
+    viewpoint, (B, s*nj, s*ni) or (3, B, nj, ni). ``jq``: band-local rows;
+    ``origin``: the elevation patch's corner."""
     if patch_n is not None:
         # the same viewer patch as the elevation, s times finer
-        oi, oj = (samples(o) for o in
-                  _patch_origin(p, patch_n, src.shape[-1] // s))
+        oi, oj = (samples(o) for o in origin)
         irc = iq * s - (s * oi).to(torch.float32)
         jrc = jq * s - (s * oj).to(torch.float32)
         u0, v0, rows, columns = _corners(irc, jrc, s * patch_n)
@@ -235,8 +271,8 @@ def _near_colors(src: torch.Tensor, s: int, p: RenderParams, iq, jq, *,
         return _pack_u8(_bilerp(c, irc, jrc, u0, v0))
     # gather form: bilinear from four corners, clamped to the real planes
     iqs, jqs = iq * s, jq * s
-    i0 = torch.clamp(torch.floor(iqs), 0, s * n_real - 2).to(torch.int32)
-    j0 = torch.clamp(torch.floor(jqs), 0, s * n_real - 2).to(torch.int32)
+    i0 = torch.clamp(torch.floor(iqs), 0, s * ni_real - 2).to(torch.int32)
+    j0 = torch.clamp(torch.floor(jqs), 0, s * nj_real - 2).to(torch.int32)
     fi = torch.clamp(iqs - i0, 0.0, 1.0)
     fj = torch.clamp(jqs - j0, 0.0, 1.0)
     i0, j0 = i0.long(), j0.long()
@@ -306,21 +342,22 @@ def _exact_near_colors(atlas: torch.Tensor, ap: AtlasParams,
     return packed, replace
 
 
-def _color_source(color_planes, n: int, batch: tuple = ()):
+def _color_source(color_planes, nj: int, ni: int, batch: tuple = ()):
     """(far plane, scale, near source) of a march's color planes: the
-    packed (s*n, s*n) int32 plane the kernel reads, s, and what the near
-    band samples (the JAX package contracts (3, n, n) float planes
-    unpacked there). Checks the shapes as window.py:680-736 does.
+    packed (s*nj, s*ni) int32 plane the kernel reads, s, and what the near
+    band samples (the JAX package contracts (3, nj, ni) float planes
+    unpacked there). Checks the whole shape of every form (window.py:
+    680-736 checks a band's packed and float planes on their rows alone).
     ``batch``: (B,) when the planes hold one grid per viewpoint, packed
-    (B, s*n, s*n) or (3, B, n, n) float."""
+    (B, s*nj, s*ni) or (3, B, nj, ni) float."""
     lead = tuple(batch)
+    grid = f"({nj}, {ni}) grid"
     if isinstance(color_planes, ColorPlanes2x):
         fp = color_planes.full_packed
-        if (tuple(fp.shape) != lead + (2 * n, 2 * n)
+        if (tuple(fp.shape) != lead + (2 * nj, 2 * ni)
                 or fp.dtype != torch.int32):
             raise ValueError(f"ColorPlanes2x plane {fp.dtype} "
-                             f"{tuple(fp.shape)} does not match the ({n}, "
-                             f"{n}) grid")
+                             f"{tuple(fp.shape)} does not match the {grid}")
         return fp.contiguous(), 2, fp
     if color_planes.dim() == 2 + len(lead) and (
             color_planes.dtype == torch.int32 or not lead):
@@ -328,31 +365,29 @@ def _color_source(color_planes, n: int, batch: tuple = ()):
             raise ValueError(
                 f"2D color_planes must be packed int32 0x00RRGGBB "
                 f"(texture.pack_cell_colors), got {color_planes.dtype}")
-        if tuple(color_planes.shape) != lead + (n, n):
+        if tuple(color_planes.shape) != lead + (nj, ni):
             raise ValueError(f"packed color plane shape "
                              f"{tuple(color_planes.shape)} does not match "
-                             f"the ({n}, {n}) grid")
+                             f"the {grid}")
         return color_planes.contiguous(), 1, color_planes
-    s = color_planes.shape[-1] // n
+    s = color_planes.shape[-2] // nj
     if (color_planes.dim() != 3 + len(lead) or color_planes.shape[0] != 3
             or s not in (1, 2) or tuple(color_planes.shape[1:])
-            != lead + (s * n, s * n)):
+            != lead + (s * nj, s * ni)):
         raise ValueError(f"color_planes shape {tuple(color_planes.shape)} "
-                         f"is neither (3, n, n) nor (3, 2n, 2n) for the "
-                         f"({n}, {n}) grid")
+                         f"is neither (3, nj, ni) nor (3, 2nj, 2ni) for the "
+                         f"{grid}")
     packed = pack_cell_colors(color_planes)
     return packed, s, (packed if s == 2 else color_planes.to(torch.float32))
 
 
-def _check_supported(dem, j_hi, j_offset, scene):
-    if dem.dim() != 2 or dem.shape[0] != dem.shape[1]:
-        raise NotImplementedError("march_window: only square grids are "
-                                  f"ported, got {tuple(dem.shape)}")
-    for name, v in (("j_hi", j_hi), ("j_offset", j_offset),
-                    ("scene", scene)):
-        if v is not None:
-            raise NotImplementedError(f"march_window: {name}= (banded or "
-                                      "aligned marches) is not ported")
+def _check_supported(dem, scene):
+    if dem.dim() != 2:
+        raise ValueError(f"march_window takes one (nj, ni) grid, got "
+                         f"{tuple(dem.shape)}")
+    if scene is not None:
+        raise NotImplementedError("march_window: scene= (the TPU's aligned "
+                                  "crossing tables) is not ported")
 
 
 def march_from_geometry(dem: torch.Tensor, params: RenderParams,
@@ -360,25 +395,30 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
                         cells_per_deg: int, lat_hint_deg: float = 45.0,
                         n_near: int = N_NEAR, znear_hint_m=100.0,
                         color_planes=None, atlas=None, atlas_params=None,
-                        exact_near_m=None, plain: bool = False):
+                        exact_near_m=None, j_hi=None, j_offset=None,
+                        plain: bool = False):
     """(tanel (W, n_near + k_limit), dists) for given crossing geometry,
     plus tex (W, n_near + k_limit) int32 when ``color_planes`` is given:
-    a ColorPlanes2x (half-cell), (n, n) packed int32 cell planes, or
-    (3, n, n) / (3, 2n, 2n) float B/G/R planes. ``atlas`` (packed int32),
-    ``atlas_params`` and ``exact_near_m`` add the hybrid near field.
+    a ColorPlanes2x (half-cell), (nj, ni) packed int32 cell planes, or
+    (3, nj, ni) / (3, 2nj, 2ni) float B/G/R planes. ``atlas`` (packed
+    int32), ``atlas_params`` and ``exact_near_m`` add the hybrid near
+    field. ``j_hi`` / ``j_offset``: a row band (the module docstring).
 
     ``plain`` runs the march's plain PyTorch version on any device (for
     comparisons with the kernel); otherwise the wrappers pick by device.
 
     Batched (B,) params give (B, W, ...) arrays, one kernel launch for the
-    batch, and (B,) guards; ``dem`` is then a shared (n, n) grid or one
-    (B, n, n) grid per viewpoint (color planes alike, see the module
+    batch, and (B,) guards; ``dem`` is then a shared (nj, ni) grid or one
+    (B, nj, ni) grid per viewpoint (color planes alike, see the module
     docstring)."""
     p = params
-    n = dem.shape[-1]
+    nj, ni = dem.shape[-2:]
     per_view = dem.dim() == 3
     dem = dem.to(torch.float32).contiguous()
-    k_limit = step_budget(k_cross, n)
+    banded = j_hi is not None or j_offset is not None or nj != ni
+    band = Band(offset=int(j_offset or 0),
+                j_hi=float(nj - 1 if j_hi is None else j_hi), ni=ni)
+    k_limit = step_budget(k_cross, max(nj, ni))
 
     pcol = torch.stack([
         geo.a, geo.t, geo.e, geo.scale,
@@ -388,14 +428,25 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
     fscal = torch.stack([p.viewer_z, p.znear, p.zfar, p.curv], dim=-1).to(
         torch.float32)
     textured = color_planes is not None
+    bkw = dict(j_offset=band.offset, j_hi=band.j_hi)
     if textured:
-        plane, s, near_src = _color_source(color_planes, n,
+        plane, s, near_src = _color_source(color_planes, nj, ni,
                                            dem.shape[:1] if per_view else ())
-        far, tex = (march_plain if plain else march_textured)(
-            dem, pcol, fscal, k_limit, plane, s)
+        if plain:
+            far, tex = march_plain(dem, pcol, fscal, k_limit, plane, s,
+                                   **bkw)
+        elif banded:
+            far, tex = march_band_textured(dem, pcol, fscal, k_limit, plane,
+                                           s, **bkw)
+        else:
+            far, tex = march_textured(dem, pcol, fscal, k_limit, plane, s)
+    elif plain:
+        far = march_plain(dem, pcol, fscal, k_limit, **bkw)
+    elif banded:
+        far = march_band(dem, pcol, fscal, k_limit, **bkw)
     else:
-        far = (march_plain if plain else march)(dem, pcol, fscal, k_limit)
-    truncated = _truncated(geo, p, n, k_limit)
+        far = march(dem, pcol, fscal, k_limit)
+    truncated = _truncated(geo, p, band, k_limit)
 
     m_star = torch.clamp(torch.ceil(cols(p.znear) / geo.scale - geo.e),
                          min=0.0)
@@ -404,26 +455,36 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
                           device=dem.device)
     near = None
     if n_near > 0:
-        pad = max(n, ALIGN_MIN_N) - n     # tiny grids: zeros = ocean
-        grid = torch.nn.functional.pad(dem, (0, pad, 0, pad)) if pad else dem
+        # tiny grids: zeros = ocean
+        pad_i, pad_j = max(ni, ALIGN_MIN_N) - ni, max(nj, ALIGN_MIN_N) - nj
+        grid = (torch.nn.functional.pad(dem, (0, pad_i, 0, pad_j))
+                if pad_i or pad_j else dem)
         patch_n = (near_patch_size(znear_hint_m, cells_per_deg, lat_hint_deg)
                    if znear_hint_m is not None else None)
-        if patch_n is not None and (patch_n > NEAR_PATCH_CAP
-                                    or patch_n > n + pad):
+        if patch_n is not None and (patch_n > NEAR_PATCH_CAP or patch_n > min(
+                ni + pad_i, nj + pad_j)):
             patch_n = None     # would not fit: the gather form, never a drop
+        origin = (_patch_origin(p, patch_n, nj + pad_j, ni + pad_i,
+                                band.offset) if patch_n is not None else None)
         near = dq, iq, jq = _near_samples(p, geo, n_near, near_hi)
-        tanel_q, dropped = _near_band(grid, p, dq, iq, jq, near_hi,
-                                      n_real=n, patch_n=patch_n)
+        # band-local rows: in-band float32 x - k with integer k is exact
+        # (window.py:1039-1043)
+        jq_l = jq - float(band.offset) if band.offset else jq
+        nkw = dict(ni_real=ni, nj_real=nj, patch_n=patch_n, origin=origin)
+        tanel_q, dropped = _near_band(grid, p, dq, iq, jq_l, near_hi,
+                                      j_hi=band.j_hi, **nkw)
         far = torch.cat([tanel_q, far], dim=-1)
         if textured:
-            if pad:
+            if pad_i or pad_j:
                 near_src = torch.nn.functional.pad(
-                    near_src, (0, s * pad, 0, s * pad))
-            tex = torch.cat([_near_colors(near_src, s, p, iq, jq, n_real=n,
-                                          patch_n=patch_n,
-                                          per_view=per_view), tex], dim=-1)
+                    near_src, (0, s * pad_i, 0, s * pad_j))
+            tex = torch.cat([_near_colors(near_src, s, iq, jq_l,
+                                          per_view=per_view, **nkw), tex],
+                            dim=-1)
     if (textured and exact_near_m is not None and atlas is not None
             and atlas_params is not None):
+        # global positions: each band computes the same exact colors for
+        # its valid lanes, so the region combine stays exact
         tex = _hybrid_near_field(tex, atlas, atlas_params, geo, p, near,
                                  n_near=n_near, cells_per_deg=cells_per_deg,
                                  lat_hint_deg=lat_hint_deg,
@@ -469,18 +530,19 @@ def march_window(dem: torch.Tensor, params: RenderParams, *, width: int,
                  znear_hint_m=100.0, j_hi=None, j_offset=None,
                  color_planes=None, scene=None, atlas=None,
                  atlas_params=None, exact_near_m=None, plain: bool = False):
-    """The crossing march on a square (n, n) float32 DEM tensor: returns
+    """The crossing march on an (nj, ni) float32 DEM tensor, square or a
+    row band (``j_hi``, ``j_offset``: the module docstring): returns
     (tanel (W, n_near + k_limit), run_max, dists, az[, tex]) like
     horizonator_tpu's march_window(scene=None); tex when ``color_planes``
     is given (see march_from_geometry). ``lat_hint_deg`` and
     ``znear_hint_m`` size the static near patch as there."""
-    _check_supported(dem, j_hi, j_offset, scene)
+    _check_supported(dem, scene)
     geo = crossing_geometry(params, width=width, cells_per_deg=cells_per_deg)
     out = march_from_geometry(
         dem, params, geo, k_cross=k_cross, cells_per_deg=cells_per_deg,
         lat_hint_deg=lat_hint_deg, n_near=n_near, znear_hint_m=znear_hint_m,
         color_planes=color_planes, atlas=atlas, atlas_params=atlas_params,
-        exact_near_m=exact_near_m, plain=plain)
+        exact_near_m=exact_near_m, j_hi=j_hi, j_offset=j_offset, plain=plain)
     tanel = out[0]
     run_max = torch.cummax(tanel, dim=-1).values
     return (tanel, run_max, out[1], geo.az) + tuple(out[2:])

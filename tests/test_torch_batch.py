@@ -360,7 +360,12 @@ def test_api_render_batch_guards(dem_dir):  # noqa: F811
 
 
 def test_api_render_batch_mesh_raises(dem_dir):  # noqa: F811
+    """A mesh that is none raises, and one of several ranks without a
+    process group names torchrun; meshes that are run in a gloo world:
+    tests/test_torch_sharding.py."""
     _, ht = _api_pair(dem_dir)
-    for mesh in ("auto", object()):
-        with pytest.raises(NotImplementedError, match="scale-out"):
-            ht.render_batch(-60, 60, LATS, LONS, mesh=mesh)
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        ht.render_batch(-60, 60, LATS, LONS, mesh=object())
+    if not torch.distributed.is_initialized():
+        with pytest.raises(ValueError, match="torchrun"):
+            ht.render_batch(-60, 60, LATS, LONS, mesh=2)

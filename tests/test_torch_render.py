@@ -195,9 +195,11 @@ def test_api_guard_and_unported(dem_dir):
                       strict_coverage=True, **kw)
     with pytest.raises(RuntimeError, match="masked"):
         hs.render(-60, 60, zfar=15000.0)
-    with pytest.raises(NotImplementedError):
+    # region sharding runs the window march alone, as in the JAX package
+    # (its runs: tests/test_torch_sharding.py)
+    with pytest.raises(ValueError, match="'window' sampler"):
         THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, region_mesh="auto",
-                     **kw)
+                     sampler="crossing", **kw)
     with pytest.raises(ValueError, match="hillshade"):
         THorizonator(VIEW["lat"], VIEW["lon"], 64, 32, shadows=True, **kw)
     # a long clip swaps to the LOD march, as in the JAX package

@@ -576,9 +576,10 @@ def test_viewshed_count_single_and_flat():
 
 
 def test_unported_options_raise():
-    """mesh= and an aligned scene raise rather than silently change what
-    is computed; an unknown sampler raises as in the JAX package (the
-    oracle samplers run: test_oracle_* below)."""
+    """An aligned scene raises rather than silently change what is
+    computed, and a mesh= that is none raises (meshes run in a gloo world:
+    tests/test_torch_sharding.py); an unknown sampler raises as in the JAX
+    package (the oracle samplers run: test_oracle_* below)."""
     dem = torch.zeros((160, 160))
     p = tp(jparams(80.0, 80.0, 2.0, zfar=4000.0))
     kw = dict(width=32, nsteps=64, cells_per_deg=CPD)
@@ -587,13 +588,16 @@ def test_unported_options_raise():
             lambda: tops.viewshed_polar(dem, p, sampler="window",
                                         aligned_scene=object(), **kw),
             lambda: tops.viewshed_grid(dem, p, out_halfwidth=8,
-                                       aligned_scene=object(), **kw),
+                                       aligned_scene=object(), **kw)):
+        with pytest.raises(NotImplementedError):
+            call()
+    for call in (
             lambda: tops.viewshed_sweep(dem, pts, sampler="window",
                                         mesh=object(), device="cpu", **kw),
             lambda: tops.viewshed_count(dem, pts, out_center_ij=(80, 80),
                                         out_halfwidth=8, mesh=object(),
                                         device="cpu", **kw)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="DeviceMesh"):
             call()
     with pytest.raises(ValueError, match="unknown sampler"):
         tops.viewshed_polar(dem, p, sampler="lod", **kw)
@@ -774,3 +778,35 @@ def test_oracle_count_matches_jax(sampler):
             out_halfwidth=32, out_center_ij=(256.0, 256.0),
             full_circle=True).to(torch.int32)
     assert torch.equal(tc, total)
+
+
+def test_rectangular_grid_matches_jax():
+    """A window march takes a rectangular grid, as the JAX package's does:
+    horizon_sweep and the gather raster over a (200, 256) grid
+    against the JAX package's, at test_horizon_sweep_matches_jax_and_
+    singles' tolerance and SHARE; the sweeps, whose viewer elevations the
+    JAX package reads with the row count as the pair plane's stride
+    (viewshed.py:1007-1009), refuse a rectangular grid."""
+    dem = smooth_dem(256)[:200]
+    cos_lat = math.cos(math.radians(LAT))
+    p = _sweep_params([(128.0, 100.0, 700.0, cos_lat),
+                       (60.3, 150.7, 800.0, cos_lat)])
+    kw = dict(width=128, nsteps=256, cells_per_deg=CPD, sampler="window",
+              lat_hint_deg=LAT)
+    jh = np.asarray(jops.horizon_sweep(jnp.asarray(dem), p, **kw))
+    th = tops.horizon_sweep(torch.from_numpy(dem), tp(p), **kw).numpy()
+    valid = jh > -1e30
+    assert valid.mean() > 0.5
+    np.testing.assert_array_equal(th > -1e30, valid)
+    np.testing.assert_allclose(th[valid], jh[valid], atol=1e-5, rtol=0)
+    jp = jparams(128.0, 100.0, float(dem[100:102, 128:130].max()) + 2.0,
+                 zfar=6000.0, cos_lat=cos_lat)
+    gkw = dict(kw, out_halfwidth=40, method="gather")
+    jv = np.asarray(jops.viewshed_grid(jnp.asarray(dem), jp, **gkw))
+    tv = tops.viewshed_grid(torch.from_numpy(dem), tp(jp), **gkw).numpy()
+    assert tv.shape == jv.shape == (80, 80) and 0.05 < jv.mean() < 0.95
+    assert (tv != jv).mean() <= SHARE
+    with pytest.raises(ValueError, match="square grid"):
+        tops.viewshed_sweep(dem, np.array([[128.0, 100.0]]), width=32,
+                            nsteps=64, cells_per_deg=CPD, zfar=4000.0,
+                            sampler="window", device="cpu")

@@ -273,13 +273,31 @@ def test_run_max_and_unsupported():
     np.testing.assert_array_equal(
         run_max.numpy(), np.maximum.accumulate(tanel.numpy(), axis=1))
     assert az.shape == (32,)
-    for kw in ({"j_hi": 10}, {"j_offset": 1}, {"scene": object()}):
-        with pytest.raises(NotImplementedError):
-            twin.march_window(dem, tp, width=32, k_cross=64,
-                              cells_per_deg=CPD, **kw)
+    # the aligned crossing tables are a TPU layout the port does not copy
+    with pytest.raises(NotImplementedError):
+        twin.march_window(dem, tp, width=32, k_cross=64, cells_per_deg=CPD,
+                          scene=object())
     with pytest.raises(ValueError, match="packed int32"):  # 2D float planes
         twin.march_window(dem, tp, width=32, k_cross=64, cells_per_deg=CPD,
                           color_planes=dem)
-    with pytest.raises(NotImplementedError):
-        twin.march_window(dem[:, :60], tp, width=32, k_cross=64,
+    with pytest.raises(ValueError, match="one"):           # a stack of grids
+        twin.march_window(dem[None], tp, width=32, k_cross=64,
                           cells_per_deg=CPD)
+    # a band spanning the whole square grid is the square march, bitwise
+    band = twin.march_window(dem, tp, width=32, k_cross=64,
+                             cells_per_deg=CPD, j_hi=63.0, j_offset=0)
+    assert torch.equal(band[0], tanel)
+    # a rectangular grid: the far field bitwise the JAX march's on the same
+    # grid, fed its geometry; its row band with an offset likewise
+    jp = jax_params(30.5, 31.5, 900.0, zfar=4000.0)
+    geo = geo_to_torch(_jax_geometry(jp, 32))
+    for rect, off, j_hi in ((dem[:, :60], 0, None), (dem[20:45], 20, 22.0)):
+        jt, _, _, _ = j_march(jnp.asarray(rect.numpy()), jp, width=32,
+                              k_cross=64, cells_per_deg=CPD,
+                              lat_hint_deg=45.0, j_offset=off, j_hi=j_hi)
+        tt, dists = twin.march_from_geometry(rect, tp, geo, k_cross=64,
+                                             cells_per_deg=CPD,
+                                             j_offset=off, j_hi=j_hi)
+        assert tt.shape == jt.shape and (tt > NEG).any()
+        np.testing.assert_array_equal(tt[:, twin.N_NEAR:].numpy(),
+                                      np.asarray(jt)[:, twin.N_NEAR:])
