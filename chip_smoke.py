@@ -5,9 +5,10 @@ then drive the main render path and the API on the card.
     python3 chip_smoke.py --profile DIR   # also write a torch.profiler table
                                           # of the render into DIR
     python3 chip_smoke.py --time-march ROOT TAG
-        # only: time both march entries of the package under the tree ROOT
-        # at the bench shape (64-launch graphs, median of 7) and print
-        # ptxas's lines for them; run twice per tree (parent, change,
+        # only: time the march entries of the package under the tree ROOT
+        # at the bench shape, the square ones and the banded ones on phase
+        # 33's 4 bands (64-launch graphs, median of 7), and print ptxas's
+        # lines for every instance; run twice per tree (parent, change,
         # change, parent) to compare two trees in one call
     python3 chip_smoke.py --time-shadows ROOT TAG
         # only: time shadow_light of the package under the tree ROOT over
@@ -224,7 +225,15 @@ Phases, in order; any failure raises and exits nonzero:
     encode and the rest; `python -m horizonator_tpu_torch.viewer` in a
     subprocess, the CLI's interactive mode (viewer.serve stood in), and
     the CLI's --image .png decoded bitwise the API's image;
-33. scale-out: the banded march entries (untextured and half-cell
+33. scale-out: first both banded march entries (textured at s = 1 and 2)
+    bitwise their plain version at the band edge shapes
+    (band_edge_cases(): bands beyond zfar and of padding alone (j_hi < 0),
+    bands of one valid row, one valid sample, band edges inside a tile
+    and a warp (R 3 and 8 over a grid they do not divide), the viewer
+    inside, on the first and last row, north and south of the band, all
+    row- and all column-dominant columns, a batch of 3 with a band each),
+    the bands' MAX bitwise the square march where they cover the grid;
+    then the banded march entries (untextured and half-cell
     textured) on the 4 row bands (850 rows + a halo row) of phase 2's
     grid bitwise their plain version, their MAX bitwise the square march;
     every rank's local function of the region renderer (4 bands; 2 bands
@@ -235,7 +244,9 @@ Phases, in order; any failure raises and exits nonzero:
     region_mesh="auto" (untextured, and textured hybrid from a seeded
     tile cache) bitwise the plain API's renders, render_batch(mesh="auto")
     of 8 viewpoints and config 10's viewshed_count(mesh="auto") against
-    one device; the band entries' device ms a band against their bound.
+    one device; the band entries' device ms a band against their bound
+    and a write-only pass over their outputs, with each band's live tiles
+    (32 columns x 64 steps holding a valid sample of the plain version).
 Phases 26-32 add no kernel (their ops are the JAX package's XLA ops, in
 plain PyTorch, or host code); phase 27 runs the two textured kernels,
 phases 29-30 the resolve, phase 31 the march and the resolve, phase 32
@@ -267,8 +278,12 @@ viewpoint, raster or observer), ``ms_per_frame_single_loop``,
 ``device_busy`` (under --profile; else null), ``peak_mb`` and ``chunks``.
 The banded entries (window_march_band, window_march_band_textured) are
 timed per band; their ``ms`` and ``bound_ms`` are the means over the 4
-bands, ``bands`` lists each, and ``launches`` are those of one region
-render of 4 bands. The resolve and window_march entries carry ``oracle``: the records of
+bands, ``bands`` lists each (with ``live_tiles`` of ``tiles``,
+``fill_ms``, a write-only pass over the band's outputs, ``in_frame_ms``,
+its launch's device ms inside region renders under torch.profiler, and
+``host_loop_ms``; the record carries their means), and ``launches`` are
+those of one region render of 4 bands. The
+resolve and window_march entries carry ``oracle``: the records of
 their launches on phases 29-31's paths (cell, K, launches, ms, plain_ms,
 bound_ms, bound_by; config 1's also its render's ms_per_frame).
 Every number printed stands beside the card's name and power limit
@@ -4100,6 +4115,7 @@ SCALE_R = 4                   # phase 33: row bands of the bench grid
 SCALE_BATCH = 8               # phase 33: render_batch(mesh="auto") viewpoints
 API_RUNS = 11                 # phase 33: region and plain API renders timed
 WEDGE_OFF = 4                 # phase 33: wedged pixels past 5e-3 + 1 m
+BAND_FRAMES = 3               # phase 33: region renders profiled
 
 
 def interleaved_ms(fa, fb, n):
@@ -4157,6 +4173,248 @@ def profile_gap(fa, fb, n=5, top=6):
             "top": extra(1), "top_dev": extra(2)}
 
 
+def band_edge_cases():
+    """(name, n, viewer i, j, az0, az1 deg, W, K, znear, zfar, bands, what):
+    the band shapes on which the banded entries' tile vote can go wrong, on
+    an (n, n) grid of which ``bands`` are marched: ("R", r) is r bands of
+    ceil(n / r) rows + halo over the grid zero-padded to r bands (the API's
+    padding, masked through band_bounds' n_valid), else a list of (j_off,
+    nj, j_hi) bands cut from the grid zero-padded as far as they reach.
+    ``what`` must hold of the case: "split" (a tile live in two bands),
+    "empty" (a band with no valid sample), "row" (valid samples on the
+    band's one row alone), "one" (exactly one valid sample), "inside" /
+    "first" / "last" / "north" / "south" (where the viewer's row lies
+    against the band), "j_dom" / "i_dom" (every column row- or column-
+    dominant). tests/test_torch_window.py holds the plain version to the
+    JAX march at the same cases."""
+    a360 = (-180.0, 180.0)
+    band = [(40, 41, 40.0)]
+    return [
+        ("R 3 on 100 rows (34-row bands)", 100, 50.2, 49.7, *a360, 37, 129,
+         100.0, 8000.0, ("R", 3), "split"),
+        ("R 8 on 100 rows (13-row bands)", 100, 50.2, 49.7, *a360, 61, 129,
+         100.0, 8000.0, ("R", 8), "split"),
+        ("bands beyond zfar", 160, 80.3, 20.6, *a360, 64, 128, 100.0, 3000.0,
+         ("R", 4), "empty"),
+        ("padding alone (j_hi < 0)", 100, 50.2, 49.7, *a360, 40, 132, 100.0,
+         8000.0, [(40, 21, -1.0), (94, 8, -1.0)], "empty"),
+        ("one valid row (j_hi 0)", 100, 50.2, 49.7, *a360, 64, 129, 100.0,
+         8000.0, [(45, 2, 0.0), (57, 2, 0.0)], "row"),
+        ("one valid sample", 100, 50.2, 49.7, 10.0, 11.0, 1, 129, 100.0,
+         8000.0, [(60, 2, 0.0)], "one"),
+        ("viewer inside the band", 120, 60.3, 60.4, *a360, 40, 132, 100.0,
+         8000.0, band, "inside"),
+        ("viewer on the band's first row", 120, 60.3, 40.0, *a360, 40, 129,
+         100.0, 8000.0, band, "first"),
+        ("viewer on the band's last row", 120, 60.3, 80.0, *a360, 40, 129,
+         100.0, 8000.0, band, "last"),
+        ("viewer north of the band", 120, 60.3, 101.7, *a360, 40, 129,
+         100.0, 8000.0, band, "north"),
+        ("viewer south of the band", 120, 60.3, 15.2, *a360, 40, 129, 100.0,
+         8000.0, band, "south"),
+        ("all row-dominant", 100, 50.2, 49.7, -10.0, 10.0, 64, 65, 100.0,
+         8000.0, ("R", 4), "j_dom"),
+        ("all column-dominant", 100, 50.2, 49.7, 80.0, 100.0, 64, 65, 100.0,
+         8000.0, ("R", 4), "i_dom"),
+    ]
+
+
+def edge_bands(n, bands):
+    """[(j_off, nj, j_hi)] of a case's bands and the rows that the padded
+    grid must have."""
+    if bands[0] == "R":
+        from horizonator_tpu_torch.parallel.regions import band_bounds
+        r = bands[1]
+        nb = -(-n // r)
+        bands = [(j_off, nb + 1, j_hi) for j_off, j_hi in (
+            band_bounds(i, r, nb, n) for i in range(r))]
+    return bands, max(n, max(j + nj for j, nj, _ in bands))
+
+
+def tile_map(valid):
+    """Which tiles of the march kernel (32 columns x 64 steps) hold a valid
+    sample, of a (..., W, K) validity mask."""
+    *b, w, k = valid.shape
+    v = torch.nn.functional.pad(valid, (0, -k % 64, 0, -w % 32))
+    v = v.reshape(*b, v.shape[-2] // 32, 32, v.shape[-1] // 64, 64)
+    return v.any(-1).any(-2)
+
+
+def live_tiles(valid):
+    """(live tiles, all tiles) of a (..., W, K) validity mask."""
+    t = tile_map(valid)
+    return int(t.sum()), t.numel()
+
+
+def band_edge_case_shows(what, valids, bands, jd, vj):
+    """Whether a case shows its edge: ``valids`` the bands' (W, K) masks."""
+    j_off, _, j_hi = bands[0]
+    if what == "split":
+        t = torch.stack([tile_map(v) for v in valids])
+        return bool((t.sum(0) >= 2).any()) and all(v.any() for v in valids)
+    if what == "empty":
+        return any(not v.any() for v in valids)
+    if what == "row":
+        return all(v.any() for v in valids)
+    if what == "one":
+        return int(valids[0].sum()) == 1
+    side = {"inside": j_off < vj < j_off + j_hi, "first": vj == j_off,
+            "last": vj == j_off + j_hi, "north": vj > j_off + j_hi,
+            "south": vj < j_off}
+    if what in side:
+        return side[what] and bool(valids[0].any())
+    if what == "j_dom":
+        return bool(jd.all())
+    return bool((~jd).all())
+
+
+def band_edge_phase(dev):
+    """Phase 33's edge shapes: both banded entries (textured at s = 1 and
+    s = 2) against their plain version at band_edge_cases(), bitwise, the
+    bands' MAX against the square march where the bands cover the grid,
+    and a batch of 3 viewpoints with a (3, nj, ni) band each against the
+    batched plain version and each viewpoint's unbatched launch. Returns
+    the log line."""
+    from horizonator_tpu_torch.kernels.window_march import (
+        march, march_band, march_band_textured, march_plain)
+    from horizonator_tpu_torch.render import make_params
+    from horizonator_tpu_torch.render.crossing import crossing_geometry
+    rng = np.random.default_rng(33)
+    names = []
+    for name, n, vi, vj, az0, az1, w, k, znear, zfar, spec, what in \
+            band_edge_cases():
+        bands, rows = edge_bands(n, spec)
+        dem = torch.from_numpy((2000.0 * rng.random((n, n))).astype(
+            np.float32)).to(dev)
+        grid = torch.nn.functional.pad(dem, (0, 0, 0, rows - n))
+        planes = {s: torch.from_numpy(rng.integers(
+            0, 1 << 24, (s * rows, s * n), dtype=np.int32)).to(dev)
+            for s in (1, 2)}
+        p = make_params(device=dev, viewer_cell_i=vi, viewer_cell_j=vj,
+                        viewer_z=900.0,
+                        cos_viewer_lat=math.cos(math.radians(LAT)),
+                        az_rad0=math.radians(az0), az_rad1=math.radians(az1),
+                        znear=znear, zfar=zfar, znear_color=znear,
+                        zfar_color=zfar, curv=6.8e-8)
+        pcol, fscal = pcol_fscal(crossing_geometry(p, width=w,
+                                                   cells_per_deg=CPD), p)
+        valids, parts, live = [], [], []
+        for j_off, nj, j_hi in bands:
+            loc = grid[j_off:j_off + nj].contiguous()
+            ref = march_plain(loc, pcol, fscal, k, j_offset=j_off, j_hi=j_hi)
+            got = march_band(loc, pcol, fscal, k, j_off, j_hi)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                fail(f"banded march != plain at edge case '{name}', band "
+                     f"{j_off}+{nj} (j_hi {j_hi}): "
+                     f"{int((got != ref).sum())} samples differ")
+            valid = ref > -1e30
+            for s, plane in planes.items():
+                loc_c = plane[s * j_off:s * (j_off + nj)].contiguous()
+                ref_t, ref_c = march_plain(loc, pcol, fscal, k, loc_c, s,
+                                           j_offset=j_off, j_hi=j_hi)
+                got_t, got_c = march_band_textured(loc, pcol, fscal, k, loc_c,
+                                                   s, j_off, j_hi)
+                torch.cuda.synchronize()
+                if not (torch.equal(got_t, ref) and torch.equal(ref_t, ref)
+                        and torch.equal(got_c, ref_c)):
+                    fail(f"banded textured march (s {s}) != plain at edge "
+                         f"case '{name}', band {j_off}+{nj}: "
+                         f"{int((got_c != ref_c).sum())} colors differ")
+                if (got_c[~valid] != 0).any():
+                    fail(f"banded textured march (s {s}) colors an invalid "
+                         f"sample at edge case '{name}'")
+            valids.append(valid)
+            parts.append(got)
+            live.append(live_tiles(valid)[0])
+        if not band_edge_case_shows(what, valids, bands, pcol[:, 6] != 0.0,
+                                    vj):
+            fail(f"band edge case '{name}' does not show its edge")
+        if spec[0] == "R":
+            sq = march(dem, pcol, fscal, k)
+            torch.cuda.synchronize()
+            if not torch.equal(torch.stack(parts).amax(0), sq):
+                fail(f"bands' MAX != square march at edge case '{name}'")
+        names.append(f"{name} ({w}, {k}): live tiles {live} of "
+                     f"{live_tiles(valids[0])[1]}, valid "
+                     f"{[int(v.sum()) for v in valids]}")
+    # a batch of 3 viewpoints, a band of its own grid each
+    b, n, w, k, (j_off, nj, j_hi) = 3, 100, 37, 129, (30, 31, 30.0)
+    i = np.arange(b)
+    p = batch_params(dev, 40.3 + 9.1 * i, 28.6 + 21.3 * i, 700.0 + 37.0 * i,
+                     LAT, -180.0 + 23.0 * i, 150.0 - 31.0 * i,
+                     [10.0, 100.0, 1000.0], [8000.0, 2500.0, 20000.0],
+                     [0.0, 6.8e-8, 6.8e-8])
+    pcol, fscal = pcol_fscal(crossing_geometry(p, width=w,
+                                               cells_per_deg=CPD), p)
+    loc = torch.from_numpy((2000.0 * rng.random((b, nj, n))).astype(
+        np.float32)).to(dev)
+    ref = march_plain(loc, pcol, fscal, k, j_offset=j_off, j_hi=j_hi)
+    got = march_band(loc, pcol, fscal, k, j_off, j_hi)
+    torch.cuda.synchronize()
+    valid = ref > -1e30
+    if got.shape != (b, w, k) or not torch.equal(got, ref):
+        fail("batched banded march (B 3, a band each) != plain")
+    if not all(bool(valid[v].any()) for v in range(b)):
+        fail("batched banded march: a viewpoint has no valid sample")
+    for s in (1, 2):
+        colors = torch.from_numpy(rng.integers(
+            0, 1 << 24, (b, s * nj, s * n), dtype=np.int32)).to(dev)
+        ref_t, ref_c = march_plain(loc, pcol, fscal, k, colors, s,
+                                   j_offset=j_off, j_hi=j_hi)
+        got_t, got_c = march_band_textured(loc, pcol, fscal, k, colors, s,
+                                           j_off, j_hi)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_t, ref) and torch.equal(ref_t, ref)
+                and torch.equal(got_c, ref_c)):
+            fail(f"batched banded textured march (B 3, s {s}) != plain")
+        for v in range(b):
+            one = march_band_textured(loc[v], pcol[v], fscal[v], k,
+                                      colors[v], s, j_off, j_hi)
+            if not (torch.equal(one[0], got[v])
+                    and torch.equal(one[1], got_c[v])):
+                fail(f"batched banded textured march (s {s}) viewpoint {v} "
+                     f"!= its unbatched launch")
+    for v in range(b):
+        if not torch.equal(march_band(loc[v], pcol[v], fscal[v], k, j_off,
+                                      j_hi), got[v]):
+            fail(f"batched banded march viewpoint {v} != its unbatched "
+                 f"launch")
+    names.append(f"B 3, a ({nj}, {n}) band each ({w}, {k}): live tiles "
+                 f"{live_tiles(valid)[0]} of {live_tiles(valid)[1]}")
+    return ("both banded entries (textured at s = 1 and 2) == plain "
+            "bitwise (samples incl. NEG_BIG, colors incl. 0 at invalid "
+            "samples) at the band edge shapes: " + "; ".join(names))
+
+
+def band_in_frame(drive, r):
+    """{textured: [each band's mean device ms]}: torch.profiler over
+    BAND_FRAMES region renders of ``r`` bands (phase 33's ``drive``), each
+    band kernel launch's device time, taken in launch order (band 0 to r -
+    1 in each render)."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for tex, name in ((False, "window_march_band_kernel"),
+                      (True, "window_march_band_tex_kernel")):
+        drive({"region": r}, tex)
+        torch.cuda.synchronize()
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            for _ in range(BAND_FRAMES):
+                drive({"region": r}, tex)
+            torch.cuda.synchronize()
+        ms = [us / 1e3 for _, us in sorted(
+            (e.time_range.start, e.self_device_time_total)
+            for e in prof.events() if e.device_type == cuda
+            and name in e.name)]
+        if len(ms) != BAND_FRAMES * r:
+            fail(f"profile of the region render: {len(ms)} launches of "
+                 f"{name}, want {BAND_FRAMES * r}")
+        out[tex] = [statistics.mean(ms[i::r]) for i in range(r)]
+    return out
+
+
 def seeded_tile(path):
     """A stand-in for a tile cache's PNG decoder, so the phase runs where
     PIL is missing: a 256x256 BGR tile made from the tile's path, the
@@ -4197,6 +4455,7 @@ def scale_out_phase(dev, card, tiles):
                                                       tile_xy_from_latlon)
     from horizonator_tpu_torch.render.window import step_budget
     t0 = time.perf_counter()
+    log(f"[33] {band_edge_phase(dev)}")
     r, nb = SCALE_R, N // SCALE_R
     dem = torch.from_numpy(bench_dem()).to(dev)
     p = make_params(device=dev, viewer_cell_i=N / 2, viewer_cell_j=N / 2,
@@ -4264,8 +4523,10 @@ def scale_out_phase(dev, card, tiles):
         parts_x1.append(torch.where(t_k > -1e30, x1_k, -1))
         cells = annulus_cells(N, N / 2, N / 2, 0.0, ZFAR, cell_n, LAT,
                               slice(j_off, j_off + nb + 1))
+        live, n_tiles = live_tiles(t_p > -1e30)
         bands.append(dict(band=idx, rows=(j_off, j_off + nb), j_hi=j_hi,
-                          valid=valid, cells=cells))
+                          valid=valid, cells=cells, live_tiles=live,
+                          tiles=n_tiles))
     if sum(b["valid"] > 0 for b in bands) < 2:
         fail(f"fewer than two bands marched a valid sample: {bands}")
     comb = torch.stack(parts).amax(0)
@@ -4283,7 +4544,9 @@ def scale_out_phase(dev, card, tiles):
         f"plain bitwise in every band; MAX of the bands == square march "
         f"bitwise, masked color MAX == square textured march (s = 2 and 1) "
         f"at its {int(ok.sum())} valid samples; valid samples a band "
-        + ", ".join(str(b["valid"]) for b in bands))
+        + ", ".join(str(b["valid"]) for b in bands) + "; live tiles (32 "
+        "columns x 64 steps) a band " + ", ".join(
+            f"{b['live_tiles']} of {b['tiles']}" for b in bands))
 
     # 3. the region renderer's per-rank local functions, every rank
     rkw = dict(width=W, height=H, k_cross=k, cells_per_deg=CPD,
@@ -4474,13 +4737,16 @@ def scale_out_phase(dev, card, tiles):
         f"shape) == one-device counts exactly, {c_launches} march launches")
     dist.destroy_process_group()
 
-    # 6. the band march's device time against its bound, and the square's
+    # 6. the band march's device time against its bound and against a
+    # write-only pass over its outputs, and the square's
     outs = 4 * W * k_lim
+    fills = {False: fill_ms(outs), True: fill_ms(2 * outs)}
+    in_frame = band_in_frame(drive, r)
     recs = []
     for name, fn_k, tex in (
             ("window_march_band", march_band, False),
             ("window_march_band_textured", march_band_textured, True)):
-        ms_b, pl_b, bd_b = [], [], []
+        ms_b, pl_b, bd_b, hl_b = [], [], [], []
         for b in bands:
             idx = b["band"]
             j_off, j_hi = band_bounds(idx, r, nb)
@@ -4488,6 +4754,8 @@ def scale_out_phase(dev, card, tiles):
             args = (local_band(cp2, idx, r).full_packed, 2) if tex else ()
             ms_b.append(graph_ms(lambda: fn_k(loc, pcol, fscal, k_lim, *args,
                                               j_off, j_hi), GRAPH_LAUNCHES))
+            hl_b.append(cuda_ms_run(lambda i: fn_k(
+                loc, pcol, fscal, k_lim, *args, j_off, j_hi), HOST_LOOP))
             pl_b.append(cuda_ms_run(lambda i: march_plain(
                 loc, pcol, fscal, k_lim, *args, j_offset=j_off, j_hi=j_hi),
                 10))
@@ -4503,16 +4771,30 @@ def scale_out_phase(dev, card, tiles):
             statistics.mean(pl_b), 0, 0, FP32_OPS_PER_S)
         rec["bound_ms"] = statistics.mean(x[0] for x in bd_b)
         rec["bound_by"] = bd_b[0][1]
+        rec["fill_ms"] = fills[tex]
+        rec["in_frame_ms"] = statistics.mean(in_frame[tex])
+        rec["host_loop_ms"] = statistics.mean(hl_b)
         rec["bands"] = [dict(band=b["band"], rows=b["rows"],
-                             cells=b["cells"], ms=b[name + "_ms"],
-                             bound_ms=b[name + "_bound_ms"]) for b in bands]
+                             cells=b["cells"], live_tiles=b["live_tiles"],
+                             tiles=b["tiles"], ms=b[name + "_ms"],
+                             bound_ms=b[name + "_bound_ms"],
+                             fill_ms=fills[tex], in_frame_ms=f,
+                             host_loop_ms=h)
+                        for b, f, h in zip(bands, in_frame[tex], hl_b)]
         recs.append(rec)
         log(f"[33] {name} device ms a band (graph replay, {GRAPH_LAUNCHES} "
             f"launches): " + ", ".join(
                 f"band {b['band']} {b[name + '_ms']:.4f} (bound "
-                f"{b[name + '_bound_ms']:.5f}, {b['cells']} cells)"
-                for b in bands) + f"; plain {statistics.mean(pl_b):.4f}; "
-            f"{card}")
+                f"{b[name + '_bound_ms']:.5f}, {b['cells']} cells, "
+                f"{b['live_tiles']} of {b['tiles']} tiles live)"
+                for b in bands) + f"; mean {rec['ms']:.5f} against bound "
+            f"{rec['bound_ms']:.5f} ({rec['bound_ms'] / rec['ms']:.1%}); a "
+            f"write-only pass over its {(2 if tex else 1) * outs / 1e6:.2f} "
+            f"MB of outputs {fills[tex]:.5f}; in the region render's frame "
+            f"(torch.profiler, {BAND_FRAMES} renders) " + ", ".join(
+                f"{x:.4f}" for x in in_frame[tex]) + "; host-loop "
+            + ", ".join(f"{x:.4f}" for x in hl_b) + f"; plain "
+            f"{statistics.mean(pl_b):.4f}; {card}")
     t_sq = graph_ms(lambda: march(dem, pcol, fscal, k_lim), GRAPH_LAUNCHES)
     t_sq_t = graph_ms(lambda: march_textured(dem, pcol, fscal, k_lim, plane,
                                              2), GRAPH_LAUNCHES)
@@ -4909,18 +5191,21 @@ def main(profile_dir=None):
 
 
 def time_march(root, tag):
-    """--time-march: both march entries of the package under ``root`` at
-    the bench shape, on the device clock, with ptxas's lines for them."""
+    """--time-march: the march entries of the package under ``root`` at the
+    bench shape, the square ones and the banded ones on phase 33's SCALE_R
+    bands, on the device clock, with ptxas's lines for every instance."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(root))
     from horizonator_tpu_torch.kernels import build
-    from horizonator_tpu_torch.kernels.window_march import (march,
-                                                            march_textured)
+    from horizonator_tpu_torch.kernels.window_march import (
+        march, march_band, march_band_textured, march_textured)
+    from horizonator_tpu_torch.parallel.regions import band_bounds, local_band
     from horizonator_tpu_torch.render import make_params
     from horizonator_tpu_torch.render.crossing import (crossing_geometry,
                                                        k_cross_for)
+    from horizonator_tpu_torch.render.texture import ColorPlanes2x
     from horizonator_tpu_torch.render.window import step_budget
     _, _, nvcc_log = build.build()
     build.library()
@@ -4941,18 +5226,39 @@ def time_march(root, tag):
     gen.manual_seed(1)
     plane = torch.randint(0, 1 << 24, (2 * N, 2 * N), generator=gen,
                           device=dev, dtype=torch.int32)
+    entries = [("march", lambda: march(dem, pcol, fscal, k)),
+               ("textured", lambda: march_textured(dem, pcol, fscal, k,
+                                                   plane, 2))]
+    r, nb = SCALE_R, N // SCALE_R
+    for idx in range(r):
+        j_off, j_hi = band_bounds(idx, r, nb)
+        loc = local_band(dem, idx, r)
+        loc_c = local_band(ColorPlanes2x(plane), idx, r).full_packed
+        entries += [
+            (f"band {idx}", lambda loc=loc, j_off=j_off, j_hi=j_hi:
+             march_band(loc, pcol, fscal, k, j_off, j_hi)),
+            (f"band {idx} textured",
+             lambda loc=loc, loc_c=loc_c, j_off=j_off, j_hi=j_hi:
+             march_band_textured(loc, pcol, fscal, k, loc_c, 2, j_off,
+                                 j_hi))]
     times = {name: [graph_ms(fn, GRAPH_LAUNCHES) for _ in range(7)]
-             for name, fn in (
-                 ("march", lambda: march(dem, pcol, fscal, k)),
-                 ("textured", lambda: march_textured(dem, pcol, fscal, k,
-                                                     plane, 2)))}
+             for name, fn in entries}
+    med = {name: statistics.median(t) for name, t in times.items()}
     log(f"{tag}: " + ", ".join(
-        f"{name} {statistics.median(t):.5f} ({min(t):.5f}-{max(t):.5f})"
+        f"{name} {med[name]:.5f} ({min(t):.5f}-{max(t):.5f})"
         for name, t in times.items())
-        + f" ms at ({W}, {k}); {card_line()}")
+        + f" ms at ({W}, {k}); mean a band "
+        + f"{statistics.mean(med[f'band {i}'] for i in range(r)):.5f}, "
+        + "textured "
+        + f"{statistics.mean(med[f'band {i} textured'] for i in range(r)):.5f}"
+        + f"; {card_line()}")
     for name, (regs, st, ld) in ptxas_table(nvcc_log).items():
-        if "window_march" in name:
-            log(f"    {name}: {regs} registers, spills {st} / {ld} bytes")
+        m = re.search(r"(window_march(?:_band)?(?:_tex)?_kernel)I(Lb\dE)+E",
+                      name)
+        if m:
+            flags = ", ".join(re.findall(r"Lb(\d)E", m[0]))
+            log(f"    {m[1]}<{flags}>: {regs} registers, spills {st} / {ld} "
+                f"bytes")
     return 0
 
 

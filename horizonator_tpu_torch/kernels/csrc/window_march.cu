@@ -43,7 +43,8 @@
 // the row-dominant half. The column's eight constants
 // are two 16-byte loads, made once and kept in registers for all 16 of the
 // thread's steps; the grid is 2-D (column tiles x step tiles), so no
-// thread divides. A thread takes its steps four at a time: first the four
+// thread of the square march divides (a band's tile order costs one). A
+// thread takes its steps four at a time: first the four
 // positions, validity tests and (predicated) loads, then the arithmetic,
 // so eight DEM loads (sixteen with colors) are in flight per thread and no
 // sample's load waits behind another sample's division.
@@ -80,21 +81,55 @@
 // position of column-dominant ones), the column coordinate in [0, ni-1].
 // Positions, hats and distances stay global, so a band's samples are bitwise
 // the whole grid's; only the addresses shift by j_off rows (s*j_off rows of
-// the color plane), and the row stride is ni. The square entries keep
-// their code (BAND false): the band's bounds and offsets cost them nothing.
+// the color plane), and the row stride is ni.
+//
+// A band launch still covers the whole (W, K) grid of samples, but of R
+// bands around a viewer most tiles hold no valid sample: a band beyond
+// zfar holds none, and a band beside the viewer holds the columns that head
+// into it. So a band's tile first votes. Each thread computes the validity
+// of its 16 samples (the same positions and the six bounds tests that
+// decide each sample in the march, so the vote is exact) into a 16-bit
+// mask, and __syncthreads_or decides whether the tile is live. A dead tile
+// issues no DEM or color load, no hat and no division, and skips the
+// shared-memory transpose, which exists only to turn the column-per-lane
+// samples into contiguous stores: its outputs are constants, so its warps
+// store NEG_BIG (and 0 colors) straight from registers, 16 bytes a thread,
+// two columns' 256 contiguous bytes a warp store. A live tile runs the
+// march as below, reading each sample's validity from the mask; where no
+// lane of a warp has a valid sample among a group of U steps (the tiles a
+// band's edge cuts), the warp skips the group's loads and arithmetic and
+// writes NEG_BIG into the shared array. The TPU kernel skipped inactive
+// (tile, direction) instances the same way, from flags computed before the
+// launch (window.py:836-931); here the vote costs about a quarter of a
+// live sample's instructions and needs no pass before the launch. A band
+// walks its tiles in column-major order, so that the blocks the hardware
+// starts side by side spread a band's live columns over the SMs. The
+// square entries keep their code (window_march_kernel): the band's bounds,
+// offsets and vote live in the band kernels alone.
 //
 // What bounds it on the H100. The function's bytes (the DEM cells within
 // zfar, the columns' constants, the (W, K) outputs) are a few microseconds
-// at 3.35 TB/s, and the kernel is not held by them: variants without the
-// DEM loads or without the stores ran about as long. It is held by
-// instruction throughput and the length of a thread's dependent chain:
-// about 65 machine instructions per sample (six bounds tests, the hats,
-// the IEEE division, 64-bit index arithmetic), 16 samples per thread in
-// four rounds, behind a launch and a first load of the constants that
-// cost as much as a write-only pass over the outputs. PERF.md has the
-// times. A transposed copy of the DEM and the color plane for the
-// column-dominant half would take out sectors, which are not what holds
-// the kernel.
+// at 3.35 TB/s, and the square kernel is not held by them: variants
+// without the DEM loads or without the stores ran about as long. It is
+// held by instruction throughput and the length of a thread's dependent
+// chain: about 65 machine instructions per sample (six bounds tests, the
+// hats, the IEEE division, 64-bit index arithmetic), 16 samples per thread
+// in four rounds, behind a launch and a first load of the constants that
+// cost as much as a write-only pass over the outputs. A band launch pays
+// that chain only in its live tiles, but a live tile's chain is as long as
+// ever (the constants, the vote, four rounds, the transpose), and with
+// fewer live blocks on an SM less of it is hidden: a band beside the
+// viewer, with two fifths of its tiles live, runs about as long as the
+// square march, held by its slowest live blocks. Its dead tiles cost the
+// vote and the write of their outputs: a band beyond zfar runs at a little
+// more than a write-only pass. Splitting a tile over more warps or fewer
+// steps, loading more steps at once or a round ahead, a bounds-only
+// liveness test and other tile orders did not shorten a live band
+// (PERF.md). A transposed copy of the DEM and the color
+// plane for the column-dominant half would take out sectors, which are not
+// what holds the kernel. Nor do tensor cores or TMA serve it: each sample
+// is a two-tap gather and a division, with no matrix product, and the
+// stores are already whole sectors.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,19 +153,54 @@ __device__ __forceinline__ void hats(float x, float& fl, float& h_lo,
                0.0f);
 }
 
+// A dead tile's outputs: NEG_BIG, and 0 for the colors, written straight
+// from registers over the tile's (<= COLS, <= STEPS) block of (W, K), 16
+// bytes a thread where K and the outputs' alignment allow (a warp then
+// writes two columns' 256 contiguous bytes), else 4 (half a column's 128).
+template <bool TEX>
+__device__ __forceinline__ void store_dead(float* __restrict__ out,
+                                           int* __restrict__ tex_out,
+                                           int w0, int m0, int W, int K) {
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int nc = W - w0 < COLS ? W - w0 : COLS;
+  const bool vec = (K & 3) == 0 && ((uintptr_t)out & 15u) == 0 &&
+                   (!TEX || ((uintptr_t)tex_out & 15u) == 0);
+  if (vec) {
+    constexpr int V = STEPS / 4;    // 16-byte vectors of a tile's column
+    const float4 nb = make_float4(NEG_BIG, NEG_BIG, NEG_BIG, NEG_BIG);
+#pragma unroll
+    for (int i = tid; i < COLS * V; i += 32 * WARPS) {
+      const int c = i / V, m = m0 + 4 * (i % V);
+      if (c < nc && m < K) {
+        const long long o = (long long)(w0 + c) * K + m;
+        *reinterpret_cast<float4*>(out + o) = nb;
+        if (TEX) *reinterpret_cast<int4*>(tex_out + o) = make_int4(0, 0, 0, 0);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int i = tid; i < COLS * STEPS; i += 32 * WARPS) {
+      const int c = i / STEPS, m = m0 + i % STEPS;
+      if (c < nc && m < K) {
+        const long long o = (long long)(w0 + c) * K + m;
+        out[o] = NEG_BIG;
+        if (TEX) tex_out[o] = 0;
+      }
+    }
+  }
+}
+
 // pcol: (W, 8) float32 per column: a, t, e, scale, axis0, sign, j_dom, 0.
 // fscal: (4,) float32: viewer z, znear, zfar, curvature coefficient.
 // n: the grid's columns (its edge, square); BAND: nj rows from global row
 // j_off, valid up to j_off + j_hi.
 template <bool TEX, bool BATCH, bool BAND>
-__global__ void __launch_bounds__(32 * WARPS)
-window_march_kernel(const float* __restrict__ dem, int n, int nj, int j_off,
-                    float j_hi, long long dem_bstride,
-                    const int* __restrict__ colors,
-                    int s, long long color_bstride,
-                    const float* __restrict__ pcol,
-                    const float* __restrict__ fscal, int W, int K,
-                    float* __restrict__ out, int* __restrict__ tex_out) {
+__device__ __forceinline__ void march_tile(
+    const float* __restrict__ dem, int n, int nj, int j_off, float j_hi,
+    long long dem_bstride, const int* __restrict__ colors, int s,
+    long long color_bstride, const float* __restrict__ pcol,
+    const float* __restrict__ fscal, int W, int K, float* __restrict__ out,
+    int* __restrict__ tex_out) {
   __shared__ float s_out[STEPS][COLS + 1];
   __shared__ int s_tex[TEX ? STEPS : 1][COLS + 1];
   if (BATCH) {  // the block's viewpoint
@@ -145,7 +215,17 @@ window_march_kernel(const float* __restrict__ dem, int n, int nj, int j_off,
     }
   }
   const int lane = threadIdx.x, warp = threadIdx.y;
-  const int w0 = blockIdx.x * COLS, m0 = blockIdx.y * STEPS;
+  int tile_w = blockIdx.x, tile_m = blockIdx.y;
+  if (BAND) {
+    // the tiles in column-major order: the blocks that the hardware hands
+    // out together take the step tiles of one column tile, so a band's
+    // live tiles (a range of columns) spread over the SMs instead of
+    // filling some of them
+    const unsigned l = blockIdx.y * gridDim.x + blockIdx.x;
+    tile_w = l / gridDim.y;
+    tile_m = l % gridDim.y;
+  }
+  const int w0 = tile_w * COLS, m0 = tile_m * STEPS;
   const int w = w0 + lane;
 
   // the thread's column, for all of its steps
@@ -175,10 +255,43 @@ window_march_kernel(const float* __restrict__ dem, int n, int nj, int j_off,
   const unsigned n_cross = BAND && !j_dom ? (unsigned)nj : (unsigned)n;
   const unsigned off = BAND ? (unsigned)j_off : 0u;
 
+  // a band's liveness: bit i of `live` is the validity of the thread's
+  // step m0 + warp + i*WARPS, by the same operations and tests as the
+  // march below. A tile with no valid sample writes its outputs and stops.
+  unsigned live = 0;
+  if (BAND) {
+#pragma unroll
+    for (int i = 0; i < STEPS / WARPS; ++i) {
+      const int m = m0 + warp + i * WARPS;
+      const float mf = (float)m;
+      const float p = __fmaf_rn(mf, t, a);
+      const float axis_m = __fadd_rn(axis0, __fmul_rn(mf, sgn));
+      const float d = __fmul_rn(__fadd_rn(mf, e), scale);
+      live |= (unsigned)(w < W && m < K && axis_m >= ax_lo &&
+                         axis_m <= ax_hi && p >= cr_lo && p <= cr_hi &&
+                         d >= znear && d <= zfar)
+              << i;
+    }
+    if (!__syncthreads_or(live != 0)) {
+      store_dead<TEX>(out, tex_out, w0, m0, W, K);
+      return;
+    }
+  }
+
   // U steps at a time: first every step's position, validity and loads
   // (no load waits for another), then the arithmetic on what arrived
 #pragma unroll 1
   for (int i0 = 0; i0 < STEPS / WARPS; i0 += U) {
+    if (BAND && !__any_sync(0xffffffffu, (live >> i0) & ((1u << U) - 1))) {
+      // no lane of the warp has a valid sample among these U steps
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int sl = warp + (i0 + u) * WARPS;
+        s_out[sl][lane] = NEG_BIG;
+        if (TEX) s_tex[sl][lane] = 0;
+      }
+      continue;
+    }
     float pos[U], dm[U], z_lo[U], z_hi[U];
     int c_lo[TEX ? U : 1], c_hi[TEX ? U : 1];
     bool valid[U];
@@ -190,9 +303,7 @@ window_march_kernel(const float* __restrict__ dem, int n, int nj, int j_off,
       const float axis_m = __fadd_rn(axis0, __fmul_rn(mf, sgn));
       dm[u] = __fmul_rn(__fadd_rn(mf, e), scale);
       if (BAND)
-        valid[u] = w < W && m < K && axis_m >= ax_lo && axis_m <= ax_hi &&
-                   pos[u] >= cr_lo && pos[u] <= cr_hi && dm[u] >= znear &&
-                   dm[u] <= zfar;
+        valid[u] = (live >> (i0 + u)) & 1u;
       else
         valid[u] = w < W && m < K && axis_m >= 0.0f && axis_m <= hi &&
                    pos[u] >= 0.0f && pos[u] <= hi && dm[u] >= znear &&
@@ -264,6 +375,37 @@ window_march_kernel(const float* __restrict__ dem, int n, int nj, int j_off,
   }
 }
 
+#define MARCH_PARAMS                                                        \
+  const float *__restrict__ dem, int n, int nj, int j_off, float j_hi,      \
+      long long dem_bstride, const int *__restrict__ colors, int s,         \
+      long long color_bstride, const float *__restrict__ pcol,              \
+      const float *__restrict__ fscal, int W, int K, float *__restrict__ out, \
+      int *__restrict__ tex_out
+#define MARCH_ARGS                                                          \
+  dem, n, nj, j_off, j_hi, dem_bstride, colors, s, color_bstride, pcol,     \
+      fscal, W, K, out, tex_out
+
+template <bool TEX, bool BATCH>
+__global__ void __launch_bounds__(32 * WARPS)
+window_march_kernel(MARCH_PARAMS) {
+  march_tile<TEX, BATCH, false>(MARCH_ARGS);
+}
+
+template <bool BATCH>
+__global__ void __launch_bounds__(32 * WARPS)
+window_march_band_kernel(MARCH_PARAMS) {
+  march_tile<false, BATCH, true>(MARCH_ARGS);
+}
+
+// A band's 1152 tiles at 4096 x 576 are resident in one wave at 9 blocks
+// an SM: 56 registers a thread, which the textured band's vote would pass
+// otherwise (64 registers, two waves, slower: PERF.md).
+template <bool BATCH>
+__global__ void __launch_bounds__(32 * WARPS, 9)
+window_march_band_tex_kernel(MARCH_PARAMS) {
+  march_tile<true, BATCH, true>(MARCH_ARGS);
+}
+
 template <bool TEX, bool BAND>
 int launch(const void* dem, int n, int nj, int j_off, float j_hi,
            long long dem_bstride, const void* colors, int s,
@@ -277,8 +419,12 @@ int launch(const void* dem, int n, int nj, int j_off, float j_hi,
   if (step_tiles > 65535u || ((uintptr_t)pcol & 15u))
     return (int)cudaErrorInvalidValue;
   // the viewpoints ride on gridDim.z, at most MAX_Z a launch
-  auto kernel = B > 1 ? window_march_kernel<TEX, true, BAND>
-                      : window_march_kernel<TEX, false, BAND>;
+  auto kernel = !BAND ? (B > 1 ? window_march_kernel<TEX, true>
+                               : window_march_kernel<TEX, false>)
+                : TEX ? (B > 1 ? window_march_band_tex_kernel<true>
+                               : window_march_band_tex_kernel<false>)
+                      : (B > 1 ? window_march_band_kernel<true>
+                               : window_march_band_kernel<false>);
   for (long long b0 = 0; b0 < B; b0 += MAX_Z) {
     const unsigned nb = (unsigned)(B - b0 < MAX_Z ? B - b0 : MAX_Z);
     const long long wk = b0 * W * K;

@@ -39,6 +39,13 @@ local row = global row - ``j_offset``, with the row coordinate valid in
 bitwise the whole grid's march (window.py:822-834); the band's color
 plane is (s*nj, s*ni), its rows from global 2x row s*j_offset. With
 j_offset 0, j_hi n - 1 and a square grid every bound is the square one.
+Their kernel first decides which of its 32 x 64 tiles hold a valid sample
+(each thread tests its 16 samples as the march does, one block-wide OR):
+a tile without one stores NEG_BIG and 0 colors straight from registers
+and skips the loads, the arithmetic and the transpose, so a band beyond
+zfar costs about a write-only pass over its outputs while a band beside
+the viewer pays the march in its live tiles alone. The function, and so
+``march_plain``, is the same.
 """
 
 from __future__ import annotations
