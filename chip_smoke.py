@@ -15,7 +15,8 @@ then drive the main render path and the API on the card.
         # the bench DEM at phase 26's suns (median of 5 each), the same
         # way round
     python3 chip_smoke.py --oracle        # only: build, then phases 29-31
-    python3 chip_smoke.py --front         # only: build, then phase 32
+    python3 chip_smoke.py --front         # only: build, then phases 32
+                                          # and 34
     python3 chip_smoke.py --scale-out     # only: build, then phase 33
 
 Phases, in order; any failure raises and exits nonzero:
@@ -241,16 +242,33 @@ Phases, in order; any failure raises and exits nonzero:
     single render (bitwise; the wedges within the JAX tests' tolerance at
     all but 0.2% of pixels), untextured and textured hybrid, launching
     the band entry once a band; through a one-rank NCCL group, the API's
-    region_mesh="auto" (untextured, and textured hybrid from a seeded
-    tile cache) bitwise the plain API's renders, render_batch(mesh="auto")
+    region_mesh="auto" (untextured, and textured hybrid from a cache of
+    seeded PNG tiles, 8-bit palette and 8-bit RGB rows filtered 0-4,
+    decoded by the port, each API's atlas equal to the tiles' pixels)
+    bitwise the plain API's renders, render_batch(mesh="auto")
     of 8 viewpoints and config 10's viewshed_count(mesh="auto") against
     one device; the band entries' device ms a band against their bound
     and a write-only pass over their outputs, with each band's live tiles
     (32 columns x 64 steps holding a valid sample of the plain version).
-Phases 26-32 add no kernel (their ops are the JAX package's XLA ops, in
-plain PyTorch, or host code); phase 27 runs the two textured kernels,
-phases 29-30 the resolve, phase 31 the march and the resolve, phase 32
-all four render entries.
+34. profiling and the host paths without PIL or requests (both blocked
+    through sys.modules for the phase): profiling.device_time of the bench
+    render (ms a viewpoint, within 2x of phase 5's CUDA-events median), a
+    PhaseTimer over the render's steps (its report; under --profile each
+    phase name in the torch.profiler table), device_time_chain over 16
+    camera-moved renders; _png.decode_png of a palette, an RGB (filters
+    0-4) and a Paeth RGB tile through the native unfilter (g++, no
+    fallback; the plain one timed beside it) and of the API scene's
+    whole atlas, ms a tile; the CLI's --pois to .svg on phase 6's tiles,
+    its embedded PNG decoded bitwise the API's image; a loopback server
+    of seeded tiles (some with Expires) and an Overpass-shaped answer: a
+    textured API with downloads into an empty cache (every file byte for
+    byte, .expires where sent, the atlas the tiles' pixels, the render
+    bitwise one from a local cache), the viewer's /tiles/ route on a
+    cache miss, and fetch_peaks (a form-encoded data= body).
+Phases 26-32 and 34 add no kernel (their ops are the JAX package's XLA
+ops, in plain PyTorch, or host code); phase 27 runs the two textured
+kernels, phases 29-30 the resolve, phase 31 the march and the resolve,
+phases 32 and 34 all four render entries.
 Each phase group prints its seconds ("[t]" lines).
 A kernel's "device ms" (the ``ms`` of its record) is the replay time of a
 CUDA graph of back-to-back launches over their count, so no Python runs in
@@ -3695,27 +3713,43 @@ def decode_png(data):
 
 class LoopbackFiles:
     """An HTTP server on 127.0.0.1 of ``payloads`` (path -> bytes) in a
-    thread, counting its hits; 404 elsewhere."""
+    thread, counting its hits and their User-Agents; 404 elsewhere.
+    ``headers`` (path -> [(name, value)]) adds response headers; a POST is
+    answered with the bytes ``post`` (404 when None) and recorded in
+    ``posts`` as (path, Content-Type, body)."""
 
-    def __init__(self, payloads):
+    def __init__(self, payloads, headers=None, post=None):
         import threading
-        from http.server import BaseHTTPRequestHandler, HTTPServer
-        self.hits = []
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        self.hits, self.agents, self.posts = [], [], []
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, *a):
                 pass
 
-            def do_GET(self):
-                outer.hits.append(self.path)
-                body = payloads.get(self.path)
+            def answer(self, body, extra=()):
                 self.send_response(200 if body is not None else 404)
+                for k, v in extra:
+                    self.send_header(k, v)
                 self.send_header("Content-Length", str(len(body or b"")))
                 self.end_headers()
                 self.wfile.write(body or b"")
 
-        self.srv = HTTPServer(("127.0.0.1", 0), Handler)
+            def do_GET(self):
+                outer.hits.append(self.path)
+                outer.agents.append(self.headers.get("User-Agent"))
+                self.answer(payloads.get(self.path),
+                            (headers or {}).get(self.path, ()))
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                outer.posts.append((self.path,
+                                    self.headers.get("Content-Type"),
+                                    self.rfile.read(n)))
+                self.answer(post)
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
         self.thread = threading.Thread(target=self.srv.serve_forever,
                                        daemon=True)
@@ -4116,6 +4150,10 @@ SCALE_BATCH = 8               # phase 33: render_batch(mesh="auto") viewpoints
 API_RUNS = 11                 # phase 33: region and plain API renders timed
 WEDGE_OFF = 4                 # phase 33: wedged pixels past 5e-3 + 1 m
 BAND_FRAMES = 3               # phase 33: region renders profiled
+TILE_SEED = 33                # phases 33-34: the seeded map tiles
+PHASE_RENDERS = 5             # phase 34: renders under the PhaseTimer
+CHAIN_REPS = 16               # phase 34: camera moves a timed chain
+DECODES, PLAIN_DECODES = 20, 3  # phase 34: timed decodes of a tile
 
 
 def interleaved_ms(fa, fb, n):
@@ -4415,14 +4453,90 @@ def band_in_frame(drive, r):
     return out
 
 
-def seeded_tile(path):
-    """A stand-in for a tile cache's PNG decoder, so the phase runs where
-    PIL is missing: a 256x256 BGR tile made from the tile's path, the
-    same every call."""
-    h = sum(ord(c) * (k + 1) for k, c in enumerate(str(path))) % 251
+def png_file(rgb=None, index=None, palette=None, filters=(0, 1, 2, 3, 4)):
+    """The bytes of a PNG of the script's own writer (the port's encode_png
+    writes RGB with filter 0 alone), in the forms map tile servers send:
+    8-bit RGB ``rgb`` (H, W, 3) whose row r takes filter
+    ``filters[r % len(filters)]``, or an 8-bit palette image (``index``
+    (H, W), ``palette`` (256, 3)) with filter 0 on every row."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    if rgb is None:
+        h, w = index.shape
+        rows = np.hstack([np.zeros((h, 1), np.uint8), index])
+        ctype, plte = 3, chunk(b"PLTE", palette.tobytes())
+    else:
+        h, w, _ = rgb.shape
+        cur = rgb.reshape(h, 3 * w).astype(np.int32)
+        up = np.vstack([np.zeros((1, 3 * w), np.int32), cur[:-1]])
+        left = np.hstack([np.zeros((h, 3), np.int32), cur[:, :-3]])
+        ul = np.hstack([np.zeros((h, 3), np.int32), up[:, :-3]])
+        est = left + up - ul
+        pa, pb, pc = abs(est - left), abs(est - up), abs(est - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, up, ul))
+        pred = np.stack([np.zeros_like(cur), left, up, (left + up) // 2,
+                         paeth])
+        f = np.asarray(filters)[np.arange(h) % len(filters)]
+        rows = np.hstack([f[:, None], (cur - pred[f, np.arange(h)]) & 255])
+        ctype, plte = 2, b""
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + plte + chunk(b"IDAT", zlib.compress(rows.astype(
+                np.uint8).tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def tile_pixels(x, y):
+    """Map tile (x, y)'s seeded RGB pixels and its file: tiles with x + y
+    even as 8-bit RGB rows filtered 0-4 in turn, the others as a
+    256-colour palette image."""
+    rng = np.random.default_rng((TILE_SEED, x, y))
     yy, xx = np.mgrid[0:256, 0:256]
-    return np.stack([(xx + h) % 256, (yy * 3 + h) % 256,
-                     (xx + yy + 7 * h) % 256], -1).astype(np.uint8)
+    h = int(rng.integers(0, 251))
+    if (x + y) % 2 == 0:
+        rgb = np.stack([(xx + h) % 256, (yy * 3 + h) % 256,
+                        (xx + yy + 7 * h) % 256], -1).astype(np.uint8)
+        return rgb, png_file(rgb)
+    palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    index = ((xx // 4 + 5 * (yy // 8) + h) % 256).astype(np.uint8)
+    return palette[index], png_file(index=index, palette=palette)
+
+
+def atlas_tiles(h):
+    """The z12 tiles (xs, ys) of the API object ``h``'s texture atlas:
+    tiles.build_atlas's range for its viewer and radius."""
+    from horizonator_tpu_torch.render.texture import tile_xy_from_latlon
+    d = h.mosaic.radius_cells / h.mosaic.cells_per_deg
+    x0, y0 = tile_xy_from_latlon(h.viewer_lat + d, h.viewer_lon - d, 12)
+    x1, y1 = tile_xy_from_latlon(h.viewer_lat - d, h.viewer_lon + d, 12)
+    return range(x0, x1 + 1), range(y0, y1 + 1)
+
+
+def seeded_tiles(xs, ys):
+    """tile_pixels over xs x ys: ({url path /12/x/y.png: file bytes}, the
+    BGR atlas of their pixels, rows from the north)."""
+    files = {}
+    atlas = np.zeros((256 * len(ys), 256 * len(xs), 3), np.uint8)
+    for j, y in enumerate(ys):
+        for i, x in enumerate(xs):
+            rgb, files[f"/12/{x}/{y}.png"] = tile_pixels(x, y)
+            atlas[256 * j:256 * (j + 1), 256 * i:256 * (i + 1)] = \
+                rgb[:, :, ::-1]
+    return files, atlas
+
+
+def write_tile_cache(root, files):
+    """seeded_tiles' files as a mapnik tile cache under ``root``."""
+    for path, data in files.items():
+        dst = os.path.join(root, "mapnik", *path.strip("/").split("/"))
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        with open(dst, "wb") as f:
+            f.write(data)
 
 
 def scale_out_phase(dev, card, tiles):
@@ -4434,11 +4548,12 @@ def scale_out_phase(dev, card, tiles):
     single-device render, untextured and textured (phase 9's half-cell
     planes, atlas and hybrid near field); then through a one-rank NCCL
     group: the API's region_mesh="auto" (untextured, and textured hybrid
-    from a seeded tile cache), render_batch(mesh="auto") of SCALE_BATCH
+    from a cache of seeded PNG tiles through the port's decoder, its atlas
+    the tiles' pixels), render_batch(mesh="auto") of SCALE_BATCH
     viewpoints and viewshed_count(mesh="auto") at config 10's shape.
     Returns the banded entries' JSON records."""
     import torch.distributed as dist
-    from horizonator_tpu_torch import horizonator, tiles as tiles_mod
+    from horizonator_tpu_torch import horizonator
     from horizonator_tpu_torch.kernels.resolve import (resolve,
                                                        resolve_textured)
     from horizonator_tpu_torch.kernels.window_march import (
@@ -4450,6 +4565,7 @@ def scale_out_phase(dev, card, tiles):
     from horizonator_tpu_torch.render.crossing import (crossing_geometry,
                                                        k_cross_for)
     from horizonator_tpu_torch.render.texture import (AtlasParams,
+                                                      pack_atlas,
                                                       pack_cell_colors,
                                                       prepare_color_planes,
                                                       tile_xy_from_latlon)
@@ -4652,21 +4768,20 @@ def scale_out_phase(dev, card, tiles):
             np.array_equal(img_r, img_1) and np.array_equal(rng_r, rng_1)):
         fail(f"API region render (launches {api_launches}) != plain API "
              f"render")
+    # the textured API on a tile cache of real PNG files, decoded by
+    # tiles._decode_tile_bgr (the port's own decoder)
     tile_dir = tempfile.mkdtemp(dir=tiles)
-    decode = tiles_mod._decode_tile_bgr
-    tiles_mod._decode_tile_bgr = seeded_tile
-    try:
-        for x in range(tx0 - 30, tx0 + 31):
-            for y in range(ty0 - 30, ty0 + 31):
-                t = tiles_mod.tile_path(tile_dir, "mapnik", 12, x, y)
-                t.parent.mkdir(parents=True, exist_ok=True)
-                t.touch()
-        tkw = dict(dir_dems=tiles, device=dev, render_texture=True,
-                   dir_tiles=tile_dir, allow_downloads=False)
-        ht = horizonator(34.4, -117.6, W, H, **tkw)
-        htr = horizonator(34.4, -117.6, W, H, region_mesh="auto", **tkw)
-    finally:
-        tiles_mod._decode_tile_bgr = decode
+    xs, ys = atlas_tiles(h)
+    files, want_atlas = seeded_tiles(xs, ys)
+    write_tile_cache(tile_dir, files)
+    tkw = dict(dir_dems=tiles, device=dev, render_texture=True,
+               dir_tiles=tile_dir, allow_downloads=False)
+    ht = horizonator(34.4, -117.6, W, H, **tkw)
+    htr = horizonator(34.4, -117.6, W, H, region_mesh="auto", **tkw)
+    want_packed = pack_atlas(torch.from_numpy(want_atlas).to(dev))
+    for tag, api in (("plain", ht), ("region", htr)):
+        if not torch.equal(api._atlas, want_packed):
+            fail(f"{tag} textured API's atlas != the seeded tiles' pixels")
     march_band_textured.launches = resolve_textured.launches = 0
     img_tr, rng_tr = htr.render(-180, 180)
     api_launches.update(window_march_band_textured=(
@@ -4686,8 +4801,10 @@ def scale_out_phase(dev, card, tiles):
         lambda i: h.render(-180 + i, 180 + i), API_RUNS)
     log(f"[33] API region_mesh='auto' through a one-rank {backend} group "
         f"({hr.mosaic.grid.shape} grid, 1 band + masked halo row): "
-        f"untextured and textured hybrid (seeded tile cache, "
-        f"{htr._atlas.shape} atlas) == the plain API's renders bitwise, "
+        f"untextured and textured hybrid (a cache of {len(files)} seeded "
+        f"PNG tiles, palette and RGB filtered 0-4, decoded by the port: "
+        f"{tuple(htr._atlas.shape)} atlas == their pixels) == the plain "
+        f"API's renders bitwise, "
         f"launches {api_launches}; ms a render (median of {API_RUNS} in "
         f"turns, host copies included) region {ms_region:.3f}, plain "
         f"{ms_plain_api:.3f}; the plain one before the group existed "
@@ -4804,6 +4921,361 @@ def scale_out_phase(dev, card, tiles):
     return recs
 
 
+def profiling_checks(dev, card, ms5, profile_dir):
+    """Phase 34, part 1: profiling.device_time of the bench render beside
+    phase 5's CUDA-events median ``ms5`` and the same median measured here
+    (which stands for phase 5's when ``ms5`` is None), a PhaseTimer over
+    the render's steps and device_time_chain over camera-moved renders."""
+    from horizonator_tpu_torch import profiling
+    from horizonator_tpu_torch.render import render_panorama
+    from horizonator_tpu_torch.render.crossing import (crossing_geometry,
+                                                       k_cross_for)
+    from horizonator_tpu_torch.render.raymarch import resolve_to_image
+    from horizonator_tpu_torch.render.window import march_from_geometry
+    dem = torch.from_numpy(bench_dem()).to(dev)
+    k = k_cross_for(ZFAR, CPD, LAT, n=N)
+    rkw = dict(width=W, height=H, nsteps=k, cells_per_deg=CPD,
+               lat_hint_deg=LAT)
+    views = [bench_view(dev, i) for i in range(RENDERS + 2)]
+
+    def render(d, q):
+        return render_panorama(d, q, **rkw)
+
+    here = cuda_ms(lambda i: render(dem, views[i]), RENDERS)
+    dt_ms = 1e3 * profiling.device_time(render, dem, views[0],
+                                        iters=RENDERS)
+    ms5 = here if ms5 is None else ms5
+    if not 0.5 <= dt_ms / ms5 <= 2.0:
+        fail(f"profiling.device_time {dt_ms:.3f} ms a viewpoint vs phase "
+             f"5's CUDA-events median {ms5:.3f}: more than 2x apart")
+    log(f"[34] profiling.device_time(render_panorama) {W}x{H}: "
+        f"{dt_ms:.3f} ms a viewpoint (upper median of {RENDERS} calls, "
+        f"CUDA events, outputs reduced); phase 5's CUDA-events median "
+        f"{ms5:.3f}, the same measured here just before {here:.3f}; "
+        f"{card}")
+
+    timer = profiling.PhaseTimer()
+
+    def steps(q):
+        with timer.phase("phase34.geometry"):
+            geo = crossing_geometry(q, width=W, cells_per_deg=CPD)
+            torch.cuda.synchronize()
+        with timer.phase("phase34.march"):
+            tan, dists = march_from_geometry(dem, q, geo, k_cross=k,
+                                             cells_per_deg=CPD,
+                                             lat_hint_deg=LAT)
+            torch.cuda.synchronize()
+        with timer.phase("phase34.resolve"):
+            img, rng = resolve_to_image(tan, dists.d_of, geo.az, q,
+                                        width=W, height=H, cells_per_deg=CPD)
+            torch.cuda.synchronize()
+        with timer.phase("phase34.readback"):
+            return img.cpu(), rng.cpu()
+
+    img_s, rng_s = steps(views[1])
+    img_r, rng_r = render(dem, views[1])
+    if not (torch.equal(img_s, img_r.cpu()) and torch.equal(rng_s,
+                                                            rng_r.cpu())):
+        fail("the PhaseTimer's render steps != render_panorama")
+    timer.totals.clear()
+    timer.counts.clear()
+    for i in range(PHASE_RENDERS):
+        steps(views[i])
+    log(f"[34] PhaseTimer over {PHASE_RENDERS} renders' steps (host clock, "
+        f"each step synchronized); {card}:")
+    for line in timer.report().splitlines():
+        log(f"    {line}")
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(3):
+                steps(views[i])
+        averages = prof.key_averages()
+        missing = sorted(set(timer.totals) - {e.key for e in averages})
+        if missing:
+            fail(f"phases {missing} missing from the torch.profiler table")
+        out = os.path.join(profile_dir, "profile_phases.txt")
+        with open(out, "w") as f:
+            f.write(f"{card}\n3 renders' steps under PhaseTimer\n"
+                    + averages.table(sort_by="self_cuda_time_total",
+                                     row_limit=40))
+        log(f"[34] profile: every phase in the torch.profiler table; {out}")
+
+    def moved(args, i):
+        d, q = args
+        return d, q._replace(viewer_cell_i=q.viewer_cell_i + i,
+                             viewer_cell_j=q.viewer_cell_j - i)
+
+    chain_ms = 1e3 * profiling.device_time_chain(
+        render, dem, views[0], perturb=moved, reps=CHAIN_REPS)
+    log(f"[34] profiling.device_time_chain: {chain_ms:.3f} ms a render "
+        f"(the fastest of 5 chains of {CHAIN_REPS} camera-moved renders, "
+        f"CUDA events); {card}")
+
+
+def decode_checks(dev, card, tiles):
+    """Phase 34, part 2: _png.decode_png of the phase's palette, RGB
+    (filters 0-4) and Paeth RGB tiles, native and plain, and of the API
+    scene's whole atlas through tiles.build_atlas; the native unfilter
+    (g++) must be the one called. Returns the scene's API object, its
+    tiles' files, their BGR atlas and a cache of them."""
+    import threading
+    from horizonator_tpu_torch import _native, _png, horizonator
+    from horizonator_tpu_torch import tiles as tiles_mod
+    if _native.get_lib() is None:
+        fail("the native library did not build (g++): the PNG unfilter "
+             "would run in Python")
+    calls, lock = {"native": 0, "plain": 0}, threading.Lock()
+    native, plain, get_lib = (_native.png_unfilter, _png.unfilter_plain,
+                              _native.get_lib)
+
+    def counted(path, fn):
+        def wrapped(*a):
+            with lock:
+                calls[path] += 1
+            return fn(*a)
+        return wrapped
+
+    _native.png_unfilter = counted("native", native)
+    _png.unfilter_plain = counted("plain", plain)
+    try:
+        pal, pal_png = tile_pixels(1, 0)
+        rgb, rgb_png = tile_pixels(0, 0)
+        forms = {"palette, filter 0": (pal_png, pal),
+                 "RGB, filters 0-4": (rgb_png, rgb),
+                 "RGB, Paeth": (png_file(rgb, filters=(4,)), rgb)}
+        for form, (data, want) in forms.items():
+            ms = {}
+            for path, n in (("native", DECODES), ("plain", PLAIN_DECODES)):
+                _native.get_lib = get_lib if path == "native" else (
+                    lambda: None)
+                before = dict(calls)
+                ts = []
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    got = _png.decode_png(data)
+                    ts.append(time.perf_counter() - t0)
+                    if not np.array_equal(got, want):
+                        fail(f"decode_png of the {form} tile ({path}) != "
+                             f"its pixels")
+                used = {p: calls[p] - before[p] for p in calls}
+                other = "plain" if path == "native" else "native"
+                if used[path] != n or used[other]:
+                    fail(f"{n} decodes of the {form} tile on the {path} "
+                         f"path called the unfilters {used}")
+                ms[path] = 1e3 * statistics.median(ts)
+            _native.get_lib = get_lib
+            log(f"[34] decode_png of a 256x256 {form} tile "
+                f"({len(data)} bytes): native unfilter {ms['native']:.3f} ms "
+                f"(median of {DECODES}), plain {ms['plain']:.3f} ms (median "
+                f"of {PLAIN_DECODES}), bitwise its pixels; host CPU of "
+                f"{card}")
+        h = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device=dev)
+        xs, ys = atlas_tiles(h)
+        t0 = time.perf_counter()
+        files, want = seeded_tiles(xs, ys)
+        cache = tempfile.mkdtemp(dir=tiles)
+        write_tile_cache(cache, files)
+        gen_s = time.perf_counter() - t0
+        before = dict(calls)
+        t0 = time.perf_counter()
+        atlas, _ = tiles_mod.build_atlas(
+            h.viewer_lat, h.viewer_lon, h.mosaic.radius_cells,
+            h.mosaic.cells_per_deg, h.mosaic.origin_cell_lon_deg,
+            h.mosaic.origin_cell_lat_deg, dir_tiles=cache,
+            allow_downloads=False)
+        atlas_s = time.perf_counter() - t0
+        used = {p: calls[p] - before[p] for p in calls}
+        if not np.array_equal(atlas, want):
+            fail("build_atlas of the seeded tile cache != the tiles' pixels")
+        if used["native"] != len(files) or used["plain"]:
+            fail(f"the atlas's {len(files)} tiles called the unfilters "
+                 f"{used}")
+    finally:
+        _native.png_unfilter, _png.unfilter_plain = native, plain
+        _native.get_lib = get_lib
+    log(f"[34] the API scene's atlas: {len(xs)} x {len(ys)} z12 tiles "
+        f"{atlas.shape}, written in {gen_s:.2f} s, build_atlas (8 threads, "
+        f"native unfilter) {1e3 * atlas_s:.1f} ms = "
+        f"{1e3 * atlas_s / len(files):.3f} ms a tile, == the tiles' pixels; "
+        f"host CPU of {card}")
+    return h, files, want, cache
+
+
+def svg_check(dev, card, tiles):
+    """Phase 34, part 3: the CLI in-process with --pois to .svg on phase
+    6's tiles; its embedded PNG decoded bitwise the API's image."""
+    import base64
+    from horizonator_tpu_torch import _png, cli, horizonator
+    with tempfile.TemporaryDirectory() as td:
+        svg, pj = os.path.join(td, "pano.svg"), os.path.join(td, "pois.json")
+        write_pois(pj, 34.4, -117.6, 64, 34)
+        t0 = time.perf_counter()
+        rc = cli.main(["--width", str(W), "--height", str(H), "--image", svg,
+                       "--pois", pj, "--dirdems", tiles, "--device",
+                       dev.type, "34.4", "-117.6", "0", "180"])
+        cli_s = time.perf_counter() - t0
+        with open(svg, encoding="utf-8") as f:
+            text = f.read()
+    m = re.search(r'xlink:href="data:image/png;base64,([A-Za-z0-9+/=]+)"',
+                  text)
+    if rc != 0 or m is None:
+        fail(f"CLI --pois .svg rc {rc}, embedded PNG found: {m is not None}")
+    got = _png.decode_png(base64.b64decode(m.group(1)))
+    img = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device=dev,
+                      render_radius_m=40000.0).render(-180, 180)[0]
+    if not np.array_equal(got, img[:, :, ::-1]):
+        fail("the SVG's embedded PNG != the API's image")
+    texts, links = text.count("<text "), text.count("<a xlink:href=")
+    if texts < 1 or links < 1:
+        fail(f"the SVG has {texts} text and {links} link elements")
+    log(f"[34] CLI {W}x{H} --pois (64) -> .svg ({len(text) / 1e6:.2f} MB) "
+        f"in {cli_s:.2f} s: embedded PNG decoded bitwise the API's image, "
+        f"{texts} text and {links} link elements; {card}")
+
+
+def loopback_fetches(dev, card, tiles, h, files, want, cache):
+    """Phase 34, part 4: a loopback server of the seeded tiles (every other
+    one with an Expires header) and an Overpass-shaped answer. A textured
+    API with downloads into an empty cache, the viewer's /tiles/ route on
+    a cache miss, and fetch_peaks."""
+    import threading
+    import urllib.parse
+    from http.server import ThreadingHTTPServer
+    from horizonator_tpu_torch import horizonator, viewer
+    from horizonator_tpu_torch.annotate import peaks
+    from horizonator_tpu_torch.render.texture import pack_atlas
+    from horizonator_tpu_torch.tiles import USER_AGENT
+    expires = "Wed, 21 Oct 2037 07:28:00 GMT"
+    headers = {p: [("Expires", expires)] for k, p in enumerate(sorted(files))
+               if k % 2 == 0}
+    rng = np.random.default_rng(34)
+    elements = [{"type": "node", "id": k, "lat": 34.4 + rng.uniform(-.2, .2),
+                 "lon": -117.6 + rng.uniform(-.2, .2),
+                 "tags": {"natural": "peak", "name": f"peak {k}",
+                          "ele": f"{rng.uniform(500, 3000):.1f}"}}
+                for k in range(8)]
+    elements.append({"type": "node", "id": 8, "lat": 34.5, "lon": -117.5,
+                     "tags": {"natural": "peak"}})       # no ele: dropped
+    srv = LoopbackFiles(files, headers, json.dumps(
+        {"version": 0.6, "elements": elements}).encode())
+    try:
+        fmt = srv.url + "/%d/%d/%d.png"
+        with tempfile.TemporaryDirectory() as empty:
+            t0 = time.perf_counter()
+            ht = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device=dev,
+                             render_texture=True, dir_tiles=empty,
+                             tiles_url_fmt=fmt, allow_downloads=True)
+            fetch_s = time.perf_counter() - t0
+            if sorted(srv.hits) != sorted(files) \
+                    or set(srv.agents) != {USER_AGENT}:
+                fail(f"the textured API fetched {len(srv.hits)} of "
+                     f"{len(files)} tiles, agents {set(srv.agents)}")
+            for path, data in files.items():
+                dst = os.path.join(empty, "mapnik", *path.strip("/").split(
+                    "/"))
+                with open(dst, "rb") as f:
+                    if f.read() != data:
+                        fail(f"fetched tile {path} != the server's bytes")
+                if os.path.exists(dst + ".expires") != (path in headers):
+                    fail(f"tile {path}: .expires written "
+                         f"{os.path.exists(dst + '.expires')}")
+            if not torch.equal(ht._atlas, pack_atlas(torch.from_numpy(
+                    want).to(dev))):
+                fail("the downloaded atlas != the tiles' pixels")
+            hl = horizonator(34.4, -117.6, W, H, dir_dems=tiles, device=dev,
+                             render_texture=True, dir_tiles=cache,
+                             allow_downloads=False)
+            a, b = ht.render(-180, 180), hl.render(-180, 180)
+            if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1],
+                                                                  b[1])):
+                fail("textured render from downloaded tiles != from the "
+                     "local cache")
+        log(f"[34] textured API with downloads from a loopback server into "
+            f"an empty cache: {len(files)} tiles fetched through urllib in "
+            f"{fetch_s:.2f} s (the constructor), files byte for byte, "
+            f".expires for the {len(headers)} sent with Expires, atlas == "
+            f"the tiles' pixels, render bitwise one from a local cache; "
+            f"{card}")
+
+        n0 = len(srv.hits)
+        miss = sorted(files)[1]
+        with tempfile.TemporaryDirectory() as vt:
+            state = viewer.ViewerState(h, 0.0, 45.0, 100.0, 40000.0,
+                                       dir_tiles=vt, tiles_url_fmt=fmt)
+            httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                        viewer.make_handler(state))
+            server = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            server.start()
+            try:
+                body, ctype = http(
+                    f"http://127.0.0.1:{httpd.server_address[1]}",
+                    "/tiles" + miss)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                server.join(timeout=10)
+            cached = os.path.join(vt, "mapnik", *miss.strip("/").split("/"))
+            if body != files[miss] or srv.hits[n0:] != [miss] \
+                    or not os.path.exists(cached):
+                fail(f"viewer /tiles{miss}: {len(body)} bytes, upstream hits "
+                     f"{srv.hits[n0:]}, cached {os.path.exists(cached)}")
+        log(f"[34] viewer /tiles{miss} on a cache miss: fetched upstream "
+            f"once, served and cached the server's bytes ({ctype})")
+
+        query = peaks.overpass_query(34.4, -117.6, 25000.0)
+        got = peaks.fetch_peaks(34.4, -117.6, 25000.0,
+                                url=srv.url + "/api/interpreter")
+        form = urllib.parse.urlencode({"data": query}).encode()
+        if got != peaks.parse_elements(elements) or len(got) != 8 \
+                or srv.posts != [("/api/interpreter",
+                                  "application/x-www-form-urlencoded",
+                                  form)]:
+            fail(f"fetch_peaks: {len(got)} peaks, posts {srv.posts}")
+        log(f"[34] fetch_peaks through urllib: a form-encoded data= body "
+            f"({len(form)} bytes), {len(got)} peaks of {len(elements)} "
+            f"elements")
+    finally:
+        srv.close()
+
+
+def host_paths_phase(dev, card, tiles, ms5=None, profile_dir=None):
+    """Phase 34: profiling and the host paths without PIL or requests, on
+    phase 6's tiles (``ms5``: phase 5's CUDA-events median, None under
+    --front)."""
+    import importlib
+    import importlib.util
+    t0 = time.perf_counter()
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "requests")}
+    blocked = ("PIL", "PIL.Image", "requests")
+    saved = {m: sys.modules[m] for m in blocked if m in sys.modules}
+    for m in blocked:
+        sys.modules[m] = None
+    try:
+        for m in ("PIL", "requests"):
+            try:
+                importlib.import_module(m)
+            except ImportError:
+                continue
+            fail(f"{m} still imports after blocking")
+        log("[34] importable before the phase: "
+            + ", ".join(f"{m} {'yes' if v else 'no'}" for m, v in
+                        have.items())
+            + "; both blocked for the phase")
+        profiling_checks(dev, card, ms5, profile_dir)
+        h, files, want, cache = decode_checks(dev, card, tiles)
+        svg_check(dev, card, tiles)
+        loopback_fetches(dev, card, tiles, h, files, want, cache)
+    finally:
+        for m in blocked:
+            sys.modules.pop(m, None)
+        sys.modules.update(saved)
+    log(f"[t] phase 34: {time.perf_counter() - t0:.1f} s")
+
+
 def scale_out_only():
     """--scale-out: build the kernels, then phase 33 alone."""
     from horizonator_tpu_torch.kernels import build
@@ -4822,7 +5294,7 @@ def scale_out_only():
 
 
 def front_only():
-    """--front: build the kernels, then phase 32 alone."""
+    """--front: build the kernels, then phases 32 and 34."""
     from horizonator_tpu_torch.kernels import build
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4833,6 +5305,7 @@ def front_only():
     with tempfile.TemporaryDirectory() as tiles:
         write_tiles(tiles, 34, -118)
         front_phase(torch.device("cuda"), card, tiles)
+        host_paths_phase(torch.device("cuda"), card, tiles)
     print(card)
     return 0
 
@@ -5159,6 +5632,7 @@ def main(profile_dir=None):
         write_tiles(tiles, 34, -118)
         front_phase(dev, card, tiles, img6, rng6)
         scale_kernels = scale_out_phase(dev, card, tiles)
+        host_paths_phase(dev, card, tiles, ms_kernel, profile_dir)
 
     kernels = [
         kernel_entry("window_march",

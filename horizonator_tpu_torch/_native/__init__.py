@@ -1,10 +1,12 @@
-"""ctypes bindings for the native DEM loader, with build-on-first-use.
+"""ctypes bindings for the native DEM loader and PNG unfilter, with
+build-on-first-use.
 
 The shared library is compiled from hgt_native.cpp with g++ on the first
 ``get_lib()`` call (never at import) into ``horizonator_tpu_torch/_build/``,
 and rebuilt when the source is newer. Without a compiler the package works
-anyway: mosaic loading falls back to the numpy path, which gives the same
-bits. Set HORIZONATOR_TPU_NO_NATIVE=1 to force the fallback.
+anyway: mosaic loading and the map-tile decoder (``_png.decode_png``) fall
+back to their numpy paths, which give the same bits. Set
+HORIZONATOR_TPU_NO_NATIVE=1 to force the fallback.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def _build() -> bool:
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired) as e:
-        _msg("native build unavailable (%s); using the numpy loader", e)
+        _msg("native build unavailable (%s); using the numpy loader "
+             "and PNG unfilter", e)
         tmp.unlink(missing_ok=True)
         return False
     if r.returncode != 0:
@@ -70,6 +73,9 @@ def get_lib():
         lib.hgt_decode.restype = ctypes.c_int
         lib.hgt_decode.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                    ctypes.c_void_p]
+        lib.png_unfilter.restype = ctypes.c_long
+        lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_long,
+                                     ctypes.c_long, ctypes.c_int]
         _lib = lib
     except OSError as e:
         _msg("native lib load failed: %s", e)
@@ -94,3 +100,21 @@ def blit_window(path, edge, grid, dst_i0, dst_j0) -> int:
         str(path).encode(), edge,
         grid.ctypes.data_as(ctypes.c_void_p), n,
         int(dst_i0), int(dst_j0))
+
+
+def png_unfilter(buf, rows: int, stride: int, bpp: int) -> int:
+    """Undo the PNG row filters of ``buf`` in place (see hgt_native.cpp):
+    a C-contiguous uint8 ndarray of rows * (1 + stride) bytes, each row's
+    filter type first. Returns 0, or 1 + the first row whose filter type is
+    not 0-4. Raises if the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    import numpy as np
+    if buf.dtype != np.uint8 or not buf.flags.c_contiguous \
+            or not buf.flags.writeable or buf.size != rows * (1 + stride) \
+            or bpp < 1:
+        raise ValueError("buf must be a writable C-contiguous uint8 array "
+                         "of rows * (1 + stride) bytes, bpp >= 1")
+    return lib.png_unfilter(buf.ctypes.data_as(ctypes.c_void_p), int(rows),
+                            int(stride), int(bpp))

@@ -6,7 +6,10 @@
 // north-first flip -> sea-level clamp -> window copy into the caller's
 // mosaic grid, single pass, no temporaries. Exposed to Python via ctypes
 // (horizonator_tpu_torch/_native/__init__.py), with a pure-numpy fallback;
-// the same source as horizonator_tpu/_native/hgt_native.cpp.
+// the DEM functions are those of horizonator_tpu/_native/hgt_native.cpp.
+// The same library holds the PNG row unfilter of the map-tile decoder
+// (horizonator_tpu_torch/_png.py), whose Average and Paeth rows are a
+// byte-serial loop.
 //
 // Build: g++ -O3 -shared -fPIC hgt_native.cpp -o libhgt_native.so
 
@@ -97,6 +100,60 @@ int hgt_decode(const char* path, int edge, int16_t* out) {
         out[k] = (int16_t)((dem[2 * k] << 8) | dem[2 * k + 1]);
     munmap((void*)dem, sb.st_size);
     close(fd);
+    return 0;
+}
+
+// Undo the PNG row filters in place (PNG spec 9.2-9.4).
+//
+//   buf     rows * (1 + stride) bytes: each row's filter type (0-4), then
+//           its stride filtered bytes; on return each row holds its
+//           unfiltered bytes after the (unchanged) filter byte
+//   bpp     bytes per complete pixel, at least 1
+//
+// Returns 0, or 1 + the index of the first row whose filter type is not
+// 0-4 (the rows before it are unfiltered, the rest untouched).
+long png_unfilter(unsigned char* buf, long rows, long stride, int bpp) {
+    const long pitch = 1 + stride;
+    for (long r = 0; r < rows; ++r) {
+        unsigned char* row = buf + r * pitch;
+        unsigned char* cur = row + 1;
+        const unsigned char* prev = r ? cur - pitch : nullptr;
+        switch (row[0]) {
+        case 0:
+            break;
+        case 1:
+            for (long i = bpp; i < stride; ++i)
+                cur[i] = (unsigned char)(cur[i] + cur[i - bpp]);
+            break;
+        case 2:
+            if (prev)
+                for (long i = 0; i < stride; ++i)
+                    cur[i] = (unsigned char)(cur[i] + prev[i]);
+            break;
+        case 3:
+            for (long i = 0; i < stride; ++i) {
+                int a = i >= bpp ? cur[i - bpp] : 0;
+                int b = prev ? prev[i] : 0;
+                cur[i] = (unsigned char)(cur[i] + ((a + b) >> 1));
+            }
+            break;
+        case 4:
+            for (long i = 0; i < stride; ++i) {
+                int a = i >= bpp ? cur[i - bpp] : 0;
+                int b = prev ? prev[i] : 0;
+                int c = (prev && i >= bpp) ? prev[i - bpp] : 0;
+                int p = a + b - c;
+                int pa = p > a ? p - a : a - p;
+                int pb = p > b ? p - b : b - p;
+                int pc = p > c ? p - c : c - p;
+                int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+                cur[i] = (unsigned char)(cur[i] + pred);
+            }
+            break;
+        default:
+            return r + 1;
+        }
+    }
     return 0;
 }
 

@@ -57,11 +57,16 @@ def parse_elements(elements: list[dict]) -> list[dict]:
 
 def fetch_peaks(lat: float, lon: float, radius_m: float,
                 url: str = OVERPASS_URL) -> list[dict]:
-    import requests
-    r = requests.post(url, data={"data": overpass_query(lat, lon, radius_m)},
-                      timeout=120)
-    r.raise_for_status()
-    return parse_elements(r.json().get("elements", []))
+    """POST the query as the form field ``data`` (what
+    ``requests.post(url, data={...})`` sends); a non-2xx status raises."""
+    import urllib.parse
+    import urllib.request
+    body = urllib.parse.urlencode(
+        {"data": overpass_query(lat, lon, radius_m)}).encode()
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/x-www-form-urlencoded"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return parse_elements(json.loads(r.read()).get("elements", []))
 
 
 def to_c_initializers(pois: list[dict]) -> str:

@@ -8,17 +8,14 @@ links here are real ``<a href>`` elements.
 from __future__ import annotations
 
 import base64
-import io
 from xml.sax.saxutils import escape, quoteattr
 
+from .._png import encode_png
 from .scene import SCALE, AnnotationScene
 
 
 def _png_b64(image_rgb) -> str:
-    from PIL import Image
-    buf = io.BytesIO()
-    Image.fromarray(image_rgb).save(buf, format="PNG")
-    return base64.b64encode(buf.getvalue()).decode("ascii")
+    return base64.b64encode(encode_png(image_rgb)).decode("ascii")
 
 
 def _rgb(color) -> str:

@@ -3,10 +3,11 @@
 A copy of horizonator_tpu.tiles for the port, which must not import the
 JAX package. The reference's disk-cache layout
 ``{dir_tiles}/{name}/{z}/{x}/{y}.png`` is kept (horizonator-lib.c:272-275).
-PIL decodes tiles and ``requests`` downloads them; both are imported only
-when a tile is decoded or fetched, so a cache-free ``allow_downloads=False``
-call needs neither. With no URL format given, the florb ``settings.xml``
-tile server (``settings.py``) applies when the user set one.
+Where the JAX package uses PIL and ``requests``, tiles decode through the
+port's own ``_png.decode_png`` (its row unfilter in the native library)
+and download through ``urllib.request``. With no URL format given, the
+florb ``settings.xml`` tile server (``settings.py``) applies when the user
+set one.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .._png import decode_png
 from ..dem.hgt import expand_user_dir
 from ..render.texture import (AtlasParams, OSM_RENDER_ZOOM, OSM_TILE_PX,
                               tile_xy_from_latlon)
@@ -98,11 +100,12 @@ def fetch_tile(dir_tiles: str, tiles_name: str, tiles_url_fmt: str,
             return p
         raise FileNotFoundError(
             f"Tile '{p}' doesn't exist on disk, and downloads aren't allowed")
-    import requests
+    import urllib.request
     url = tiles_url_fmt % (zoom, x, y)
+    req = urllib.request.Request(url, headers={"User-Agent": USER_AGENT})
     try:
-        r = requests.get(url, headers={"User-Agent": USER_AGENT}, timeout=30)
-        r.raise_for_status()
+        with urllib.request.urlopen(req, timeout=30) as r:  # non-2xx raises
+            content, headers = r.read(), r.headers
     except Exception as e:
         if have:
             _msg("Warning: refresh of expired tile '%s' failed (%s); "
@@ -112,9 +115,9 @@ def fetch_tile(dir_tiles: str, tiles_name: str, tiles_url_fmt: str,
     p.parent.mkdir(parents=True, exist_ok=True)
     # atomic publish: a process killed mid-write leaves no truncated PNG
     tmp = p.with_suffix(f"{p.suffix}.{os.getpid()}.part")
-    tmp.write_bytes(r.content)
+    tmp.write_bytes(content)
     os.replace(tmp, p)
-    exp = _parse_expires(r.headers)
+    exp = _parse_expires(headers)
     ep = _expires_path(p)
     if exp is not None:
         ep.write_text(f"{exp:.0f}\n")
@@ -124,11 +127,9 @@ def fetch_tile(dir_tiles: str, tiles_name: str, tiles_url_fmt: str,
 
 
 def _decode_tile_bgr(path: Path) -> np.ndarray:
-    """Decode a 256x256 tile to uint8 BGR (de-palettizing, like
+    """Decode a 256x256 PNG tile to uint8 BGR (de-palettizing, like
     horizonator-lib.c:339-352)."""
-    from PIL import Image
-    im = Image.open(path).convert("RGB")
-    arr = np.asarray(im, dtype=np.uint8)
+    arr = decode_png(Path(path).read_bytes())
     if arr.shape[:2] != (OSM_TILE_PX, OSM_TILE_PX):
         raise ValueError(f"tile {path} has shape {arr.shape}, expected "
                          "256x256")
