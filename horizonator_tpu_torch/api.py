@@ -38,7 +38,7 @@ import warnings
 import numpy as np
 import torch
 
-from . import geometry
+from . import geometry, profiling
 from .dem import load_mosaic, RADIUS_CELLS_DEFAULT_PY
 from .render import lod, make_params, render_panorama
 from .render.crossing import k_cross_for, march_crossing, pack_scene
@@ -290,7 +290,9 @@ class horizonator:
         march, a plan or crop sized for a lat_hint_deg below the viewer's
         latitude). A (B, 2) guard is a batch's: one host copy, the counts
         summed, the viewpoints at fault named by index."""
-        counts = np.asarray(guard.tolist(), dtype=np.int64).reshape(-1, 2)
+        with profiling.sync():
+            counts = guard.tolist()
+        counts = np.asarray(counts, dtype=np.int64).reshape(-1, 2)
         bad = np.flatnonzero(counts.any(axis=1))
         if not len(bad):
             return
@@ -457,80 +459,92 @@ class horizonator:
         meters, invisible = -1. ``debug_fill``: 'wireframe' or 'point'
         renders the DEM lattice in place of the scene's colors (see
         _debug_planes); window sampler only."""
-        if znear_color < 0.0:
-            znear_color = znear
-        if zfar_color < 0.0:
-            zfar_color = zfar
-        if not return_image and not return_range:
-            return ()
+        with profiling.phase("hz.api.render"):
+            profiling.count("hz.viewpoints")
+            if znear_color < 0.0:
+                znear_color = znear
+            if zfar_color < 0.0:
+                zfar_color = zfar
+            if not return_image and not return_range:
+                return ()
 
-        az_deg0 = float(az_deg0)
-        az_deg1 = float(az_deg1)
-        if az_extents_use_pixel_centers:
-            az_per_pixel = (az_deg1 - az_deg0) / (self.width - 1)
-            az_deg0 -= az_per_pixel / 2.0
-            az_deg1 += az_per_pixel / 2.0
+            az_deg0 = float(az_deg0)
+            az_deg1 = float(az_deg1)
+            if az_extents_use_pixel_centers:
+                az_per_pixel = (az_deg1 - az_deg0) / (self.width - 1)
+                az_deg0 -= az_per_pixel / 2.0
+                az_deg1 += az_per_pixel / 2.0
 
-        if lat is not None and lat > -1000.0:
-            if lon is None:
-                raise ValueError("lat given without lon")
-            self.viewer_lat = float(lat)
-            self.viewer_lon = float(lon)
-            self.viewer_z = (float(ele_m) if ele_m is not None
-                             else self.mosaic.auto_viewer_z(lat, lon))
-        elif ele_m is not None:
-            self.viewer_z = float(ele_m)
+            if lat is not None and lat > -1000.0:
+                if lon is None:
+                    raise ValueError("lat given without lon")
+                self.viewer_lat = float(lat)
+                self.viewer_lon = float(lon)
+                self.viewer_z = (float(ele_m) if ele_m is not None
+                                 else self.mosaic.auto_viewer_z(lat, lon))
+            elif ele_m is not None:
+                self.viewer_z = float(ele_m)
 
-        if self._region is not None:
+            if self._region is not None:
+                if debug_fill is not None:
+                    raise NotImplementedError(
+                        "debug_fill is not supported on region_mesh instances "
+                        "(the debug lattice planes are not region-sharded); "
+                        "construct an unsharded horizonator for debug views")
+                with profiling.phase("hz.api.plan"):
+                    params = self._params(az_deg0, az_deg1, znear, zfar,
+                                          znear_color, zfar_color)
+                image, ranges, guard = self._render_region(params, znear, zfar)
+                return self._finish_render(image, ranges, guard, "window",
+                                           az_deg0, az_deg1, return_image,
+                                           return_range)
+            with profiling.phase("hz.api.plan"):
+                dem, sampler, nsteps, plan, cp, exact_near = self._render_plan(
+                    znear, zfar, "render")
+                params = self._params(az_deg0, az_deg1, znear, zfar,
+                                      znear_color, zfar_color)
+            textured = self.render_texture
+            atlas, atlas_params = self._atlas, self._atlas_params
             if debug_fill is not None:
-                raise NotImplementedError(
-                    "debug_fill is not supported on region_mesh instances "
-                    "(the debug lattice planes are not region-sharded); "
-                    "construct an unsharded horizonator for debug views")
-            image, ranges, guard = self._render_region(
-                self._params(az_deg0, az_deg1, znear, zfar, znear_color,
-                             zfar_color), znear, zfar)
-            return self._finish_render(image, ranges, guard, "window",
-                                       az_deg0, az_deg1, return_image,
-                                       return_range)
-        dem, sampler, nsteps, plan, cp, exact_near = self._render_plan(
-            znear, zfar, "render")
-        textured = self.render_texture
-        atlas, atlas_params = self._atlas, self._atlas_params
-        if debug_fill is not None:
-            if sampler != "window":
-                raise ValueError(
-                    f"debug_fill requires the window sampler (this render "
-                    f"planned sampler={sampler!r}: an oracle sampler, or the "
-                    f"auto-LOD long-clip swap, which a shorter zfar avoids)")
-            cp = self._debug_planes(debug_fill)
-            textured, atlas, atlas_params, exact_near = True, None, None, None
-        params = self._params(az_deg0, az_deg1, znear, zfar, znear_color,
-                              zfar_color)
-        image, ranges, guard = render_panorama(
-            dem, params, width=self.width, height=self.height,
-            nsteps=nsteps, cells_per_deg=self.mosaic.cells_per_deg,
-            surface=self.surface, refine=self.refine, textured=textured,
-            atlas=atlas, atlas_params=atlas_params, sampler=sampler,
-            lat_hint_deg=self._lat_hint(), lod_plan=plan, color_planes=cp,
-            znear_hint_m=self._znear_hint(znear), with_dropped=True,
-            exact_near_m=exact_near)
-        return self._finish_render(image, ranges, guard, sampler, az_deg0,
-                                   az_deg1, return_image, return_range)
+                if sampler != "window":
+                    raise ValueError(
+                        f"debug_fill requires the window sampler (this "
+                        f"render planned sampler={sampler!r}: an oracle "
+                        f"sampler, or the auto-LOD long-clip swap, which a "
+                        f"shorter zfar avoids)")
+                cp = self._debug_planes(debug_fill)
+                textured, atlas, atlas_params = True, None, None
+                exact_near = None
+            image, ranges, guard = render_panorama(
+                dem, params, width=self.width, height=self.height,
+                nsteps=nsteps, cells_per_deg=self.mosaic.cells_per_deg,
+                surface=self.surface, refine=self.refine, textured=textured,
+                atlas=atlas, atlas_params=atlas_params, sampler=sampler,
+                lat_hint_deg=self._lat_hint(), lod_plan=plan, color_planes=cp,
+                znear_hint_m=self._znear_hint(znear), with_dropped=True,
+                exact_near_m=exact_near)
+            return self._finish_render(image, ranges, guard, sampler, az_deg0,
+                                       az_deg1, return_image, return_range)
 
     def _finish_render(self, image, ranges, guard, sampler, az_deg0,
                        az_deg1, return_image, return_range):
         # pick() reads the ranges; the host copy is made only when asked for
-        ranges_np = ranges.cpu().numpy() if return_range else None
+        with profiling.phase("hz.api.readback"):
+            ranges_np = None
+            if return_range:
+                with profiling.sync():
+                    ranges_np = ranges.cpu().numpy()
+            out = []
+            if return_image:
+                with profiling.sync():
+                    out.append(image.cpu().numpy())
+            if return_range:
+                out.append(ranges_np)
         self._last = dict(ranges=ranges_np, ranges_dev=ranges,
                           az_deg0=az_deg0, az_deg1=az_deg1,
                           lat=self.viewer_lat, lon=self.viewer_lon)
-        out = []
-        if return_image:
-            out.append(image.cpu().numpy())
-        if return_range:
-            out.append(ranges_np)
-        self._check_dropped(guard, sampler=sampler)
+        with profiling.phase("hz.api.guard"):
+            self._check_dropped(guard, sampler=sampler)
         return tuple(out) if len(out) > 1 else out[0]
 
     def render_batch(self, az_deg0, az_deg1, lats, lons, *, ele_m=None,
@@ -557,65 +571,73 @@ class horizonator:
 
         Returns (images (B, H, W, 3) uint8 BGR, ranges (B, H, W) float32)
         as numpy arrays, one device-to-host copy each."""
-        from .parallel import render_batch as _rb
-        if znear_color < 0.0:
-            znear_color = znear
-        if zfar_color < 0.0:
-            zfar_color = zfar
-        lats = [float(v) for v in lats]
-        lons = [float(v) for v in lons]
-        if len(lats) != len(lons) or not lats:
-            raise ValueError(f"render_batch needs as many lats as lons, at "
-                             f"least one: got {len(lats)} and {len(lons)}")
-        if self._region is not None:
+        with profiling.phase("hz.api.render_batch"):
+            from .parallel import render_batch as _rb
+            if znear_color < 0.0:
+                znear_color = znear
+            if zfar_color < 0.0:
+                zfar_color = zfar
+            lats = [float(v) for v in lats]
+            lons = [float(v) for v in lons]
+            if len(lats) != len(lons) or not lats:
+                raise ValueError(f"render_batch needs as many lats as lons, "
+                                 f"at least one: got {len(lats)} and "
+                                 f"{len(lons)}")
+            if self._region is not None:
+                if mesh is not None:
+                    raise ValueError("render_batch(mesh=) cannot combine with "
+                                     "a region_mesh instance")
+                return self._region_batch(az_deg0, az_deg1, lats, lons, ele_m,
+                                          znear, zfar, znear_color, zfar_color)
+            b_real = len(lats)
             if mesh is not None:
-                raise ValueError("render_batch(mesh=) cannot combine with "
-                                 "a region_mesh instance")
-            return self._region_batch(az_deg0, az_deg1, lats, lons, ele_m,
-                                      znear, zfar, znear_color, zfar_color)
-        b_real = len(lats)
-        if mesh is not None:
-            from .parallel.mesh import dim_size, resolve_mesh
-            mesh = resolve_mesh(mesh, ("batch", "az"), self.device)
-            pad = -b_real % dim_size(mesh, "batch")
-            lats, lons = lats + lats[-1:] * pad, lons + lons[-1:] * pad
-            if ele_m is not None:
-                ele_m = list(ele_m) + list(ele_m)[-1:] * pad
-        cells = [self.mosaic.viewer_cell(la, lo) for la, lo in zip(lats,
-                                                                    lons)]
-        vz = ([float(v) for v in ele_m] if ele_m is not None else
-              [self.mosaic.auto_viewer_z(la, lo)
-               for la, lo in zip(lats, lons)])
-        params = make_params(
-            device=self.device,
-            viewer_cell_i=[c[0] for c in cells],
-            viewer_cell_j=[c[1] for c in cells], viewer_z=vz,
-            cos_viewer_lat=[math.cos(math.radians(la)) for la in lats],
-            az_rad0=math.radians(az_deg0), az_rad1=math.radians(az_deg1),
-            znear=znear, zfar=zfar, znear_color=znear_color,
-            zfar_color=zfar_color, curv=self._curv)
-        dem, sampler, nsteps, plan, cp, exact_near = self._render_plan(
-            znear, zfar, "render_batch")
-        kw = dict(width=self.width, height=self.height, nsteps=nsteps,
-                  cells_per_deg=self.mosaic.cells_per_deg,
-                  surface=self.surface, refine=self.refine,
-                  textured=self.render_texture,
-                  atlas_params=self._atlas_params, sampler=sampler,
-                  lat_hint_deg=self._lat_hint(), lod_plan=plan,
-                  znear_hint_m=self._znear_hint(znear),
-                  exact_near_m=exact_near)
-        if mesh is None:
-            images, ranges, guard = _rb(dem, params, color_planes=cp,
-                                        atlas=self._atlas, with_dropped=True,
-                                        **kw)
-        else:
-            from .parallel import make_sharded_renderer
-            images, ranges, guard = make_sharded_renderer(mesh, **kw)(
-                dem, params, color_planes=cp, atlas=self._atlas,
-                with_dropped=True)
-        out = images[:b_real].cpu().numpy(), ranges[:b_real].cpu().numpy()
-        self._check_dropped(guard[:b_real], "render_batch", sampler=sampler)
-        return out
+                from .parallel.mesh import dim_size, resolve_mesh
+                mesh = resolve_mesh(mesh, ("batch", "az"), self.device)
+                pad = -b_real % dim_size(mesh, "batch")
+                lats, lons = lats + lats[-1:] * pad, lons + lons[-1:] * pad
+                if ele_m is not None:
+                    ele_m = list(ele_m) + list(ele_m)[-1:] * pad
+            cells = [self.mosaic.viewer_cell(la, lo) for la, lo in zip(lats,
+                                                                        lons)]
+            vz = ([float(v) for v in ele_m] if ele_m is not None else
+                  [self.mosaic.auto_viewer_z(la, lo)
+                   for la, lo in zip(lats, lons)])
+            params = make_params(
+                device=self.device,
+                viewer_cell_i=[c[0] for c in cells],
+                viewer_cell_j=[c[1] for c in cells], viewer_z=vz,
+                cos_viewer_lat=[math.cos(math.radians(la)) for la in lats],
+                az_rad0=math.radians(az_deg0), az_rad1=math.radians(az_deg1),
+                znear=znear, zfar=zfar, znear_color=znear_color,
+                zfar_color=zfar_color, curv=self._curv)
+            dem, sampler, nsteps, plan, cp, exact_near = self._render_plan(
+                znear, zfar, "render_batch")
+            kw = dict(width=self.width, height=self.height, nsteps=nsteps,
+                      cells_per_deg=self.mosaic.cells_per_deg,
+                      surface=self.surface, refine=self.refine,
+                      textured=self.render_texture,
+                      atlas_params=self._atlas_params, sampler=sampler,
+                      lat_hint_deg=self._lat_hint(), lod_plan=plan,
+                      znear_hint_m=self._znear_hint(znear),
+                      exact_near_m=exact_near)
+            if mesh is None:
+                images, ranges, guard = _rb(dem, params, color_planes=cp,
+                                            atlas=self._atlas,
+                                            with_dropped=True, **kw)
+            else:
+                from .parallel import make_sharded_renderer
+                images, ranges, guard = make_sharded_renderer(mesh, **kw)(
+                    dem, params, color_planes=cp, atlas=self._atlas,
+                    with_dropped=True)
+            with profiling.phase("hz.api.readback"):
+                with profiling.sync():
+                    images = images[:b_real].cpu().numpy()
+                with profiling.sync():
+                    ranges = ranges[:b_real].cpu().numpy()
+            with profiling.phase("hz.api.guard"):
+                self._check_dropped(guard[:b_real], "render_batch",
+                                    sampler=sampler)
+            return images, ranges
 
     def _region_batch(self, az_deg0, az_deg1, lats, lons, ele_m, znear,
                       zfar, znear_color, zfar_color):

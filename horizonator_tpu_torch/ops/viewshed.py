@@ -70,7 +70,7 @@ import numpy as np
 import torch
 import torch.distributed
 
-from .. import geometry
+from .. import geometry, profiling
 from ..geometry import const, recip
 from ..parallel.sharding import (BATCH_BYTES, SAMPLE_BYTES, chunk_size,
                                  samples_per_column)
@@ -283,8 +283,10 @@ def _gather_raster(tanel, p, f, *, width, cells_per_deg, step_nsteps=None):
     """Visibility of the polar sample nearest each cell (_gather_index)."""
     visible = _visible(tanel)
     b = visible.shape[0]
-    idx = _gather_index(p, f, visible.shape[-1], width=width,
-                        cells_per_deg=cells_per_deg, step_nsteps=step_nsteps)
+    with profiling.phase("hz.viewshed.gather_index"):
+        idx = _gather_index(p, f, visible.shape[-1], width=width,
+                            cells_per_deg=cells_per_deg,
+                            step_nsteps=step_nsteps)
     vis = torch.gather(visible.reshape(b, -1), 1,
                        idx.reshape(b, -1)).view_as(idx)
     return vis & f["in_az"] & f["in_r"]
@@ -363,9 +365,10 @@ def _arc_covered(f, region_a, width: int):
     az_center = f["az_center"]
     qa = math.pi / 4.0
     # the arcs' first azimuths, by region (A, B), then north, then east
-    theta0 = torch.tensor([math.pi, math.pi - qa, -qa, 0.0,
-                           -3.0 * qa, math.pi / 2.0, -math.pi / 2.0, qa],
-                          dtype=torch.float32).to(az_center.device)
+    with profiling.sync():
+        theta0 = torch.tensor([math.pi, math.pi - qa, -qa, 0.0,
+                               -3.0 * qa, math.pi / 2.0, -math.pi / 2.0, qa],
+                              dtype=torch.float32).to(az_center.device)
     xf = (((theta0 - az_center[:, None]) + math.pi) * width
           * recip(2.0 * math.pi) - 0.5)
     start = torch.remainder(torch.floor(xf) - 2.0, width).to(torch.int64)
@@ -381,22 +384,25 @@ def _contract_raster(dem, tanel, d, half, az_cols, p, f, *, hw, surface,
     """(visible (B, P2, P2), uncovered (B,) int32) of the contract
     resampler (viewshed.py:372-579; the quarter-arc forms :582-898 through
     ``_arc_covered``)."""
-    t_cell, ing = _cell_tangent(dem, p, f, hw, surface)
+    with profiling.phase("hz.viewshed.cell_tangent"):
+        t_cell, ing = _cell_tangent(dem, p, f, hw, surface)
     mask = f["in_az"] & f["in_r"] & ing
     nn, ee, xc = f["nn"], f["ee"], f["xc"]
     region_a = nn.abs()[:, :, None] >= ee.abs()[:, None, :]
     half = half[:, :, None]
     r_a = nn[:, None, :] / torch.cos(az_cols)[:, :, None] - half  # (B, W, P2)
     r_b = ee[:, None, :] / torch.sin(az_cols)[:, :, None] - half
-    t_a, t_b = (_tables_direct if plain else _tables_sorted)(
-        tanel, d, (r_a, r_b))
+    with profiling.phase("hz.viewshed.tables"):
+        t_a, t_b = (_tables_direct if plain else _tables_sorted)(
+            tanel, d, (r_a, r_b))
     th = torch.where(region_a, torch.gather(t_a.transpose(1, 2), 2, xc),
                      torch.gather(t_b, 1, xc))
     uncovered = torch.zeros(xc.shape[0], dtype=torch.int32, device=xc.device)
     if full_circle:
-        covered = _arc_covered(f, region_a, tanel.shape[1])
-        th = torch.where(covered, th, NEG)
-        uncovered = (mask & ~covered).sum(dim=(1, 2), dtype=torch.int32)
+        with profiling.phase("hz.viewshed.arc_cover"):
+            covered = _arc_covered(f, region_a, tanel.shape[1])
+            th = torch.where(covered, th, NEG)
+            uncovered = (mask & ~covered).sum(dim=(1, 2), dtype=torch.int32)
     return (t_cell >= th) & mask, uncovered
 
 
@@ -465,21 +471,24 @@ def viewshed_grid(dem, params: RenderParams, *, width, nsteps,
     vis, guard = [], []
     for s in range(0, b, step):
         q = RenderParams(*(x[s:s + step] for x in p))
-        tanel, d, half, az_cols, g = _march(
-            scene, q, sampler=sampler, width=width, nsteps=nsteps,
-            cells_per_deg=cells_per_deg, surface=surface,
-            lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
-            plain=plain)
-        f = _frame(q, hw, out_center_ij, cells_per_deg, width)
-        if method == "contract":
-            v, uncovered = _contract_raster(
-                dem, tanel, d, half, az_cols, q, f, hw=hw, surface=surface,
-                full_circle=full_circle, plain=plain)
-        else:
-            v = _gather_raster(
-                tanel, q, f, width=width, cells_per_deg=cells_per_deg,
-                step_nsteps=nsteps if sampler == "step" else None)
-            uncovered = 0
+        with profiling.phase("hz.viewshed.march"):
+            tanel, d, half, az_cols, g = _march(
+                scene, q, sampler=sampler, width=width, nsteps=nsteps,
+                cells_per_deg=cells_per_deg, surface=surface,
+                lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
+                plain=plain)
+        with profiling.phase("hz.viewshed.resample"):
+            with profiling.phase("hz.viewshed.frame"):
+                f = _frame(q, hw, out_center_ij, cells_per_deg, width)
+            if method == "contract":
+                v, uncovered = _contract_raster(
+                    dem, tanel, d, half, az_cols, q, f, hw=hw,
+                    surface=surface, full_circle=full_circle, plain=plain)
+            else:
+                v = _gather_raster(
+                    tanel, q, f, width=width, cells_per_deg=cells_per_deg,
+                    step_nsteps=nsteps if sampler == "step" else None)
+                uncovered = 0
         vis.append(v)
         guard.append(g + uncovered)
     vis, guard = torch.cat(vis), torch.cat(guard)
@@ -511,13 +520,29 @@ def horizon_sweep(dem, params_batch: RenderParams, *, width, nsteps,
     step = chunk_size(b, width, 0, samples_per_column(dem, sampler, nsteps))
     outs = []
     for s in range(0, b, step):
-        tanel = _march(
-            dem, RenderParams(*(x[s:s + step] for x in p)), sampler=sampler,
-            width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
-            surface=surface, lat_hint_deg=lat_hint_deg,
-            znear_hint_m=znear_hint_m, plain=plain)[0]
-        outs.append(tanel.amax(dim=-1))
+        with profiling.phase("hz.viewshed.march"):
+            tanel = _march(
+                dem, RenderParams(*(x[s:s + step] for x in p)),
+                sampler=sampler, width=width, nsteps=nsteps,
+                cells_per_deg=cells_per_deg, surface=surface,
+                lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
+                plain=plain)[0]
+            outs.append(tanel.amax(dim=-1))
     return torch.cat(outs)
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """``x`` (a numpy array or a tensor) on ``device``: a numpy array, or a
+    tensor that crosses between the host and a card, is a copy that the
+    host waits for (a sync); a tensor already on the device's kind is
+    not."""
+    dev = torch.device(device)
+    if isinstance(x, torch.Tensor) and ((x.device.type == "cpu")
+                                        == (dev.type == "cpu")):
+        return x.to(dev)
+    with profiling.sync():
+        return (x if isinstance(x, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(x))).to(dev)
 
 
 def _sweep_prep(dem, viewpoints_ij, viewer_height_m, *, nsteps,
@@ -533,8 +558,7 @@ def _sweep_prep(dem, viewpoints_ij, viewer_height_m, *, nsteps,
     if cos_viewer_lat is None:
         cos_viewer_lat = (math.cos(math.radians(lat_deg))
                           if lat_deg is not None else 1.0)
-    dem_t = (dem if isinstance(dem, torch.Tensor)
-             else torch.from_numpy(np.ascontiguousarray(dem))).to(device)
+    dem_t = _on_device(dem, device)
     if sampler != "step" and _is_packed(dem_t):
         raise TypeError("viewpoint sweeps with sampler='crossing'/'window' "
                         "need the elevation grid, not a pack_dem_pairs "
@@ -545,8 +569,8 @@ def _sweep_prep(dem, viewpoints_ij, viewer_height_m, *, nsteps,
                          f"elevations' pair plane), got "
                          f"{tuple(dem_t.shape)}")
     packed, n = _as_packed(dem_t)
-    pts = torch.from_numpy(np.asarray(viewpoints_ij, np.float32).reshape(
-        -1, 2)).to(device)
+    pts = _on_device(np.asarray(viewpoints_ij, np.float32).reshape(-1, 2),
+                     device)
     vz = _sample_surface(packed, n, pts[:, 0], pts[:, 1],
                          "bilinear") + viewer_height_m
     lat_hint = 45.0
@@ -589,30 +613,34 @@ def viewshed_sweep(dem, viewpoints_ij, *, viewer_height_m=2.0, width=256,
     ``surface`` applies to the step sampler. ``mesh``: each batch splits
     over the ranks of its "batch" dim (the module docstring); the last
     batch is padded with the last viewpoint, as in the JAX package."""
-    _check_port("viewshed_sweep", sampler)
-    dem_f, pts, vz, nsteps, lat_hint, cos_lat = _sweep_prep(
-        dem, viewpoints_ij, viewer_height_m, sampler=sampler, nsteps=nsteps,
-        cells_per_deg=cells_per_deg, zfar=zfar,
-        cos_viewer_lat=cos_viewer_lat, lat_deg=lat_deg, device=device)
-    kw = dict(width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
-              surface=surface, sampler=sampler, lat_hint_deg=lat_hint,
-              znear_hint_m=float(znear), plain=plain)
-    nview = pts.shape[0]
-    if mesh is None:
-        return torch.cat([horizon_sweep(dem_f, _observer_params(
-            pts[s:s + batch], vz[s:s + batch], cos_lat, znear, zfar), **kw)
-            for s in range(0, nview, batch)])
-    from ..parallel.mesh import all_gather
-    mesh, n_b, idx = _batch_mesh("viewshed_sweep", mesh, batch, device)
-    pts, vz = _pad_last(pts, vz, batch)
-    step = batch // n_b
-    outs = []
-    for s in range(0, pts.shape[0], batch):
-        lo = s + idx * step
-        mine = horizon_sweep(dem_f, _observer_params(
-            pts[lo:lo + step], vz[lo:lo + step], cos_lat, znear, zfar), **kw)
-        outs.append(all_gather(mine, mesh, "batch", 0))
-    return torch.cat(outs)[:nview]
+    with profiling.phase("hz.ops.viewshed_sweep"):
+        _check_port("viewshed_sweep", sampler)
+        with profiling.phase("hz.ops.sweep_prep"):
+            dem_f, pts, vz, nsteps, lat_hint, cos_lat = _sweep_prep(
+                dem, viewpoints_ij, viewer_height_m, sampler=sampler,
+                nsteps=nsteps, cells_per_deg=cells_per_deg, zfar=zfar,
+                cos_viewer_lat=cos_viewer_lat, lat_deg=lat_deg, device=device)
+        profiling.count("hz.viewpoints", pts.shape[0])
+        kw = dict(width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
+                  surface=surface, sampler=sampler, lat_hint_deg=lat_hint,
+                  znear_hint_m=float(znear), plain=plain)
+        nview = pts.shape[0]
+        if mesh is None:
+            return torch.cat([horizon_sweep(dem_f, _observer_params(
+                pts[s:s + batch], vz[s:s + batch], cos_lat, znear, zfar), **kw)
+                for s in range(0, nview, batch)])
+        from ..parallel.mesh import all_gather
+        mesh, n_b, idx = _batch_mesh("viewshed_sweep", mesh, batch, device)
+        pts, vz = _pad_last(pts, vz, batch)
+        step = batch // n_b
+        outs = []
+        for s in range(0, pts.shape[0], batch):
+            lo = s + idx * step
+            mine = horizon_sweep(dem_f, _observer_params(
+                pts[lo:lo + step], vz[lo:lo + step], cos_lat, znear, zfar),
+                **kw)
+            outs.append(all_gather(mine, mesh, "batch", 0))
+        return torch.cat(outs)[:nview]
 
 
 def _pad_last(pts, vz, batch: int):
@@ -638,34 +666,40 @@ def viewshed_count(dem, viewpoints_ij, *, out_center_ij, out_halfwidth,
     over the ranks of its "batch" dim, each rank counts its share, and
     one all-reduce sums the counts; the padding observers of the last
     batch count nothing."""
-    _check_port("viewshed_count", sampler)
-    dem_f, pts, vz, nsteps, lat_hint, cos_lat = _sweep_prep(
-        dem, viewpoints_ij, viewer_height_m, sampler=sampler, nsteps=nsteps,
-        cells_per_deg=cells_per_deg, zfar=zfar,
-        cos_viewer_lat=cos_viewer_lat, lat_deg=lat_deg, device=device)
-    hw = int(out_halfwidth)
-    center = (float(out_center_ij[0]), float(out_center_ij[1]))
-    nview = pts.shape[0]
-    step, starts = batch, range(0, nview, batch)
-    if mesh is not None:
-        mesh, n_b, idx = _batch_mesh("viewshed_count", mesh, batch, device)
-        pts, vz = _pad_last(pts, vz, batch)
-        step = batch // n_b
-        starts = range(idx * step, pts.shape[0], batch)
-    total = torch.zeros((2 * hw, 2 * hw), dtype=torch.int32, device=device)
-    for s in starts:
-        n_real = min(step, nview - s)
-        if n_real <= 0:
-            continue
-        vis = viewshed_grid(
-            dem_f, _observer_params(pts[s:s + n_real], vz[s:s + n_real],
-                                    cos_lat, znear, zfar),
-            width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
-            sampler=sampler, lat_hint_deg=lat_hint,
-            znear_hint_m=float(znear), out_halfwidth=hw,
-            out_center_ij=center, full_circle=True, plain=plain)
-        total += vis.sum(dim=0, dtype=torch.int32)
-    if mesh is not None:
-        from ..parallel.mesh import all_reduce
-        all_reduce(total, mesh, "batch", torch.distributed.ReduceOp.SUM)
-    return total
+    with profiling.phase("hz.ops.viewshed_count"):
+        _check_port("viewshed_count", sampler)
+        with profiling.phase("hz.ops.sweep_prep"):
+            dem_f, pts, vz, nsteps, lat_hint, cos_lat = _sweep_prep(
+                dem, viewpoints_ij, viewer_height_m, sampler=sampler,
+                nsteps=nsteps, cells_per_deg=cells_per_deg, zfar=zfar,
+                cos_viewer_lat=cos_viewer_lat, lat_deg=lat_deg, device=device)
+        profiling.count("hz.viewpoints", pts.shape[0])
+        hw = int(out_halfwidth)
+        center = (float(out_center_ij[0]), float(out_center_ij[1]))
+        nview = pts.shape[0]
+        step, starts = batch, range(0, nview, batch)
+        if mesh is not None:
+            mesh, n_b, idx = _batch_mesh("viewshed_count", mesh, batch, device)
+            pts, vz = _pad_last(pts, vz, batch)
+            step = batch // n_b
+            starts = range(idx * step, pts.shape[0], batch)
+        total = torch.zeros((2 * hw, 2 * hw), dtype=torch.int32, device=device)
+        for s in starts:
+            n_real = min(step, nview - s)
+            if n_real <= 0:
+                continue
+            with profiling.phase("hz.ops.viewshed_grid"):
+                vis = viewshed_grid(
+                    dem_f, _observer_params(pts[s:s + n_real],
+                                            vz[s:s + n_real], cos_lat,
+                                            znear, zfar),
+                    width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
+                    sampler=sampler, lat_hint_deg=lat_hint,
+                    znear_hint_m=float(znear), out_halfwidth=hw,
+                    out_center_ij=center, full_circle=True, plain=plain)
+            with profiling.phase("hz.ops.accumulate"):
+                total += vis.sum(dim=0, dtype=torch.int32)
+        if mesh is not None:
+            from ..parallel.mesh import all_reduce
+            all_reduce(total, mesh, "batch", torch.distributed.ReduceOp.SUM)
+        return total

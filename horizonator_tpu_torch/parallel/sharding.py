@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import geometry
+from .. import geometry, profiling
 from ..render.crossing import N_NEAR, CrossingScene, pack_scene
 from ..render.raymarch import (RenderParams, _as_packed,
                                broadcast_params_batch, march_tanel,
@@ -115,26 +115,31 @@ def render_batch(dem, params: RenderParams, *, width, height, nsteps,
     render_panorama's. The oracle samplers' scenes are packed here once
     for the batch. ``plain`` runs the kernels' plain PyTorch versions (for
     comparisons)."""
-    params = _as_batch(params, "render_batch")
-    if sampler == "crossing" and not isinstance(dem, CrossingScene):
-        dem = pack_scene(dem)
-    elif sampler == "step":
-        dem = _as_packed(dem)[0]
-    b = params.viewer_cell_i.shape[0]
-    step = chunk_size(b, width, height,
-                      samples_per_column(dem, sampler, nsteps, lod_plan),
-                      textured)
-    kw = dict(width=width, height=height, nsteps=nsteps,
-              cells_per_deg=cells_per_deg, surface=surface, refine=refine,
-              sampler=sampler, lat_hint_deg=lat_hint_deg, lod_plan=lod_plan,
-              textured=textured, color_planes=color_planes,
-              znear_hint_m=znear_hint_m, atlas=atlas,
-              atlas_params=atlas_params, exact_near_m=exact_near_m,
-              with_dropped=True, plain=plain)
-    parts = [render_panorama(dem, q, **kw) for q in _chunks(params, step)]
-    out = parts[0] if len(parts) == 1 else tuple(
-        torch.cat(xs) for xs in zip(*parts))
-    return out if with_dropped else out[:2]
+    with profiling.phase("hz.parallel.render_batch"):
+        params = _as_batch(params, "render_batch")
+        if sampler == "crossing" and not isinstance(dem, CrossingScene):
+            dem = pack_scene(dem)
+        elif sampler == "step":
+            dem = _as_packed(dem)[0]
+        b = params.viewer_cell_i.shape[0]
+        profiling.count("hz.viewpoints", b)
+        step = chunk_size(b, width, height,
+                          samples_per_column(dem, sampler, nsteps, lod_plan),
+                          textured)
+        kw = dict(width=width, height=height, nsteps=nsteps,
+                  cells_per_deg=cells_per_deg, surface=surface, refine=refine,
+                  sampler=sampler, lat_hint_deg=lat_hint_deg,
+                  lod_plan=lod_plan, textured=textured,
+                  color_planes=color_planes, znear_hint_m=znear_hint_m,
+                  atlas=atlas, atlas_params=atlas_params,
+                  exact_near_m=exact_near_m, with_dropped=True, plain=plain)
+        parts = []
+        for q in _chunks(params, step):
+            with profiling.phase("hz.parallel.chunk"):
+                parts.append(render_panorama(dem, q, **kw))
+        out = parts[0] if len(parts) == 1 else tuple(
+            torch.cat(xs) for xs in zip(*parts))
+        return out if with_dropped else out[:2]
 
 
 def render_path(dem, params_path: RenderParams, **kw):

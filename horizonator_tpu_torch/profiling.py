@@ -1,36 +1,59 @@
-"""Phase timing + device profiling helpers.
+"""Phase timing, spans and counters, and device profiling helpers.
 
 The port of horizonator_tpu.profiling. The reference's only instrumentation
 is a dead rdtsc macro (bench.h, included but never called -- SURVEY.md
 §5.1). Here timing is a real subsystem:
 
-- ``phase(name)``: wall-clock context manager that also opens a
-  ``torch.profiler.record_function`` range, so phases show up in
-  torch.profiler tables and traces;
+- ``phase(name)``: a span of the program. It records only while
+  torch.profiler runs (``torch.autograd.profiler._is_profiler_enabled``);
+  otherwise it returns one shared no-op context, so a span on the hot path
+  costs a flag check. Recorded, it opens a ``record_function`` range (the
+  span on the profiler's timeline) and sums its host time into the
+  module's ``PhaseTimer``: count, total and self time (total less the
+  spans opened inside it, on the same thread), and the root spans' count
+  and total;
+- ``count(name, n=1)``: a counter, gated and summed the same way;
+- ``sync()``: the span ``hz.sync`` plus one ``hz.host_syncs``, around a
+  statement where the host waits for the device (a device-to-host copy, a
+  scalar read, a pageable host-to-device copy);
+- ``snapshot()`` and ``reset()``: what the spans and counters recorded,
+  and a fresh start;
 - ``PhaseTimer``: accumulates named phase durations (init/upload/render/
-  readback -- "ms/viewpoint" being the framework's north-star metric);
+  readback -- "ms/viewpoint" being the framework's north-star metric); its
+  own ``phase`` always records;
 - ``device_time(fn, *args)`` and ``device_time_chain``: the time of a call
   on the device of its tensor arguments. On a CUDA device, CUDA events on
   the current stream bracket the calls, so no host pull lies in the timed
   window and nothing is subtracted; on the CPU, the host clock brackets the
   call and a scalar pull, and the measured pull (``measure_rtt``) is
   subtracted, as the JAX module does for its transport.
+
+The program's spans are named ``hz.<layer>.<stage>``; PERF.md §3 lists
+them with the benchmark metric each one feeds.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from collections import defaultdict
 from time import perf_counter
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class PhaseTimer:
     def __init__(self):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+        # what the module-level spans and counters add (``snapshot``)
+        self.self_s = defaultdict(float)
+        self.roots = [0, 0.0]
+        self.sums = defaultdict(int)
+        self.increments = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -50,13 +73,102 @@ class PhaseTimer:
                          f"({n}x, {tot / n * 1e3:.2f} ms avg)")
         return "\n".join(lines)
 
+    def _span(self, name: str, total: float, own: float, root: bool):
+        with self._lock:
+            self.totals[name] += total
+            self.counts[name] += 1
+            self.self_s[name] += own
+            if root:
+                self.roots[0] += 1
+                self.roots[1] += total
+
+    def _count(self, name: str, n):
+        with self._lock:
+            self.sums[name] += n
+            self.increments[name] += 1
+
 
 _global_timer = PhaseTimer()
+_NOOP = contextlib.nullcontext()
+_local = threading.local()
+
+
+def _open_spans() -> list:
+    """This thread's stack of open recorded spans."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    """A span recorded while torch.profiler runs: a ``record_function``
+    range, and its host time summed into the module's timer on exit."""
+
+    __slots__ = ("name", "record", "t0", "inner")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.inner = 0.0
+
+    def __enter__(self):
+        self.record = torch.profiler.record_function(self.name)
+        self.record.__enter__()
+        _open_spans().append(self)
+        self.t0 = perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = perf_counter() - self.t0
+        stack = _open_spans()
+        stack.pop()
+        self.record.__exit__(*exc)
+        if stack:
+            stack[-1].inner += dt
+        _global_timer._span(self.name, dt, dt - self.inner, not stack)
+        return False
 
 
 def phase(name: str):
-    """Module-level phase context: ``with profiling.phase("render"): ...``"""
-    return _global_timer.phase(name)
+    """Module-level span: ``with profiling.phase("hz.api.render"): ...``,
+    recorded only while torch.profiler runs (the module docstring)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NOOP
+    return _Span(name)
+
+
+def count(name: str, n=1):
+    """Add ``n`` to counter ``name`` while torch.profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        _global_timer._count(name, n)
+
+
+def sync():
+    """The span ``hz.sync`` and one ``hz.host_syncs``: wrap a statement
+    where the host waits for the device."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NOOP
+    _global_timer._count("hz.host_syncs", 1)
+    return _Span("hz.sync")
+
+
+def snapshot() -> dict:
+    """What the module-level spans and counters recorded: ``{"spans":
+    {name: (count, total_s, self_s)}, "roots": (count, total_s),
+    "counters": {name: (sum, increments)}}``."""
+    t = _global_timer
+    with t._lock:
+        return {"spans": {k: (t.counts[k], t.totals[k], t.self_s[k])
+                          for k in t.totals},
+                "roots": tuple(t.roots),
+                "counters": {k: (v, t.increments[k])
+                             for k, v in t.sums.items()}}
+
+
+def reset():
+    """Forget every span and counter recorded so far."""
+    global _global_timer
+    _global_timer = PhaseTimer()
 
 
 def report() -> str:

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import geometry
+from .. import geometry, profiling
 from ..geometry import const, recip
 from ..kernels.window_march import fma32
 
@@ -68,14 +68,17 @@ def _params_on(values, device) -> RenderParams:
     and broadcast to their common shape, then views of it."""
     host = np.stack(np.broadcast_arrays(*[np.asarray(v, dtype=np.float32)
                                           for v in values]))
-    return RenderParams(*torch.from_numpy(host).to(device).unbind())
+    with profiling.sync():
+        fields = torch.from_numpy(host).to(device)
+    return RenderParams(*fields.unbind())
 
 
 def make_params(*, device, curv=0.0, **fields) -> RenderParams:
     """RenderParams from Python numbers, each rounded to float32 once (as
     ``jnp.float32(x)`` does); sequences of numbers make a batch."""
     fields["curv"] = curv
-    return _params_on([fields[k] for k in RenderParams._fields], device)
+    with profiling.phase("hz.render.make_params"):
+        return _params_on([fields[k] for k in RenderParams._fields], device)
 
 
 def params_from_jax(p, device) -> RenderParams:
@@ -288,18 +291,21 @@ def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
     elif sampler == "window":
         from .window import march_from_geometry
         from .crossing import crossing_geometry
-        geo = crossing_geometry(params, width=width,
-                                cells_per_deg=cells_per_deg)
+        with profiling.phase("hz.render.geometry"):
+            geo = crossing_geometry(params, width=width,
+                                    cells_per_deg=cells_per_deg)
         az = geo.az
         mkw = dict(k_cross=nsteps, cells_per_deg=cells_per_deg,
                    lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
                    plain=plain)
-        if textured and color_planes is not None:
-            tanel, dists, tex_samples = march_from_geometry(
-                dem, params, geo, color_planes=color_planes, atlas=atlas,
-                atlas_params=atlas_params, exact_near_m=exact_near_m, **mkw)
-        else:
-            tanel, dists = march_from_geometry(dem, params, geo, **mkw)
+        with profiling.phase("hz.render.march"):
+            if textured and color_planes is not None:
+                tanel, dists, tex_samples = march_from_geometry(
+                    dem, params, geo, color_planes=color_planes, atlas=atlas,
+                    atlas_params=atlas_params, exact_near_m=exact_near_m,
+                    **mkw)
+            else:
+                tanel, dists = march_from_geometry(dem, params, geo, **mkw)
         d_of = dists.d_of
     elif sampler == "crossing":
         from .crossing import CrossingScene, march_crossing, pack_scene
@@ -314,11 +320,12 @@ def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
                                       cells_per_deg=cells_per_deg,
                                       surface=surface)
         d_of = step_d_of(params, nsteps)
-    out = resolve_to_image(tanel, d_of, az, params, width=width,
-                           height=height, cells_per_deg=cells_per_deg,
-                           refine=refine, textured=textured, atlas=atlas,
-                           atlas_params=atlas_params,
-                           tex_samples=tex_samples, plain=plain)
+    with profiling.phase("hz.render.resolve"):
+        out = resolve_to_image(tanel, d_of, az, params, width=width,
+                               height=height, cells_per_deg=cells_per_deg,
+                               refine=refine, textured=textured, atlas=atlas,
+                               atlas_params=atlas_params,
+                               tex_samples=tex_samples, plain=plain)
     if not with_dropped:
         return out
     if sampler in ("window", "lod"):
@@ -374,19 +381,32 @@ def resolve_to_image(tanel: torch.Tensor, d_of, az: torch.Tensor,
     from .resolve_window import resolve_window
     p = params
     ktotal = tanel.shape[-1]
+    with profiling.phase("hz.render.row_map"):
+        y_k = horizon_rows(tanel, p, width=width, height=height)
+    tex_hw = None
+    with profiling.phase("hz.kernels.resolve"):
+        if tex_samples is not None:
+            idx, alpha, ok, tex_hw = resolve_window(
+                y_k, height, tex=tex_samples, plain=plain)       # (W, H)
+        else:
+            idx, alpha, ok = resolve_window(y_k, height, plain=plain)
+    with profiling.phase("hz.render.tail"):
+        return _tail(idx, alpha, ok, tex_hw, ktotal, d_of, az, p,
+                     width=width, height=height, cells_per_deg=cells_per_deg,
+                     refine=refine, textured=textured, atlas=atlas,
+                     atlas_params=atlas_params)
+
+
+def _tail(idx, alpha, ok, tex_hw, ktotal: int, d_of, az, p: RenderParams, *,
+          width: int, height: int, cells_per_deg, refine: bool,
+          textured: bool, atlas, atlas_params):
+    """resolve_to_image after the resolve: refined distances, ranges and
+    the image."""
     _, _, az_ndc_per_rad = geometry.az_window_rad(p.az_rad0, p.az_rad1)
     aspect = width / height
-    y = torch.arange(height, dtype=torch.float32, device=tanel.device)
+    y = torch.arange(height, dtype=torch.float32, device=idx.device)
     el_ndc = 1.0 - (2.0 * y + 1.0) * recip(height)
     el = el_ndc / cols(az_ndc_per_rad) * recip(aspect)           # (H,)
-
-    y_k = horizon_rows(tanel, p, width=width, height=height)
-    tex_hw = None
-    if tex_samples is not None:
-        idx, alpha, ok, tex_hw = resolve_window(y_k, height, tex=tex_samples,
-                                                plain=plain)     # (W, H)
-    else:
-        idx, alpha, ok = resolve_window(y_k, height, plain=plain)
     sky = idx >= ktotal
     idxc = torch.clamp(idx, max=ktotal - 1)
 

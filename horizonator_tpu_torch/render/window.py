@@ -51,7 +51,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import geometry
+from .. import geometry, profiling
 from ..geometry import const
 from ..kernels.window_march import (fma32, march, march_band,
                                     march_band_textured, march_plain,
@@ -432,20 +432,21 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
     if textured:
         plane, s, near_src = _color_source(color_planes, nj, ni,
                                            dem.shape[:1] if per_view else ())
-        if plain:
+    with profiling.phase("hz.kernels.march"):
+        if textured and plain:
             far, tex = march_plain(dem, pcol, fscal, k_limit, plane, s,
                                    **bkw)
-        elif banded:
+        elif textured and banded:
             far, tex = march_band_textured(dem, pcol, fscal, k_limit, plane,
                                            s, **bkw)
-        else:
+        elif textured:
             far, tex = march_textured(dem, pcol, fscal, k_limit, plane, s)
-    elif plain:
-        far = march_plain(dem, pcol, fscal, k_limit, **bkw)
-    elif banded:
-        far = march_band(dem, pcol, fscal, k_limit, **bkw)
-    else:
-        far = march(dem, pcol, fscal, k_limit)
+        elif plain:
+            far = march_plain(dem, pcol, fscal, k_limit, **bkw)
+        elif banded:
+            far = march_band(dem, pcol, fscal, k_limit, **bkw)
+        else:
+            far = march(dem, pcol, fscal, k_limit)
     truncated = _truncated(geo, p, band, k_limit)
 
     m_star = torch.clamp(torch.ceil(cols(p.znear) / geo.scale - geo.e),
@@ -455,32 +456,36 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
                           device=dem.device)
     near = None
     if n_near > 0:
-        # tiny grids: zeros = ocean
-        pad_i, pad_j = max(ni, ALIGN_MIN_N) - ni, max(nj, ALIGN_MIN_N) - nj
-        grid = (torch.nn.functional.pad(dem, (0, pad_i, 0, pad_j))
-                if pad_i or pad_j else dem)
-        patch_n = (near_patch_size(znear_hint_m, cells_per_deg, lat_hint_deg)
-                   if znear_hint_m is not None else None)
-        if patch_n is not None and (patch_n > NEAR_PATCH_CAP or patch_n > min(
-                ni + pad_i, nj + pad_j)):
-            patch_n = None     # would not fit: the gather form, never a drop
-        origin = (_patch_origin(p, patch_n, nj + pad_j, ni + pad_i,
-                                band.offset) if patch_n is not None else None)
-        near = dq, iq, jq = _near_samples(p, geo, n_near, near_hi)
-        # band-local rows: in-band float32 x - k with integer k is exact
-        # (window.py:1039-1043)
-        jq_l = jq - float(band.offset) if band.offset else jq
-        nkw = dict(ni_real=ni, nj_real=nj, patch_n=patch_n, origin=origin)
-        tanel_q, dropped = _near_band(grid, p, dq, iq, jq_l, near_hi,
-                                      j_hi=band.j_hi, **nkw)
-        far = torch.cat([tanel_q, far], dim=-1)
-        if textured:
-            if pad_i or pad_j:
-                near_src = torch.nn.functional.pad(
-                    near_src, (0, s * pad_i, 0, s * pad_j))
-            tex = torch.cat([_near_colors(near_src, s, iq, jq_l,
-                                          per_view=per_view, **nkw), tex],
-                            dim=-1)
+        with profiling.phase("hz.render.near_band"):
+            # tiny grids: zeros = ocean
+            pad_i = max(ni, ALIGN_MIN_N) - ni
+            pad_j = max(nj, ALIGN_MIN_N) - nj
+            grid = (torch.nn.functional.pad(dem, (0, pad_i, 0, pad_j))
+                    if pad_i or pad_j else dem)
+            patch_n = (near_patch_size(znear_hint_m, cells_per_deg,
+                                       lat_hint_deg)
+                       if znear_hint_m is not None else None)
+            if patch_n is not None and (patch_n > NEAR_PATCH_CAP or
+                                        patch_n > min(ni + pad_i, nj + pad_j)):
+                patch_n = None  # would not fit: the gather form, never a drop
+            origin = (_patch_origin(p, patch_n, nj + pad_j, ni + pad_i,
+                                    band.offset)
+                      if patch_n is not None else None)
+            near = dq, iq, jq = _near_samples(p, geo, n_near, near_hi)
+            # band-local rows: in-band float32 x - k with integer k is exact
+            # (window.py:1039-1043)
+            jq_l = jq - float(band.offset) if band.offset else jq
+            nkw = dict(ni_real=ni, nj_real=nj, patch_n=patch_n, origin=origin)
+            tanel_q, dropped = _near_band(grid, p, dq, iq, jq_l, near_hi,
+                                          j_hi=band.j_hi, **nkw)
+            far = torch.cat([tanel_q, far], dim=-1)
+            if textured:
+                if pad_i or pad_j:
+                    near_src = torch.nn.functional.pad(
+                        near_src, (0, s * pad_i, 0, s * pad_j))
+                tex = torch.cat([_near_colors(near_src, s, iq, jq_l,
+                                              per_view=per_view, **nkw), tex],
+                                dim=-1)
     if (textured and exact_near_m is not None and atlas is not None
             and atlas_params is not None):
         # global positions: each band computes the same exact colors for

@@ -5,6 +5,14 @@ recorded phases, ties included), the phase ranges in torch.profiler, and
 ``perf_counter`` in the port's module (the statistic, the clamp after the
 pull's cost, the untimed warm-up, ``perturb``'s indices, the reduced
 leaves). Importing the module loads no JAX.
+
+The program's spans and counters: with no profiler running, ``phase``,
+``count`` and ``sync`` record nothing and hand back the shared no-op;
+under torch.profiler the spans lie nested on its timeline as user
+annotations, and ``snapshot`` gives their counts, totals, self times, the
+roots and the counters (a fake ``perf_counter``); a tiny CPU render,
+``viewshed_count`` and ``viewshed_sweep`` record their span trees and the
+host syncs audited on their paths.
 """
 
 import dataclasses
@@ -13,8 +21,10 @@ import sys
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from horizonator_tpu import profiling as jprof
 from horizonator_tpu_torch import profiling as tprof
@@ -51,10 +61,12 @@ def test_phase_accumulates(monkeypatch):
     assert dict(t.totals) == {"render": 1.0, "upload": 0.25}
     assert dict(t.counts) == {"render": 2, "upload": 1}
     # the module-level phase / report over the module's one timer
+    # module-level spans record while torch.profiler runs
     monkeypatch.setattr(tprof, "_global_timer", tprof.PhaseTimer())
     clock = iter([0.0, 0.002])
-    with tprof.phase("probe"):
-        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tprof.phase("probe"):
+            pass
     assert tprof._global_timer.counts["probe"] == 1
     assert tprof.report() == tprof._global_timer.report()
     assert tprof.report().startswith("probe") and "2.00 ms total" in \
@@ -62,7 +74,6 @@ def test_phase_accumulates(monkeypatch):
 
 
 def test_phase_in_torch_profiler():
-    from torch.profiler import ProfilerActivity, profile
     t = tprof.PhaseTimer()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with t.phase("hz_probe_phase"):
@@ -185,3 +196,156 @@ def test_import_loads_no_jax(tmp_path):
                             "PYTHONPATH": str(REPO)})
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+
+EMPTY = {"spans": {}, "roots": (0, 0.0), "counters": {}}
+
+
+def test_spans_off_record_nothing(monkeypatch):
+    """No profiler: the shared no-op, no clock read, nothing recorded."""
+    tprof.reset()
+    monkeypatch.setattr(tprof, "perf_counter", lambda: 1 / 0)
+    assert tprof.phase("hz.a") is tprof._NOOP
+    assert tprof.sync() is tprof._NOOP
+    with tprof.phase("hz.a"), tprof.sync():
+        tprof.count("hz.n", 3)
+    assert tprof.snapshot() == EMPTY
+    assert tprof.report() == ""
+
+
+def _hz_events(prof):
+    """{(nearest hz. ancestor or None, name)} of the hz. spans in a
+    profile, and whether each is a user annotation."""
+    edges, flags = set(), set()
+    for e in prof.events():
+        if e.name.startswith("hz.") and e.device_type.name == "CPU":
+            p = e.cpu_parent
+            while p is not None and not p.name.startswith("hz."):
+                p = p.cpu_parent
+            edges.add((p and p.name, e.name))
+            flags.add(e.is_user_annotation)
+    assert flags == {True}
+    return edges
+
+
+def test_spans_under_profiler(monkeypatch):
+    tprof.reset()
+    clock = iter([0.0, 1.0, 1.5, 3.0, 4.0, 10.0, 20.0, 21.0])
+    monkeypatch.setattr(tprof, "perf_counter", lambda: next(clock))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tprof.phase("hz.a"):
+            with tprof.phase("hz.b"):
+                tprof.count("hz.n", 3)
+            with tprof.sync():
+                torch.ones(4).sum()
+        with tprof.phase("hz.a"):
+            tprof.count("hz.n")
+    with tprof.phase("hz.c"):           # the profiler has stopped
+        tprof.count("hz.n", 5)
+    assert _hz_events(prof) == {(None, "hz.a"), ("hz.a", "hz.b"),
+                                ("hz.a", "hz.sync")}
+    assert tprof.snapshot() == {
+        "spans": {"hz.b": (1, 0.5, 0.5), "hz.sync": (1, 1.0, 1.0),
+                  "hz.a": (2, 11.0, 9.5)},
+        "roots": (2, 11.0),
+        "counters": {"hz.n": (4, 2), "hz.host_syncs": (1, 1)}}
+    assert tprof.report().startswith("hz.a")
+    tprof.reset()
+    assert tprof.snapshot() == EMPTY
+
+
+def _recorded(fn):
+    """(hz. span edges, snapshot) of ``fn()`` under torch.profiler."""
+    tprof.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    snap = tprof.snapshot()
+    tprof.reset()
+    return _hz_events(prof), snap
+
+
+RENDER_TREE = {
+    (None, "hz.api.render"), ("hz.api.render", "hz.api.plan"),
+    ("hz.api.plan", "hz.render.make_params"),
+    ("hz.render.make_params", "hz.sync"),
+    ("hz.api.render", "hz.render.geometry"),
+    ("hz.api.render", "hz.render.march"),
+    ("hz.render.march", "hz.kernels.march"),
+    ("hz.render.march", "hz.render.near_band"),
+    ("hz.api.render", "hz.render.resolve"),
+    ("hz.render.resolve", "hz.render.row_map"),
+    ("hz.render.resolve", "hz.kernels.resolve"),
+    ("hz.render.resolve", "hz.render.tail"),
+    ("hz.api.render", "hz.api.readback"), ("hz.api.readback", "hz.sync"),
+    ("hz.api.render", "hz.api.guard"), ("hz.api.guard", "hz.sync")}
+
+
+def test_render_span_tree(synthetic_dem_dir):
+    """A render's spans: the plan (the params' upload), geometry, march
+    (near band, launch), resolve (row map, launch, tail), readback (two
+    copies) and guard (one copy): four syncs."""
+    from horizonator_tpu_torch import horizonator
+
+    def hill(lat, lon):
+        return np.round(300.0 + 900.0 * np.exp(
+            -((lat - 34.6) ** 2 + (lon + 117.4) ** 2) / 0.001))
+    h = horizonator(34.55, -117.5, 48, 16, render_radius_cells=64,
+                    dir_dems=synthetic_dem_dir({(34, -118): hill}),
+                    device="cpu")
+    edges, snap = _recorded(lambda: h.render(-180, 180, zfar=5000.0))
+    assert edges == RENDER_TREE
+    spans = snap["spans"]
+    assert snap["roots"] == (1, spans["hz.api.render"][1])
+    assert {k: v[0] for k, v in spans.items()} == dict(
+        {name: 1 for _, name in RENDER_TREE}, **{"hz.sync": 4})
+    assert snap["counters"] == {"hz.host_syncs": (4, 4),
+                                "hz.viewpoints": (1, 1)}
+    for n, total, own in spans.values():
+        assert 0.0 <= own <= total
+
+
+def _ridge(n=256):
+    z = np.zeros((n, n), np.float32)
+    z[150:152, :] = 300.0
+    return z
+
+
+@pytest.mark.parametrize("entry", ["viewshed_count", "viewshed_sweep"])
+def test_viewshed_span_trees(entry):
+    """viewshed_count: the prep (the viewpoints' upload), per batch the
+    march and the resampler (frame, cell tangents, tables, the full-circle
+    cover's table upload), the accumulation; viewshed_sweep: the prep and
+    a march a batch. A numpy grid's upload is one sync more."""
+    from horizonator_tpu_torch import ops
+    pts = np.array([[120.0, 120.0], [130.0, 110.0], [128.0, 136.0]])
+    kw = dict(width=64, nsteps=128, cells_per_deg=1200, znear=50.0,
+              zfar=3000.0, batch=2, sampler="window", device="cpu")
+    march = {("hz.viewshed.march", "hz.kernels.march"),
+             ("hz.viewshed.march", "hz.render.near_band")}
+    if entry == "viewshed_count":
+        kw.update(out_center_ij=(128.0, 128.0), out_halfwidth=16)
+        root = "hz.ops.viewshed_count"
+        tree = march | {
+            (root, "hz.ops.viewshed_grid"), (root, "hz.ops.accumulate"),
+            ("hz.ops.viewshed_grid", "hz.viewshed.march"),
+            ("hz.ops.viewshed_grid", "hz.viewshed.resample"),
+            ("hz.viewshed.resample", "hz.viewshed.frame"),
+            ("hz.viewshed.resample", "hz.viewshed.cell_tangent"),
+            ("hz.viewshed.resample", "hz.viewshed.tables"),
+            ("hz.viewshed.resample", "hz.viewshed.arc_cover"),
+            ("hz.viewshed.arc_cover", "hz.sync")}
+        syncs = 1 + 2                 # the viewpoints, a table a batch
+    else:
+        root = "hz.ops.viewshed_sweep"
+        tree = march | {(root, "hz.viewshed.march")}
+        syncs = 1
+    tree |= {(None, root), (root, "hz.ops.sweep_prep"),
+             ("hz.ops.sweep_prep", "hz.sync")}
+    fn = getattr(ops, entry)
+    for dem, extra in ((torch.from_numpy(_ridge()), 0), (_ridge(), 1)):
+        edges, snap = _recorded(lambda: fn(dem, pts, **kw))
+        assert edges == tree
+        assert snap["counters"] == {"hz.host_syncs": (syncs + extra,) * 2,
+                                    "hz.viewpoints": (3, 1)}
+        assert snap["roots"] == (1, snap["spans"][root][1])
+        assert snap["spans"]["hz.viewshed.march"][0] == 2
