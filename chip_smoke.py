@@ -151,10 +151,13 @@ Phases, in order; any failure raises and exits nonzero:
     pixels bitwise viewshed_grid's raster, north up);
 25. suite config 10 (suite.py:357): viewshed_count of 256 observers
     (default_rng(5) positions in [420, 780]) over the frame (600, 600), hw
-    400, W 720, batches of 64: one march launch a batch, the counts bitwise
-    equal to the plain versions' and to the sum of 256 single rasters, the
-    batched launch bitwise equal to its plain version; us per observer
-    batched and as single rasters;
+    400, W 720, batches of 64: one march launch and one resampler launch
+    (kernels/csrc/viewshed_resample.cu, the count added inside it) a
+    batch, the counts bitwise equal to the plain versions' and to the sum
+    of 256 single rasters, the batched launch bitwise equal to its plain
+    version; us per observer batched and as single rasters; the
+    resampler's two kernels on one batch bitwise resample_plain, their
+    device ms (graph replay) against their bound and the plain ms;
 26. shadow_light over phase 2's bench DEM (3400^2, cpd 1200, lat 34.3)
     and the SRTM1 tile of phase 17 (3601^2, cpd 3600, lat 34.5) at
     tests/test_shadows.py's six suns, a sun whose slope snaps to q = 16
@@ -2801,11 +2804,104 @@ def raster_phase(dev, card, profile_dir=None):
     return rec
 
 
+# float32 operations a cell and viewpoint of viewshed_cells_kernel, counted
+# from viewshed_resample.cu with atan2f, the square root and each division
+# as one: every cell-viewpoint takes its offsets, east and north, distance,
+# grid position and the six range and grid tests (16); one in range, on the
+# grid and in the azimuth window goes on through the azimuth and its column
+# (22), the arc test, its radius and a binary search of 9 steps at K 324
+# (14), the four taps' sum, the tangent and its compare (12): 48 more.
+# Cells in range but outside the window do 12 more than the 16 they are
+# counted at; one the arcs leave uncovered (none at config 10) skips the
+# radius and search.
+RESAMPLE_OPS_ALL, RESAMPLE_OPS_LIVE = 16, 48
+
+
+def resample_record(dem, p, w, k, hw, center, call_launches):
+    """The resampler's two launches on one batch's march (phase 25): the
+    count bitwise resample_plain's, its launches counted around that call,
+    the columns kernel and both kernels timed by graph replay, the plain
+    version's ms, and the bound of what the function must move and do:
+    the march's tangents and distances read, the DEM, the count read and
+    written; RESAMPLE_OPS_ALL a cell-viewpoint and RESAMPLE_OPS_LIVE more
+    for those that reach the search, at the float32 rate. The sorted
+    columns' write and read back, a cost of the two-kernel design, are
+    reported beside it (design_bytes). ``call_launches``: the launches
+    phase 25 counted in its viewshed_count of COUNT_OBS viewpoints."""
+    from horizonator_tpu_torch.kernels import build
+    from horizonator_tpu_torch.kernels import viewshed_resample as vr
+    from horizonator_tpu_torch.ops import viewshed as vs
+    tanel, d, half, az_cols, _ = vs._march(
+        dem, p, sampler="window", width=w, nsteps=k, cells_per_deg=CPD,
+        surface="bilinear", lat_hint_deg=LAT, znear_hint_m=50.0, plain=False)
+    b, _, kk = tanel.shape
+    colv = torch.stack(torch.broadcast_tensors(
+        torch.cos(az_cols), torch.sin(az_cols), half, half), -1).contiguous()
+    obs = torch.stack(list(p), 1).contiguous()
+    kw = dict(hw=hw, cell_n=vs.geometry.EARTH_RADIUS_M * vs.DEG / CPD,
+              center=center, triangulated=False, full_circle=True)
+    p2 = 2 * hw
+
+    def counted(fn):
+        total = torch.zeros((p2, p2), dtype=torch.int32, device=dem.device)
+        fn(dem, tanel, d, obs, colv, total=total, **kw)
+        return total
+    vr.resample.launches = 0
+    got = counted(vr.resample)
+    launches = vr.resample.launches
+    ref = counted(vr.resample_plain)
+    if launches != 1:
+        fail(f"config 10: {launches} resampler launches for one batch")
+    if not torch.equal(got, ref):
+        fail(f"config 10: resampler kernels != resample_plain in "
+             f"{int((got != ref).sum())} cells")
+    f = vs._frame(p, hw, center, CPD, w)
+    pj = p.viewer_cell_j[:, None] + f["dj"]
+    pi = p.viewer_cell_i[:, None] + f["di"]
+    on_grid = (((pj >= 0) & (pj <= dem.shape[0] - 1))[:, :, None]
+               & ((pi >= 0) & (pi <= dem.shape[1] - 1))[:, None, :])
+    live = int((f["in_r"] & f["in_az"] & on_grid).sum())
+    del f, pj, pi, on_grid
+    ops = RESAMPLE_OPS_ALL * b * p2 * p2 + RESAMPLE_OPS_LIVE * live
+    kp, ks = vr._padded(kk), vr._row_stride(kk)
+    lib = build.library()
+
+    def columns():
+        ds = torch.empty((b, w, ks), device=dem.device)
+        rn = torch.empty_like(ds)
+        lib.hz_viewshed_columns(
+            tanel.data_ptr(), d.data_ptr(), b, w, kk, kp, ks, ds.data_ptr(),
+            rn.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        return ds, rn
+    col_ms = graph_ms(columns, BATCH_GRAPH_LAUNCHES)
+    both_ms = graph_ms(lambda: counted(vr.resample), BATCH_GRAPH_LAUNCHES)
+    plain_ms = cuda_ms_run(lambda i: counted(vr.resample_plain), 2)
+    nbytes = 2 * 4 * b * w * kk + 4 * dem.numel() + 2 * 4 * p2 * p2
+    design = 2 * 2 * 4 * b * w * kk
+    rec = kernel_entry(
+        "viewshed_resample",
+        "horizonator_tpu_torch/kernels/csrc/viewshed_resample.cu",
+        None, launches, 0.0, both_ms, plain_ms, nbytes, ops, FP32_OPS_PER_S)
+    rec.update(columns_ms=col_ms, design_bytes=design,
+               live_cell_viewpoints=live, call_launches=call_launches)
+    log(f"[25] resampler ({b}, {w}, {kk}) -> {p2}x{p2} count == "
+        f"resample_plain bitwise, {launches} launch; device ms columns "
+        f"{col_ms:.4f} + cells {both_ms - col_ms:.4f} = {both_ms:.4f} "
+        f"({1e3 * both_ms / b:.2f} us an observer), bound "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {nbytes / 1e9:.4f} GB, "
+        f"{ops / 1e9:.3f} G ops, {live} of {b * p2 * p2} cell-viewpoints "
+        f"live), share {100 * rec['bound_ms'] / both_ms:.1f}%; the sorted "
+        f"columns' write and read back {design / 1e9:.4f} GB more "
+        f"({design / HBM_BYTES_PER_S * 1e3:.4f} ms); plain ms {plain_ms:.2f}")
+    return rec
+
+
 def count_phase(dev, card, profile_dir=None):
     """Phase 25: suite config 10 (benchmarks/suite.py:357), viewshed_count
     of 256 observers (default_rng(5) positions in [420, 780]) over the fixed
     frame (600, 600), hw 400, W 720, batches of 64. Returns the batched
-    march's record."""
+    march's record and the resampler's."""
+    from horizonator_tpu_torch.kernels.viewshed_resample import resample
     from horizonator_tpu_torch.kernels.window_march import march
     from horizonator_tpu_torch.ops import viewshed_count, viewshed_grid
     from horizonator_tpu_torch.ops import viewshed as vs
@@ -2819,10 +2915,13 @@ def count_phase(dev, card, profile_dir=None):
     kw = dict(out_center_ij=center, out_halfwidth=hw, width=w,
               cells_per_deg=CPD, znear=50.0, zfar=VS_ZFAR, lat_deg=LAT,
               batch=batch, device=dev)
-    march.launches = 0
+    march.launches = resample.launches = 0
     counts, peak_mb = peak_run(lambda: viewshed_count(dem, pts, **kw))
-    launches = march.launches
+    launches, resample_launches = march.launches, resample.launches
     chunks = -(-COUNT_OBS // batch)
+    if resample_launches != chunks:
+        fail(f"config 10: {resample_launches} resampler launches for "
+             f"{chunks} batches")
     if (launches != chunks or counts.shape != (2 * hw, 2 * hw)
             or counts.dtype != torch.int32 or int(counts.max()) < 1
             or int(counts.max()) > COUNT_OBS or int(counts.min()) < 0):
@@ -2859,7 +2958,8 @@ def count_phase(dev, card, profile_dir=None):
     busy_share = None if busy is None else busy / (per_obs * COUNT_OBS)
     log(f"[25] config 10: viewshed_count of {COUNT_OBS} observers, frame "
         f"{center} hw {hw}, W {w}, batches of {batch}: {launches} march "
-        f"launches, == plain versions' counts and == the sum of "
+        f"and {chunks} resampler launches, == plain versions' counts and == "
+        f"the sum of "
         f"{COUNT_OBS} single rasters bitwise; counts 0..{int(counts.max())}"
         f", mean {float(counts.float().mean()):.2f}")
     log(f"[25] config 10: us per observer batched {1e3 * per_obs:.1f} "
@@ -2867,11 +2967,13 @@ def count_phase(dev, card, profile_dir=None):
         f"({loop / per_obs:.1f}x); device busy {busy_text(busy_share)}"
         + (f", march {in_call:.4f} ms a launch" if in_call else "")
         + f"; peak device memory {peak_mb:.1f} MB")
+    q = RenderParams(*(x[:batch] for x in p))
     rec = march_launch_record(
-        "config 10", dem_f, RenderParams(*(x[:batch] for x in p)), w, k, n,
-        LAT, launches // chunks, per_obs, loop, busy_share, peak_mb, chunks)
+        "config 10", dem_f, q, w, k, n, LAT, launches // chunks, per_obs,
+        loop, busy_share, peak_mb, chunks)
+    res = resample_record(dem_f, q, w, k, hw, center, resample_launches)
     log(f"[t] phase 25: {time.perf_counter() - t0:.1f} s")
-    return rec
+    return rec, res
 
 
 def q16_azimuth(cpd, lat):
@@ -5620,8 +5722,9 @@ def main(profile_dir=None):
     api_paging_phase(dev)
     batch_records["window_march"] += [
         sweep_phase(dev, card, profile_dir),
-        raster_phase(dev, card, profile_dir),
-        count_phase(dev, card, profile_dir)]
+        raster_phase(dev, card, profile_dir)]
+    count_rec, resample_rec = count_phase(dev, card, profile_dir)
+    batch_records["window_march"].append(count_rec)
     shadow_phase(dev, card)
     with tempfile.TemporaryDirectory() as tiles:      # phase 6's tiles again
         write_tiles(tiles, 34, -118)
@@ -5648,6 +5751,7 @@ def main(profile_dir=None):
         *tex_kernels,
         *probe_kernels,
         *scale_kernels,
+        resample_rec,
     ]
     for entry in kernels:     # the LOD render's launches of the same entry
         entry.update(lod_records.get(entry["name"], {}))

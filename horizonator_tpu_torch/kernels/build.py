@@ -116,5 +116,12 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = ci
     lib.hz_roll_regs.argtypes = [ci]
     lib.hz_roll_regs.restype = ci
+    lib.hz_viewshed_columns.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp,
+                                        vp]
+    lib.hz_viewshed_columns.restype = ci
+    lib.hz_viewshed_cells.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci, ci, ci,
+                                      ci, ci, cf, ci, cf, cf, cf, ci, ci, vp,
+                                      vp, vp, vp]
+    lib.hz_viewshed_cells.restype = ci
     return lib
 

@@ -30,9 +30,14 @@ as gather-free contractions over quarter arcs, a layout for the TPU. Here
 each column's samples are sorted by distance once and carry a running max,
 so a table entry is one binary search: ``run_max[searchsorted(d, r) - 1]``,
 which is the masked max exactly, whatever the order of the distances. The
-tables are (2 hw, W) per region and a cell gathers its entry. ``plain=True``
-takes the direct masked max instead (and the march's plain version), the
-oracle that the fast path equals bit for bit.
+tables are (2 hw, W) per region and a cell gathers its entry. On a card the
+whole resampler is two CUDA kernels (``kernels/viewshed_resample.py``): the
+columns sorted once, then one thread a cell that computes its own radius
+(the same float32 operations as its table entry) and searches it, and
+``viewshed_count`` adds each batch into its count inside the kernel; the
+torch passes stay the CPU's route. ``plain=True`` takes the direct masked
+max instead (and the march's plain version), the oracle that both equal
+bit for bit.
 
 Under ``full_circle`` the JAX package's quarter-arc forms leave a cell
 uncovered when its column lies outside the W/8 + 8 columns that its
@@ -72,6 +77,7 @@ import torch.distributed
 
 from .. import geometry, profiling
 from ..geometry import const, recip
+from ..kernels.viewshed_resample import resample
 from ..parallel.sharding import (BATCH_BYTES, SAMPLE_BYTES, chunk_size,
                                  samples_per_column)
 from ..render.crossing import (N_NEAR, NEG_BIG, CrossingScene,
@@ -406,6 +412,31 @@ def _contract_raster(dem, tanel, d, half, az_cols, p, f, *, hw, surface,
     return (t_cell >= th) & mask, uncovered
 
 
+def _kernel_route(dem, plain: bool) -> bool:
+    """The contract resampler runs as the CUDA kernels for a grid on a card
+    (never under ``plain``); the torch passes take a CPU grid."""
+    return (not plain and isinstance(dem, torch.Tensor)
+            and dem.device.type == "cuda")
+
+
+def _contract_kernel(dem, tanel, d, half, az_cols, p, *, hw, center,
+                     cells_per_deg, surface, full_circle, total):
+    """``_contract_raster`` (and, given ``total``, the count's sum) as the
+    resampler kernels (kernels/viewshed_resample.py): (visible, uncovered)
+    or None. The columns' cos, sin and half step come from torch, as the
+    torch route computes them."""
+    colv = torch.stack([torch.cos(az_cols), torch.sin(az_cols), half, half],
+                       dim=-1)
+    with profiling.phase("hz.kernels.resample"):
+        profiling.count("hz.kernels.resample")
+        return resample(
+            dem.to(torch.float32).contiguous(), tanel, d,
+            torch.stack(list(p), dim=1), colv, hw=hw,
+            cell_n=geometry.EARTH_RADIUS_M * DEG / cells_per_deg,
+            center=center, triangulated=surface == "triangulated",
+            full_circle=full_circle, total=total)
+
+
 def _raster_chunk(b: int, width: int, k: int, hw: int) -> int:
     """The most rasters of a batch of b that one chunk computes under
     ``BATCH_BYTES`` (at least one): each holds its march's W*K samples,
@@ -441,6 +472,23 @@ def viewshed_grid(dem, params: RenderParams, *, width, nsteps,
     (B,) params give (B, 2 hw, 2 hw) rasters and (B,) guards, the batch
     marched at once per chunk. ``plain`` runs the march's plain version
     and the direct masked max."""
+    return _grid(dem, params, width=width, nsteps=nsteps,
+                 cells_per_deg=cells_per_deg, surface=surface,
+                 out_halfwidth=out_halfwidth, sampler=sampler,
+                 lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
+                 with_dropped=with_dropped, aligned_scene=aligned_scene,
+                 out_center_ij=out_center_ij, method=method,
+                 full_circle=full_circle, plain=plain)
+
+
+def _grid(dem, params, *, width, nsteps, cells_per_deg, surface,
+          out_halfwidth, sampler, lat_hint_deg, znear_hint_m, with_dropped,
+          aligned_scene, out_center_ij, method, full_circle, plain,
+          total=None):
+    """viewshed_grid; given ``total``, a count's (2 hw, 2 hw) int32 sum,
+    the resampler kernels add each chunk's visible viewpoints into it and
+    no raster is returned (None), while the torch route returns its
+    rasters for the caller to sum."""
     _check_port("viewshed_grid", sampler, aligned_scene)
     if out_halfwidth is None:
         raise ValueError("out_halfwidth is required")
@@ -478,20 +526,31 @@ def viewshed_grid(dem, params: RenderParams, *, width, nsteps,
                 lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
                 plain=plain)
         with profiling.phase("hz.viewshed.resample"):
-            with profiling.phase("hz.viewshed.frame"):
-                f = _frame(q, hw, out_center_ij, cells_per_deg, width)
-            if method == "contract":
-                v, uncovered = _contract_raster(
-                    dem, tanel, d, half, az_cols, q, f, hw=hw,
-                    surface=surface, full_circle=full_circle, plain=plain)
+            if method == "contract" and _kernel_route(dem, plain):
+                v, uncovered = _contract_kernel(
+                    dem, tanel, d, half, az_cols, q, hw=hw,
+                    center=out_center_ij, cells_per_deg=cells_per_deg,
+                    surface=surface, full_circle=full_circle,
+                    total=total) or (None, 0)
             else:
-                v = _gather_raster(
-                    tanel, q, f, width=width, cells_per_deg=cells_per_deg,
-                    step_nsteps=nsteps if sampler == "step" else None)
-                uncovered = 0
-        vis.append(v)
+                with profiling.phase("hz.viewshed.frame"):
+                    f = _frame(q, hw, out_center_ij, cells_per_deg, width)
+                if method == "contract":
+                    v, uncovered = _contract_raster(
+                        dem, tanel, d, half, az_cols, q, f, hw=hw,
+                        surface=surface, full_circle=full_circle,
+                        plain=plain)
+                else:
+                    v = _gather_raster(
+                        tanel, q, f, width=width,
+                        cells_per_deg=cells_per_deg,
+                        step_nsteps=nsteps if sampler == "step" else None)
+                    uncovered = 0
+        if v is not None:
+            vis.append(v)
         guard.append(g + uncovered)
-    vis, guard = torch.cat(vis), torch.cat(guard)
+    vis = torch.cat(vis) if vis else None
+    guard = torch.cat(guard)
     if single:
         vis, guard = vis[0], guard[0]
     return (vis, guard) if with_dropped else vis
@@ -661,8 +720,9 @@ def viewshed_count(dem, viewpoints_ij, *, out_center_ij, out_halfwidth,
     cell coords), ``out_halfwidth`` cells each side. Observers as in
     viewshed_sweep, full circles; ``batch`` observers go through
     viewshed_grid(full_circle=True) at a time and accumulate on the
-    device. The crossing and step samplers resample with "gather" (their
-    packed scenes, as in the JAX package). ``mesh``: each batch splits
+    device (on a card inside the resampler kernel, with no raster). The
+    crossing and step samplers resample with "gather" (their packed
+    scenes, as in the JAX package). ``mesh``: each batch splits
     over the ranks of its "batch" dim, each rank counts its share, and
     one all-reduce sums the counts; the padding observers of the last
     batch count nothing."""
@@ -689,16 +749,19 @@ def viewshed_count(dem, viewpoints_ij, *, out_center_ij, out_halfwidth,
             if n_real <= 0:
                 continue
             with profiling.phase("hz.ops.viewshed_grid"):
-                vis = viewshed_grid(
+                vis = _grid(
                     dem_f, _observer_params(pts[s:s + n_real],
                                             vz[s:s + n_real], cos_lat,
                                             znear, zfar),
                     width=width, nsteps=nsteps, cells_per_deg=cells_per_deg,
-                    sampler=sampler, lat_hint_deg=lat_hint,
-                    znear_hint_m=float(znear), out_halfwidth=hw,
-                    out_center_ij=center, full_circle=True, plain=plain)
-            with profiling.phase("hz.ops.accumulate"):
-                total += vis.sum(dim=0, dtype=torch.int32)
+                    surface="bilinear", sampler=sampler,
+                    lat_hint_deg=lat_hint, znear_hint_m=float(znear),
+                    out_halfwidth=hw, with_dropped=False, aligned_scene=None,
+                    out_center_ij=center, method="auto", full_circle=True,
+                    plain=plain, total=total)
+            if vis is not None:
+                with profiling.phase("hz.ops.accumulate"):
+                    total += vis.sum(dim=0, dtype=torch.int32)
         if mesh is not None:
             from ..parallel.mesh import all_reduce
             all_reduce(total, mesh, "batch", torch.distributed.ReduceOp.SUM)
