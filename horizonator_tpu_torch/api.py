@@ -150,13 +150,15 @@ class horizonator:
         self._color_planes = None
         if render_texture:
             from .tiles import build_atlas
-            atlas, ap = build_atlas(
-                lat, lon, self.mosaic.radius_cells, cpd,
-                self.mosaic.origin_cell_lon_deg,
-                self.mosaic.origin_cell_lat_deg,
-                dir_tiles=dir_tiles, tiles_name=tiles_name,
-                tiles_url_fmt=tiles_url_fmt, allow_downloads=allow_downloads,
-                on_error=texture_on_error)
+            with profiling.phase("hz.tiles.atlas"):
+                atlas, ap = build_atlas(
+                    lat, lon, self.mosaic.radius_cells, cpd,
+                    self.mosaic.origin_cell_lon_deg,
+                    self.mosaic.origin_cell_lat_deg,
+                    dir_tiles=dir_tiles, tiles_name=tiles_name,
+                    tiles_url_fmt=tiles_url_fmt,
+                    allow_downloads=allow_downloads,
+                    on_error=texture_on_error)
             # one int32 per texel, packed once per scene
             self._atlas = texture.pack_atlas(
                 torch.from_numpy(atlas).to(self.device))
@@ -168,8 +170,9 @@ class horizonator:
                 # z12 texels nearer than exact_near_m. "exact" and the
                 # oracle samplers gather the atlas per pixel instead.
                 scale = 1 if texture_quality == "grid" else 2
-                self._put_color_planes(texture.atlas_to_grid_colors(
-                    self._atlas, ap, n, cpd, scale=scale), scale)
+                with profiling.phase("hz.texture.planes"):
+                    self._put_color_planes(texture.atlas_to_grid_colors(
+                        self._atlas, ap, n, cpd, scale=scale), scale)
         self._exact_near_m = (float(exact_near_m)
                               if render_texture and exact_near_m
                               and texture_quality == "hybrid" else None)

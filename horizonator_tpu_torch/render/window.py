@@ -480,20 +480,23 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
                                           j_hi=band.j_hi, **nkw)
             far = torch.cat([tanel_q, far], dim=-1)
             if textured:
-                if pad_i or pad_j:
-                    near_src = torch.nn.functional.pad(
-                        near_src, (0, s * pad_i, 0, s * pad_j))
-                tex = torch.cat([_near_colors(near_src, s, iq, jq_l,
-                                              per_view=per_view, **nkw), tex],
-                                dim=-1)
+                with profiling.phase("hz.render.near_colors"):
+                    if pad_i or pad_j:
+                        near_src = torch.nn.functional.pad(
+                            near_src, (0, s * pad_i, 0, s * pad_j))
+                    tex = torch.cat([_near_colors(near_src, s, iq, jq_l,
+                                                  per_view=per_view, **nkw),
+                                     tex], dim=-1)
     if (textured and exact_near_m is not None and atlas is not None
             and atlas_params is not None):
         # global positions: each band computes the same exact colors for
         # its valid lanes, so the region combine stays exact
-        tex = _hybrid_near_field(tex, atlas, atlas_params, geo, p, near,
-                                 n_near=n_near, cells_per_deg=cells_per_deg,
-                                 lat_hint_deg=lat_hint_deg,
-                                 exact_near_m=exact_near_m)
+        with profiling.phase("hz.render.hybrid"):
+            tex = _hybrid_near_field(tex, atlas, atlas_params, geo, p, near,
+                                     n_near=n_near,
+                                     cells_per_deg=cells_per_deg,
+                                     lat_hint_deg=lat_hint_deg,
+                                     exact_near_m=exact_near_m)
     dists = CrossingDists(e=geo.e, scale=geo.scale, znear=p.znear,
                           near_hi=near_hi, n_near=n_near, dropped=dropped,
                           truncated=truncated)
@@ -507,10 +510,14 @@ def _hybrid_near_field(tex, atlas, ap, geo, p, near, *, n_near,
     """Swap the plane colors of the samples within exact_near_m for
     atlas-true z12 texels (window.py:1203-1267, unaligned lanes); sample
     validity, and so every range, is untouched. Falls back loudly to the
-    plane colors when the static caps are exceeded."""
+    plane colors when the static caps are exceeded. Counts its viewpoints
+    in ``hz.texture.hybrid``, or in ``hz.texture.hybrid_fallback`` when
+    it falls back."""
     k_x, p_at = exact_near_sizes(exact_near_m, cells_per_deg, lat_hint_deg,
                                  ap.zoom)
+    views = p.viewer_cell_i.numel()
     if p_at > EXACT_PATCH_CAP or k_x > TILE_K:
+        profiling.count("hz.texture.hybrid_fallback", views)
         warnings.warn(
             f"hybrid near-field texture disabled for this render: "
             f"exact_near_m={exact_near_m:g} at lat_hint={lat_hint_deg:g} "
@@ -519,6 +526,7 @@ def _hybrid_near_field(tex, atlas, ap, geo, p, near, *, n_near,
             f"half-cell grid2x colors. Reduce exact_near_m to restore "
             f"atlas-true near texels.", RuntimeWarning, stacklevel=3)
         return tex
+    profiling.count("hz.texture.hybrid", views)
     ex, rep = _exact_near_colors(atlas, ap, geo, p, near, k_x=k_x,
                                  p_at=p_at,
                                  cells_per_deg=cells_per_deg,

@@ -12,12 +12,15 @@ under torch.profiler the spans lie nested on its timeline as user
 annotations, and ``snapshot`` gives their counts, totals, self times, the
 roots and the counters (a fake ``perf_counter``); a tiny CPU render,
 ``viewshed_count`` and ``viewshed_sweep`` record their span trees and the
-host syncs audited on their paths.
+host syncs audited on their paths; a textured API's constructor records
+its atlas and planes, its render the near colours and the hybrid near
+field (or its fallback) with the untextured render's syncs.
 """
 
 import dataclasses
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 from typing import NamedTuple
 
@@ -280,17 +283,18 @@ RENDER_TREE = {
     ("hz.api.render", "hz.api.guard"), ("hz.api.guard", "hz.sync")}
 
 
+def _hill(lat, lon):
+    return np.round(300.0 + 900.0 * np.exp(
+        -((lat - 34.6) ** 2 + (lon + 117.4) ** 2) / 0.001))
+
+
 def test_render_span_tree(synthetic_dem_dir):
     """A render's spans: the plan (the params' upload), geometry, march
     (near band, launch), resolve (row map, launch, tail), readback (two
     copies) and guard (one copy): four syncs."""
     from horizonator_tpu_torch import horizonator
-
-    def hill(lat, lon):
-        return np.round(300.0 + 900.0 * np.exp(
-            -((lat - 34.6) ** 2 + (lon + 117.4) ** 2) / 0.001))
     h = horizonator(34.55, -117.5, 48, 16, render_radius_cells=64,
-                    dir_dems=synthetic_dem_dir({(34, -118): hill}),
+                    dir_dems=synthetic_dem_dir({(34, -118): _hill}),
                     device="cpu")
     edges, snap = _recorded(lambda: h.render(-180, 180, zfar=5000.0))
     assert edges == RENDER_TREE
@@ -302,6 +306,74 @@ def test_render_span_tree(synthetic_dem_dir):
                                 "hz.viewpoints": (1, 1)}
     for n, total, own in spans.values():
         assert 0.0 <= own <= total
+
+
+def _tile_cache(root, lat, lon, radius):
+    """Seeded flat-coloured z12 tiles over build_atlas' range for a
+    viewer at (lat, lon), written by the port's own PNG encoder; returns
+    the number of tiles."""
+    from horizonator_tpu_torch._png import encode_png
+    from horizonator_tpu_torch.render.texture import tile_xy_from_latlon
+    r = radius / 1200
+    x_lo, y_lo = tile_xy_from_latlon(lat + r, lon - r, 12)
+    x_hi, y_hi = tile_xy_from_latlon(lat - r, lon + r, 12)
+    g = np.random.default_rng(7)
+    for x in range(x_lo, x_hi + 1):
+        for y in range(y_lo, y_hi + 1):
+            p = root / "mapnik" / "12" / str(x) / f"{y}.png"
+            p.parent.mkdir(parents=True, exist_ok=True)
+            rgb = np.broadcast_to(g.integers(0, 256, 3, dtype=np.uint8),
+                                  (256, 256, 3))
+            p.write_bytes(encode_png(np.ascontiguousarray(rgb)))
+    return (x_hi - x_lo + 1) * (y_hi - y_lo + 1)
+
+
+TEXTURED_TREE = RENDER_TREE | {
+    ("hz.render.near_band", "hz.render.near_colors"),
+    ("hz.render.march", "hz.render.hybrid")}
+
+
+@pytest.mark.parametrize("exact_near_m", [1200.0, 20000.0])
+def test_textured_spans(synthetic_dem_dir, tmp_path, exact_near_m):
+    """The textured API: under the profiler the constructor records the
+    atlas (its tiles decoded) and the colour planes, a render the near
+    band's colours and the hybrid near field (one render counted) with
+    the untextured render's four syncs; without it, nothing. Past the
+    near field's cap (20 km) a render counts its fallback instead."""
+    from horizonator_tpu_torch import horizonator
+    n_tiles = _tile_cache(tmp_path / "tiles", 34.55, -117.5, 64)
+    dems = synthetic_dem_dir({(34, -118): _hill})
+
+    def build():
+        return horizonator(34.55, -117.5, 48, 16, render_radius_cells=64,
+                           dir_dems=dems, device="cpu", render_texture=True,
+                           dir_tiles=str(tmp_path / "tiles"),
+                           allow_downloads=False, exact_near_m=exact_near_m)
+
+    def render():
+        return h.render(-180, 180, zfar=5000.0)
+
+    tprof.reset()
+    h = build()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        render()
+    assert tprof.snapshot() == EMPTY
+    edges, snap = _recorded(build)
+    assert edges == {(None, "hz.tiles.atlas"), (None, "hz.texture.planes")}
+    assert snap["counters"] == {"hz.tiles.decoded": (n_tiles, 1)}
+    hybrid = exact_near_m <= 1200.0
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        edges, snap = _recorded(render)
+    assert any("hybrid near-field" in str(w.message)
+               for w in seen) == (not hybrid)
+    assert edges == TEXTURED_TREE
+    assert {k: v[0] for k, v in snap["spans"].items()} == dict(
+        {name: 1 for _, name in TEXTURED_TREE}, **{"hz.sync": 4})
+    counter = "hz.texture.hybrid" + ("" if hybrid else "_fallback")
+    assert snap["counters"] == {"hz.host_syncs": (4, 4),
+                                "hz.viewpoints": (1, 1), counter: (1, 1)}
 
 
 def _ridge(n=256):
