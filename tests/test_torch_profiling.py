@@ -280,7 +280,7 @@ RENDER_TREE = {
     ("hz.render.resolve", "hz.kernels.resolve"),
     ("hz.render.resolve", "hz.render.tail"),
     ("hz.api.render", "hz.api.readback"), ("hz.api.readback", "hz.sync"),
-    ("hz.api.render", "hz.api.guard"), ("hz.api.guard", "hz.sync")}
+    ("hz.api.render", "hz.api.guard")}
 
 
 def _hill(lat, lon):
@@ -290,8 +290,9 @@ def _hill(lat, lon):
 
 def test_render_span_tree(synthetic_dem_dir):
     """A render's spans: the plan (the params' upload), geometry, march
-    (near band, launch), resolve (row map, launch, tail), readback (two
-    copies) and guard (one copy): four syncs."""
+    (near band, launch), resolve (row map, launch, tail), readback (the
+    outputs and the guard's counts behind one sync) and guard (no copy of
+    its own): two syncs."""
     from horizonator_tpu_torch import horizonator
     h = horizonator(34.55, -117.5, 48, 16, render_radius_cells=64,
                     dir_dems=synthetic_dem_dir({(34, -118): _hill}),
@@ -301,8 +302,8 @@ def test_render_span_tree(synthetic_dem_dir):
     spans = snap["spans"]
     assert snap["roots"] == (1, spans["hz.api.render"][1])
     assert {k: v[0] for k, v in spans.items()} == dict(
-        {name: 1 for _, name in RENDER_TREE}, **{"hz.sync": 4})
-    assert snap["counters"] == {"hz.host_syncs": (4, 4),
+        {name: 1 for _, name in RENDER_TREE}, **{"hz.sync": 2})
+    assert snap["counters"] == {"hz.host_syncs": (2, 2),
                                 "hz.viewpoints": (1, 1)}
     for n, total, own in spans.values():
         assert 0.0 <= own <= total
@@ -338,7 +339,7 @@ def test_textured_spans(synthetic_dem_dir, tmp_path, exact_near_m):
     """The textured API: under the profiler the constructor records the
     atlas (its tiles decoded) and the colour planes, a render the near
     band's colours and the hybrid near field (one render counted) with
-    the untextured render's four syncs; without it, nothing. Past the
+    the untextured render's two syncs; without it, nothing. Past the
     near field's cap (20 km) a render counts its fallback instead."""
     from horizonator_tpu_torch import horizonator
     n_tiles = _tile_cache(tmp_path / "tiles", 34.55, -117.5, 64)
@@ -370,9 +371,9 @@ def test_textured_spans(synthetic_dem_dir, tmp_path, exact_near_m):
                for w in seen) == (not hybrid)
     assert edges == TEXTURED_TREE
     assert {k: v[0] for k, v in snap["spans"].items()} == dict(
-        {name: 1 for _, name in TEXTURED_TREE}, **{"hz.sync": 4})
+        {name: 1 for _, name in TEXTURED_TREE}, **{"hz.sync": 2})
     counter = "hz.texture.hybrid" + ("" if hybrid else "_fallback")
-    assert snap["counters"] == {"hz.host_syncs": (4, 4),
+    assert snap["counters"] == {"hz.host_syncs": (2, 2),
                                 "hz.viewpoints": (1, 1), counter: (1, 1)}
 
 
@@ -421,3 +422,106 @@ def test_viewshed_span_trees(entry):
                                     "hz.viewpoints": (3, 1)}
         assert snap["roots"] == (1, snap["spans"][root][1])
         assert snap["spans"]["hz.viewshed.march"][0] == 2
+
+
+@pytest.mark.parametrize("shapes", [[(2,)], [(3, 5, 4), (3, 5), (3, 2)]])
+def test_to_host_cpu_shares_memory(shapes):
+    """The API's readback of CPU tensors: each array is the tensor's own
+    ``.numpy()`` (shared memory, no copy), behind one recorded sync and
+    no pinned-readback count."""
+    from horizonator_tpu_torch.api import _to_host
+    g = torch.Generator().manual_seed(3)
+    ts = [torch.randint(0, 255, s, generator=g, dtype=dt)
+          for s, dt in zip(shapes, (torch.uint8, torch.float32, torch.int32))]
+    edges, snap = _recorded(lambda: _to_host(*ts))
+    out = _to_host(*ts)
+    assert len(out) == len(ts)
+    for a, t in zip(out, ts):
+        assert isinstance(a, np.ndarray) and np.shares_memory(a, t.numpy())
+        np.testing.assert_array_equal(a, t.numpy())
+    assert edges == {(None, "hz.sync")}
+    assert snap["counters"] == {"hz.host_syncs": (1, 1)}
+
+
+def _guard_says(guard, strict, sampler, what):
+    """(warning texts, error text) of ``_check_dropped(guard)`` on a bare
+    instance."""
+    from horizonator_tpu_torch import horizonator
+    h = object.__new__(horizonator)
+    h.strict_coverage = strict
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        try:
+            h._check_dropped(guard, what, sampler=sampler)
+            err = None
+        except RuntimeError as e:
+            err = str(e)
+    return [str(w.message) for w in seen], err
+
+
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("counts,sampler,what", [
+    ([0, 0], "window", "render"), ([3, 0], "window", "render"),
+    ([0, 5], "lod", "render"), ([3, 5], "window", "render"),
+    ([[0, 0], [0, 7], [2, 0]], "window", "render_batch"),
+    ([[0, 0], [0, 0]], "window", "render_batch")])
+def test_check_dropped_host_counts(counts, sampler, what, strict):
+    """The coverage guard given the host's counts (numpy, as the readback
+    hands them over) warns and raises word for word as given the same
+    counts as a tensor, (2,) and (B, 2); the tensor takes one sync, the
+    host's counts none."""
+    host = np.asarray(counts, dtype=np.int32)
+    dev = torch.from_numpy(host.copy())
+    syncs = []
+    for guard in (host, dev):
+        tprof.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            said = _guard_says(guard, strict, sampler, what)
+        syncs.append(tprof.snapshot()["counters"])
+        tprof.reset()
+        assert said == _guard_says(host, strict, sampler, what)
+    assert syncs == [{}, {"hz.host_syncs": (1, 1)}]
+    warned, err = said
+    assert (warned or err) if host.any() else not (warned or err)
+    assert bool(err) == (strict and bool(host.any()))
+    if host.ndim == 2 and host.any():
+        assert "(viewpoints [1, 2] of 3)" in (err or warned[0])
+
+
+def _pinned_pct():
+    from portbench import harness
+    from portbench.loader import load_module
+    return load_module(harness.HERE / "metrics"
+                       / "pinned_readback_pct.view.py").read(None)
+
+
+@pytest.mark.parametrize("renders,pinned,want", [
+    (0, 0, None), (1, 0, 0.0), (2, 1, 50.0), (3, 3, 100.0)])
+def test_pinned_readback_pct_metric(renders, pinned, want):
+    """``pinned_readback_pct.view``: the counter over the renders, in %;
+    None where nothing rendered, 0 where the counter is absent."""
+    tprof.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in range(renders):
+            with tprof.phase("hz.api.render"):
+                if i < pinned:
+                    tprof.count("hz.api.pinned_readback")
+    try:
+        assert _pinned_pct() == want
+    finally:
+        tprof.reset()
+
+
+def test_pinned_readback_pct_cpu_run():
+    """A tiny traced pano-single run on the CPU: correct, its renders read
+    back without page-locked memory, so the metric reads 0."""
+    from portbench import harness
+    from portbench.conftest import tiny_files
+    cell = "srtm3-40km.pano-single"
+    tprof.reset()
+    out, _ = harness.run_cell(cell, 2 ** 31 + 13, 0.2, True, device="cpu",
+                              files=tiny_files(cell))
+    tprof.reset()
+    assert out["correct"]
+    assert out["metrics"]["pinned_readback_pct.view"]["value"] == 0.0
+    assert out["metrics"]["host_syncs.view"]["value"] == 2.0
