@@ -1,11 +1,11 @@
 """Viewshed resampler: the contract raster's cell test, CUDA kernels + plain
 version.
 
-``resample`` launches ``csrc/viewshed_resample.cu`` for CUDA tensors and
-raises for any other device; ``ops/viewshed.py`` takes it for the contract
-raster of a float32 grid on a card, and keeps its torch passes on the CPU
-and under ``plain=True``. ``resample_plain`` is the kernels' function in
-plain PyTorch, op for op, for the CPU tests and the card's checks.
+``resample`` launches ``csrc/viewshed_resample.cu`` for CUDA tensors,
+takes ``resample_plain`` for CPU tensors and raises for any other device;
+``ops/viewshed.py`` calls it for every contract raster but ``plain=True``'s
+direct masked max. ``resample_plain`` is the kernels' function in plain
+PyTorch, op for op: the CPU's route, and the card's checks' reference.
 
 Given a batch of B viewpoints' marches, tangents ``tanel`` and distances
 ``d`` (B, W, K), it returns each cell of the (2 hw)^2 frame as
@@ -47,7 +47,8 @@ PI32 = float(np.float32(math.pi))
 TWO_PI32 = float(np.float32(2.0 * math.pi))
 RECIP_2PI = float(np.float32(1.0) / np.float32(2.0 * math.pi))
 _QA = math.pi / 4.0
-# _arc_covered's first azimuths: by region (A, B), then north, then east
+# the quarter arcs' first azimuths, here and in ops/viewshed._arc_covered:
+# by region (A, B), then north, then east
 ARC_THETA = (math.pi, math.pi - _QA, -_QA, 0.0, -3.0 * _QA, math.pi / 2.0,
              -math.pi / 2.0, _QA)
 
@@ -185,10 +186,11 @@ def _check(name: str, x: torch.Tensor, shape, dtype, device):
 
 def resample(dem, tanel, d, obs, colv, *, hw: int, cell_n: float, center,
              triangulated: bool, full_circle: bool, total=None):
-    """The contract raster of a batch on the card (the module docstring):
-    (visible (B, 2 hw, 2 hw) bool, uncovered (B,) int32), or None after
-    adding the visible viewpoints of each cell into ``total``. Two
-    launches: the columns' sort, then the cells."""
+    """The contract raster of a batch (the module docstring): (visible (B,
+    2 hw, 2 hw) bool, uncovered (B,) int32), or None after adding the
+    visible viewpoints of each cell into ``total``. On a card two
+    launches, the columns' sort, then the cells; CPU tensors take
+    ``resample_plain`` and launch nothing."""
     dev = dem.device
     if dem.dim() != 2 or tanel.dim() != 3:
         raise ValueError(f"resample: dem (n0, n1) and tanel (B, W, K), got "
@@ -205,6 +207,10 @@ def resample(dem, tanel, d, obs, colv, *, hw: int, cell_n: float, center,
     if b * w >= 1 << 31 or k >= 1 << 30 or p2 > 1 << 19:
         raise ValueError(f"resample: B*W {b * w}, K {k} or 2 hw {p2} "
                          f"beyond the launch's limits")
+    if dev.type == "cpu":
+        return resample_plain(dem, tanel, d, obs, colv, hw=hw, cell_n=cell_n,
+                              center=center, triangulated=triangulated,
+                              full_circle=full_circle, total=total)
     if dev.type != "cuda":
         raise ValueError(f"resample: unsupported device {dev}")
     kp, ks = _padded(k), _row_stride(k)

@@ -27,17 +27,16 @@ and r its radius along that column less half a crossing step: keyed by
 output row (r = north / cos az_x) where |north| >= |east|, else by output
 column (r = east / sin az_x). The JAX package evaluates these masked maxima
 as gather-free contractions over quarter arcs, a layout for the TPU. Here
-each column's samples are sorted by distance once and carry a running max,
-so a table entry is one binary search: ``run_max[searchsorted(d, r) - 1]``,
-which is the masked max exactly, whatever the order of the distances. The
-tables are (2 hw, W) per region and a cell gathers its entry. On a card the
-whole resampler is two CUDA kernels (``kernels/viewshed_resample.py``): the
-columns sorted once, then one thread a cell that computes its own radius
-(the same float32 operations as its table entry) and searches it, and
-``viewshed_count`` adds each batch into its count inside the kernel; the
-torch passes stay the CPU's route. ``plain=True`` takes the direct masked
-max instead (and the march's plain version), the oracle that both equal
-bit for bit.
+the resampler is ``kernels/viewshed_resample.resample``, two CUDA kernels
+on a card and their plain version on the CPU: each column's samples
+sorted by distance once with a running max, then each cell computes its
+own radius and finds its horizon by one binary search, ``run_max[#{d <
+r} - 1]``, the masked max exactly, whatever the order of the distances;
+``viewshed_count`` adds each batch into its count inside it, with no
+raster. ``plain=True`` takes the direct masked max instead (and the
+march's plain version), through (2 hw, W) tables per region that each
+cell gathers its entry from: the oracle that the resampler equals bit for
+bit.
 
 Under ``full_circle`` the JAX package's quarter-arc forms leave a cell
 uncovered when its column lies outside the W/8 + 8 columns that its
@@ -77,7 +76,7 @@ import torch.distributed
 
 from .. import geometry, profiling
 from ..geometry import const, recip
-from ..kernels.viewshed_resample import resample
+from ..kernels.viewshed_resample import ARC_THETA, resample
 from ..parallel.sharding import (BATCH_BYTES, SAMPLE_BYTES, chunk_size,
                                  samples_per_column)
 from ..render.crossing import (N_NEAR, NEG_BIG, CrossingScene,
@@ -332,24 +331,10 @@ def _cell_tangent(dem, p, f, hw: int, surface: str):
     return t_cell, ing
 
 
-def _tables_sorted(tanel, d, radii):
-    """T[..., x, v] = max{tanel[..., x, k] : d[..., x, k] < r[..., x, v]}
-    for each radius array r of ``radii``, NEG where the set is empty: each
-    column sorted by distance once, a running max, one binary search per
-    entry."""
-    d_sorted, order = torch.sort(d, dim=-1)
-    run = torch.cummax(torch.gather(tanel, -1, order), dim=-1).values
-    out = []
-    for r in radii:
-        cnt = torch.searchsorted(d_sorted, r.contiguous())
-        cnt = torch.where(torch.isnan(r), 0, cnt)   # d < NaN holds nowhere
-        val = torch.gather(run, -1, (cnt - 1).clamp(min=0))
-        out.append(torch.where(cnt > 0, val, NEG))
-    return out
-
-
 def _tables_direct(tanel, d, radii):
-    """The same tables as the direct masked max, chunked: the oracle."""
+    """T[..., x, v] = max{tanel[..., x, k] : d[..., x, k] < r[..., x, v]}
+    for each radius array r of ``radii``, NEG where the set is empty: the
+    direct masked max, chunked."""
     b, w, k = tanel.shape
     out = []
     for r in radii:
@@ -369,12 +354,9 @@ def _arc_covered(f, region_a, width: int):
     the quadrant from the signs of the cell's north and east offsets."""
     sq = min(width, width // 8 + 8)
     az_center = f["az_center"]
-    qa = math.pi / 4.0
-    # the arcs' first azimuths, by region (A, B), then north, then east
     with profiling.sync():
-        theta0 = torch.tensor([math.pi, math.pi - qa, -qa, 0.0,
-                               -3.0 * qa, math.pi / 2.0, -math.pi / 2.0, qa],
-                              dtype=torch.float32).to(az_center.device)
+        theta0 = torch.tensor(ARC_THETA, dtype=torch.float32).to(
+            az_center.device)
     xf = (((theta0 - az_center[:, None]) + math.pi) * width
           * recip(2.0 * math.pi) - 0.5)
     start = torch.remainder(torch.floor(xf) - 2.0, width).to(torch.int64)
@@ -386,10 +368,10 @@ def _arc_covered(f, region_a, width: int):
 
 
 def _contract_raster(dem, tanel, d, half, az_cols, p, f, *, hw, surface,
-                     full_circle, plain):
+                     full_circle):
     """(visible (B, P2, P2), uncovered (B,) int32) of the contract
-    resampler (viewshed.py:372-579; the quarter-arc forms :582-898 through
-    ``_arc_covered``)."""
+    resampler as the direct masked max, the oracle (viewshed.py:372-579;
+    the quarter-arc forms :582-898 through ``_arc_covered``)."""
     with profiling.phase("hz.viewshed.cell_tangent"):
         t_cell, ing = _cell_tangent(dem, p, f, hw, surface)
     mask = f["in_az"] & f["in_r"] & ing
@@ -399,8 +381,7 @@ def _contract_raster(dem, tanel, d, half, az_cols, p, f, *, hw, surface,
     r_a = nn[:, None, :] / torch.cos(az_cols)[:, :, None] - half  # (B, W, P2)
     r_b = ee[:, None, :] / torch.sin(az_cols)[:, :, None] - half
     with profiling.phase("hz.viewshed.tables"):
-        t_a, t_b = (_tables_direct if plain else _tables_sorted)(
-            tanel, d, (r_a, r_b))
+        t_a, t_b = _tables_direct(tanel, d, (r_a, r_b))
     th = torch.where(region_a, torch.gather(t_a.transpose(1, 2), 2, xc),
                      torch.gather(t_b, 1, xc))
     uncovered = torch.zeros(xc.shape[0], dtype=torch.int32, device=xc.device)
@@ -412,29 +393,27 @@ def _contract_raster(dem, tanel, d, half, az_cols, p, f, *, hw, surface,
     return (t_cell >= th) & mask, uncovered
 
 
-def _kernel_route(dem, plain: bool) -> bool:
-    """The contract resampler runs as the CUDA kernels for a grid on a card
-    (never under ``plain``); the torch passes take a CPU grid."""
-    return (not plain and isinstance(dem, torch.Tensor)
-            and dem.device.type == "cuda")
-
-
-def _contract_kernel(dem, tanel, d, half, az_cols, p, *, hw, center,
-                     cells_per_deg, surface, full_circle, total):
-    """``_contract_raster`` (and, given ``total``, the count's sum) as the
-    resampler kernels (kernels/viewshed_resample.py): (visible, uncovered)
-    or None. The columns' cos, sin and half step come from torch, as the
-    torch route computes them."""
+def _contract(dem, tanel, d, half, az_cols, p, *, hw, center,
+              cells_per_deg, surface, full_circle, total):
+    """``_contract_raster`` through the resampler (kernels/
+    viewshed_resample.py): (visible, uncovered), or, given ``total``, the
+    count's sum added into it and (None, 0). The columns' cos, sin and
+    half step come from torch, as the oracle computes them; the counter
+    ``hz.kernels.resample`` counts the calls that launched the kernels."""
     colv = torch.stack([torch.cos(az_cols), torch.sin(az_cols), half, half],
                        dim=-1)
+    launches = resample.launches
     with profiling.phase("hz.kernels.resample"):
-        profiling.count("hz.kernels.resample")
-        return resample(
-            dem.to(torch.float32).contiguous(), tanel, d,
-            torch.stack(list(p), dim=1), colv, hw=hw,
+        out = resample(
+            dem.to(torch.float32).contiguous(), tanel.contiguous(),
+            d.contiguous(), torch.stack(list(p), dim=1), colv, hw=hw,
             cell_n=geometry.EARTH_RADIUS_M * DEG / cells_per_deg,
             center=center, triangulated=surface == "triangulated",
             full_circle=full_circle, total=total)
+    if resample.launches != launches:
+        profiling.count("hz.kernels.resample",
+                        resample.launches - launches)
+    return (None, 0) if total is not None else out
 
 
 def _raster_chunk(b: int, width: int, k: int, hw: int) -> int:
@@ -486,9 +465,9 @@ def _grid(dem, params, *, width, nsteps, cells_per_deg, surface,
           aligned_scene, out_center_ij, method, full_circle, plain,
           total=None):
     """viewshed_grid; given ``total``, a count's (2 hw, 2 hw) int32 sum,
-    the resampler kernels add each chunk's visible viewpoints into it and
-    no raster is returned (None), while the torch route returns its
-    rasters for the caller to sum."""
+    the contract resampler adds each chunk's visible viewpoints into it
+    and no raster is returned (None), while the gather resampler and
+    ``plain=True`` return their rasters for the caller to sum."""
     _check_port("viewshed_grid", sampler, aligned_scene)
     if out_halfwidth is None:
         raise ValueError("out_halfwidth is required")
@@ -526,20 +505,18 @@ def _grid(dem, params, *, width, nsteps, cells_per_deg, surface,
                 lat_hint_deg=lat_hint_deg, znear_hint_m=znear_hint_m,
                 plain=plain)
         with profiling.phase("hz.viewshed.resample"):
-            if method == "contract" and _kernel_route(dem, plain):
-                v, uncovered = _contract_kernel(
+            if method == "contract" and not plain:
+                v, uncovered = _contract(
                     dem, tanel, d, half, az_cols, q, hw=hw,
                     center=out_center_ij, cells_per_deg=cells_per_deg,
-                    surface=surface, full_circle=full_circle,
-                    total=total) or (None, 0)
+                    surface=surface, full_circle=full_circle, total=total)
             else:
                 with profiling.phase("hz.viewshed.frame"):
                     f = _frame(q, hw, out_center_ij, cells_per_deg, width)
                 if method == "contract":
                     v, uncovered = _contract_raster(
                         dem, tanel, d, half, az_cols, q, f, hw=hw,
-                        surface=surface, full_circle=full_circle,
-                        plain=plain)
+                        surface=surface, full_circle=full_circle)
                 else:
                     v = _gather_raster(
                         tanel, q, f, width=width,
@@ -720,7 +697,7 @@ def viewshed_count(dem, viewpoints_ij, *, out_center_ij, out_halfwidth,
     cell coords), ``out_halfwidth`` cells each side. Observers as in
     viewshed_sweep, full circles; ``batch`` observers go through
     viewshed_grid(full_circle=True) at a time and accumulate on the
-    device (on a card inside the resampler kernel, with no raster). The
+    device (the contract resampler adds them in, with no raster). The
     crossing and step samplers resample with "gather" (their packed
     scenes, as in the JAX package). ``mesh``: each batch splits
     over the ranks of its "batch" dim, each rank counts its share, and

@@ -386,9 +386,9 @@ def _ridge(n=256):
 @pytest.mark.parametrize("entry", ["viewshed_count", "viewshed_sweep"])
 def test_viewshed_span_trees(entry):
     """viewshed_count: the prep (the viewpoints' upload), per batch the
-    march and the resampler (frame, cell tangents, tables, the full-circle
-    cover's table upload), the accumulation; viewshed_sweep: the prep and
-    a march a batch. A numpy grid's upload is one sync more."""
+    march and the resampler's one call (``resample``, which adds the batch
+    into the count), as on a card; viewshed_sweep: the prep and a march a
+    batch. A numpy grid's upload is one sync more."""
     from horizonator_tpu_torch import ops
     pts = np.array([[120.0, 120.0], [130.0, 110.0], [128.0, 136.0]])
     kw = dict(width=64, nsteps=128, cells_per_deg=1200, znear=50.0,
@@ -399,15 +399,11 @@ def test_viewshed_span_trees(entry):
         kw.update(out_center_ij=(128.0, 128.0), out_halfwidth=16)
         root = "hz.ops.viewshed_count"
         tree = march | {
-            (root, "hz.ops.viewshed_grid"), (root, "hz.ops.accumulate"),
+            (root, "hz.ops.viewshed_grid"),
             ("hz.ops.viewshed_grid", "hz.viewshed.march"),
             ("hz.ops.viewshed_grid", "hz.viewshed.resample"),
-            ("hz.viewshed.resample", "hz.viewshed.frame"),
-            ("hz.viewshed.resample", "hz.viewshed.cell_tangent"),
-            ("hz.viewshed.resample", "hz.viewshed.tables"),
-            ("hz.viewshed.resample", "hz.viewshed.arc_cover"),
-            ("hz.viewshed.arc_cover", "hz.sync")}
-        syncs = 1 + 2                 # the viewpoints, a table a batch
+            ("hz.viewshed.resample", "hz.kernels.resample")}
+        syncs = 1                     # the viewpoints
     else:
         root = "hz.ops.viewshed_sweep"
         tree = march | {(root, "hz.viewshed.march")}

@@ -26,9 +26,10 @@ Tolerances, and why:
 - the JAX sweeps take an AlignedScene at every grid of 136 cells or more,
   which the JAX package holds equal to the unaligned march
   (tests/test_viewshed.py:258, :276); the port has none;
-- the port against itself: bitwise (the sorted-horizon resampler against
-  the direct masked max, a batch against its single viewpoints, chunked
-  against whole).
+- the port against itself: bitwise (the contract resampler, which is
+  ``resample_plain`` on the CPU, against the direct masked max of
+  ``plain=True``, a batch against its single viewpoints, chunked against
+  whole).
 """
 
 import math
@@ -127,7 +128,7 @@ def _ties(dem, p, kw):
     eps = 4.0 * float(np.finfo(np.float32).eps)
 
     def horizon(shift):
-        t_a, t_b = tview._tables_sorted(
+        t_a, t_b = tview._tables_direct(
             tanel, d, [r + shift * eps * r.abs() for r in (r_a, r_b)])
         return torch.where(region_a,
                            torch.gather(t_a.transpose(1, 2), 2, f["xc"]),
@@ -187,7 +188,7 @@ def assert_raster_close(jv, tv, dem, p, kw, cos_lat=1.0):
 
 def check_grid(dem, p, cos_lat=1.0, sampler="window", **kw):
     """The JAX and the port's rasters with_dropped: guards equal, the
-    port's fast resampler bitwise its direct masked max, the rasters close.
+    port's resampler bitwise its direct masked max, the rasters close.
     Returns the port's (raster, guard)."""
     kw = dict(kw, sampler=sampler, with_dropped=True, cells_per_deg=CPD)
     jv, jg = jops.viewshed_grid(jnp.asarray(dem), p, **kw)
@@ -383,25 +384,6 @@ def test_grid_batch_equals_single_and_chunks(monkeypatch):
         vis1, guard1 = tops.viewshed_grid(dem, pb, **kw)
         monkeypatch.undo()
         assert torch.equal(vis, vis1) and torch.equal(guard, guard1)
-
-
-def test_sorted_tables_equal_direct_masked_max():
-    """The resampler's tables from sorted distances and a running max equal
-    the direct masked max bitwise, on distances in any order, with ties,
-    empty sets, and radii that are infinite or NaN."""
-    gen = torch.Generator().manual_seed(5)
-    b, w, k, m = 2, 7, 33, 50
-    d = torch.randint(0, 40, (b, w, k), generator=gen).float() * 25.0
-    tanel = torch.randn((b, w, k), generator=gen)
-    tanel[..., ::5] = tview.NEG
-    r = torch.rand((b, w, m), generator=gen) * 1100.0 - 50.0
-    r[0, 0, :3] = torch.tensor([math.inf, -math.inf, math.nan])
-    r[1, 2, :4] = d[1, 2, :4]                    # radii that tie a distance
-    fast = tview._tables_sorted(tanel, d, (r, -r))
-    direct = tview._tables_direct(tanel, d, (r, -r))
-    for a, c in zip(fast, direct):
-        assert torch.equal(a, c)
-    assert (fast[0] == tview.NEG).any() and (fast[0] > -1.0).any()
 
 
 # ---- sweeps and counts -----------------------------------------------------
@@ -665,7 +647,7 @@ def test_oracle_grid_matches_jax(sampler, method, viewer, window, center,
                                  full):
     """viewshed_grid through each oracle with both resamplers, centred on
     a full circle and in a fixed frame on a partial window: rasters within
-    SHARE and on boundaries, guards equal, the sorted resampler bitwise
+    SHARE and on boundaries, guards equal, the resampler bitwise
     the direct masked max."""
     cos_lat = math.cos(math.radians(LAT))
     az = {} if window is None else dict(az0=math.radians(window[0]),

@@ -1,8 +1,9 @@
-"""The viewshed resampler's CUDA kernels on the card, bitwise against the
-torch route (``_contract_raster``'s tables on the same card), ``plain=True``
-(the direct masked max, ``_tables_direct``) and ``resample_plain``: counts,
-rasters and guards. Skips without a card. The module imports no JAX, so
-it runs on a machine with a card and without JAX:
+"""The viewshed resampler's CUDA kernels on the card, bitwise against
+``resample_plain`` (the kernels' function in plain PyTorch, on the same
+card tensors) and ``plain=True`` (the direct masked max,
+``_tables_direct``): counts, rasters and guards. Skips without a card.
+The module imports no JAX, so it runs on a machine with a card and
+without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m card \\
         tests/test_torch_viewshed_card.py
@@ -42,15 +43,19 @@ def relief(n: int, seed: int = 7) -> np.ndarray:
 
 
 def _routes(call, monkeypatch):
-    """call() through the kernels, the torch route and plain=True, each
-    counting the kernels' launches."""
+    """call() through the kernels, through ``resample_plain`` in their
+    place and under plain=True, and the kernels' launches."""
     n0 = vr.resample.launches
     kernel = call(plain=False)
     launches = vr.resample.launches - n0
-    monkeypatch.setattr(tview, "_kernel_route", lambda dem, plain: False)
-    torch_route = call(plain=False)
+
+    def plain_version(*args, **kw):
+        return vr.resample_plain(*args, **kw)
+    plain_version.launches = 0
+    monkeypatch.setattr(tview, "resample", plain_version)
+    plain_route = call(plain=False)
     monkeypatch.undo()
-    return kernel, torch_route, call(plain=True), launches
+    return kernel, plain_route, call(plain=True), launches
 
 
 def _equal(a, b):
@@ -113,8 +118,7 @@ def test_grid(name, window, center, full_circle, surface, width, card,
               monkeypatch):
     """viewshed_grid with_dropped (raster and guard) over a batch of three
     viewpoints, one of them in the frame's corner: equal on all three
-    routes and to resample_plain on the card; a broken full-circle
-    promise counts uncovered cells."""
+    routes; a broken full-circle promise counts uncovered cells."""
     dem = torch.from_numpy(relief(1201)).to(card)
     p = make_params(device=card, viewer_cell_i=[600.25, 611.0, 580.5],
                     viewer_cell_j=[600.5, 590.0, 645.0],
@@ -132,9 +136,6 @@ def test_grid(name, window, center, full_circle, surface, width, card,
         monkeypatch)
     assert launches == 1
     assert _equal(k, t) and _equal(k, pl)
-    monkeypatch.setattr(tview, "resample", vr.resample_plain)
-    assert _equal(k, tops.viewshed_grid(dem, p, **kw))
-    monkeypatch.undo()
     vis, guard = k
     assert vis.shape == (3, 600, 600) and vis.any() and not vis.all()
     broken = full_circle and window[1] - window[0] < 360.0
