@@ -7,9 +7,11 @@ then drive the main render path and the API on the card.
     python3 chip_smoke.py --time-march ROOT TAG
         # only: time the march entries of the package under the tree ROOT
         # at the bench shape, the square ones and the banded ones on phase
-        # 33's 4 bands (64-launch graphs, median of 7), and print ptxas's
-        # lines for every instance; run twice per tree (parent, change,
-        # change, parent) to compare two trees in one call
+        # 33's 4 bands (64-launch graphs, median of 7), where the tree's
+        # entries take out= each also into lanes [4, 4 + k) of a field,
+        # and print ptxas's lines for every instance; run twice per tree
+        # (parent, change, change, parent) to compare two trees in one
+        # call
     python3 chip_smoke.py --time-shadows ROOT TAG
         # only: time shadow_light of the package under the tree ROOT over
         # the bench DEM at phase 26's suns (median of 5 each), the same
@@ -23,7 +25,10 @@ Phases, in order; any failure raises and exits nonzero:
  1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the card;
  2. window-march kernel vs its plain version at the bench shape (3400^2
     DEM of bench.py's formula, seed 7, 4096 columns, 360 deg, zfar 40 km):
-    tangents bitwise equal, no dropped or truncated samples;
+    tangents bitwise equal, no dropped or truncated samples; the near
+    band's kernel (kernels/csrc/near_band.cu) at that shape bitwise equal
+    to near_band_plain (tangents, near_hi, dropped, dq, iq, jq), its
+    device ms (graph replay) against its bound and the plain version's;
  3. resolve kernel vs its plain version on those rows at H 1024: idx, ok
     and alpha bitwise equal;
  4. planar-DEM analytic oracle through the march on the card (max tangent
@@ -312,6 +317,7 @@ Every number printed stands beside the card's name and power limit
 output are the card, the kernels' JSON record and {"ok": true, ...}.
 """
 
+import inspect
 import json
 import math
 import os
@@ -341,6 +347,10 @@ PROBE_GRAPH_LAUNCHES = 16
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# float32 operations of the near band (FMA = 2), counted from
+# near_band.cu: a column's trigonometry (two library calls, ~20 each) and
+# near_hi; a sample's distance, position, bounds, taps, hats and tangent
+NEAR_FLOPS_COLUMN, NEAR_FLOPS_SAMPLE = 50, 60
 # float32 operations per march sample (FMA = 2), counted from
 # window_march.cu: position, axis, distance, bounds, hats, taps, tangent;
 # the textured entry adds the color hats and three channels
@@ -5427,12 +5437,52 @@ def oracle_only():
     return 0
 
 
+def near_band_phase(dem, p, geo):
+    """Phase 2's near band: the kernel against near_band_plain at the bench
+    shape (the pano cell's: 4096 columns, n_near 4, znear 100 m's patch),
+    bitwise; its device ms by graph replay against its bound (the columns'
+    az, e and scale read, the patch's cells, near_hi and the (W, n_near)
+    tangents written) and the plain version's ms. Returns the kernel
+    entry's (err, ms, plain_ms, bytes, ops); its launches are phase 5's,
+    the main path's."""
+    from horizonator_tpu_torch.kernels.near_band import (near_band,
+                                                         near_band_plain)
+    from horizonator_tpu_torch.render.crossing import N_NEAR
+    from horizonator_tpu_torch.render.window import near_patch_size
+    patch_n = near_patch_size(100.0, CPD, LAT)
+    nkw = dict(n_near=N_NEAR, patch_n=patch_n)
+    got = near_band(dem, p, geo, want_samples=True, **nkw)
+    ref = near_band_plain(dem, p, geo, **nkw)
+    torch.cuda.synchronize()
+    for name, a, b in (("tanel", got.tanel, ref[0]),
+                       ("near_hi", got.near_hi, ref[1]),
+                       ("dropped", got.dropped, ref[2]),
+                       *zip(("dq", "iq", "jq"), got.samples, ref[3])):
+        if not torch.equal(a, b):
+            fail(f"near band {name} != plain: {int((a != b).sum())} differ")
+    err = max_abs(got.tanel, ref[0])
+    t_k = graph_ms(lambda: near_band(dem, p, geo, **nkw).tanel,
+                   GRAPH_LAUNCHES)
+    t_p = cuda_ms_run(lambda i: near_band_plain(dem, p, geo, **nkw), 50)
+    nbytes = W * (3 * 4 + 4 + 4 * N_NEAR) + 4 * patch_n ** 2 + 4 * 9
+    ops = W * (NEAR_FLOPS_COLUMN + NEAR_FLOPS_SAMPLE * N_NEAR)
+    b_ms, b_by = bound(nbytes, ops, FP32_OPS_PER_S)
+    log(f"[2] near_band_kernel ({W}, {N_NEAR}), patch {patch_n}: kernel == "
+        f"plain bitwise (tangents, near_hi, dropped {int(got.dropped)}, dq, "
+        f"iq, jq); device ms (graph replay of {GRAPH_LAUNCHES}) {t_k:.5f} "
+        f"against a bound of {b_ms:.5f} by {b_by} "
+        f"({nbytes / 1e3:.1f} kB, {ops / 1e6:.2f} M ops): "
+        f"{100 * b_ms / t_k:.2f}%; plain {t_p:.4f} ms; {card_line()}")
+    return err, t_k, t_p, nbytes, ops
+
+
 def main(profile_dir=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from horizonator_tpu_torch import horizonator
     from horizonator_tpu_torch.kernels import build
+    from horizonator_tpu_torch.kernels.near_band import near_band
     from horizonator_tpu_torch.kernels.resolve import resolve, resolve_plain
     from horizonator_tpu_torch.kernels.window_march import march, march_plain
     from horizonator_tpu_torch.render import make_params, render_panorama
@@ -5493,6 +5543,7 @@ def main(profile_dir=None):
     march_err = max_abs(tan_k[:, N_NEAR:], tan_p[:, N_NEAR:])
     log(f"[2] window march {tuple(tan_k.shape)} (k={k}): kernel == plain "
         f"bitwise; dropped=truncated=0")
+    near_args = near_band_phase(dem, p, geo)
 
     # -- 3. resolve: kernel vs plain on those rows ---------------------------
     y_k = horizon_rows(tan_k, p, width=W, height=H).contiguous()
@@ -5541,10 +5592,11 @@ def main(profile_dir=None):
     # -- 5. main path -----------------------------------------------------
     rkw = dict(width=W, height=H, nsteps=k, cells_per_deg=CPD,
                lat_hint_deg=LAT)
-    march.launches = resolve.launches = 0
+    march.launches = resolve.launches = near_band.launches = 0
     img, rng, guard = render_panorama(dem, p, with_dropped=True, **rkw)
     torch.cuda.synchronize()
-    launches = {"window_march": march.launches, "resolve": resolve.launches}
+    launches = {"window_march": march.launches, "resolve": resolve.launches,
+                "near_band": near_band.launches}
     if min(launches.values()) < 1:
         fail(f"main path skipped a kernel: {launches}")
     vis = float((rng > 0).float().mean())
@@ -5748,6 +5800,11 @@ def main(profile_dir=None):
                      "horizonator_tpu/render/resolve_window.py:117",
                      launches["resolve"], resolve_err, t_res, t_res_p,
                      resolve_bytes, resolve_ops, int32_rate),
+        kernel_entry("near_band",
+                     "horizonator_tpu_torch/kernels/csrc/near_band.cu",
+                     "none: the JAX near band is jnp glue "
+                     "(horizonator_tpu/render/window.py:1024-1114)",
+                     launches["near_band"], *near_args, FP32_OPS_PER_S),
         *tex_kernels,
         *probe_kernels,
         *scale_kernels,
@@ -5781,7 +5838,8 @@ def time_march(root, tag):
         march, march_band, march_band_textured, march_textured)
     from horizonator_tpu_torch.parallel.regions import band_bounds, local_band
     from horizonator_tpu_torch.render import make_params
-    from horizonator_tpu_torch.render.crossing import (crossing_geometry,
+    from horizonator_tpu_torch.render.crossing import (N_NEAR,
+                                                       crossing_geometry,
                                                        k_cross_for)
     from horizonator_tpu_torch.render.texture import ColorPlanes2x
     from horizonator_tpu_torch.render.window import step_budget
@@ -5804,31 +5862,50 @@ def time_march(root, tag):
     gen.manual_seed(1)
     plane = torch.randint(0, 1 << 24, (2 * N, 2 * N), generator=gen,
                           device=dev, dtype=torch.int32)
-    entries = [("march", lambda: march(dem, pcol, fscal, k)),
-               ("textured", lambda: march_textured(dem, pcol, fscal, k,
-                                                   plane, 2))]
     r, nb = SCALE_R, N // SCALE_R
+    calls = [("march", march, (dem, pcol, fscal, k), False),
+             ("textured", march_textured, (dem, pcol, fscal, k, plane, 2),
+              True)]
     for idx in range(r):
         j_off, j_hi = band_bounds(idx, r, nb)
         loc = local_band(dem, idx, r)
         loc_c = local_band(ColorPlanes2x(plane), idx, r).full_packed
-        entries += [
-            (f"band {idx}", lambda loc=loc, j_off=j_off, j_hi=j_hi:
-             march_band(loc, pcol, fscal, k, j_off, j_hi)),
-            (f"band {idx} textured",
-             lambda loc=loc, loc_c=loc_c, j_off=j_off, j_hi=j_hi:
-             march_band_textured(loc, pcol, fscal, k, loc_c, 2, j_off,
-                                 j_hi))]
+        calls += [(f"band {idx}", march_band,
+                   (loc, pcol, fscal, k, j_off, j_hi), False),
+                  (f"band {idx} textured", march_band_textured,
+                   (loc, pcol, fscal, k, loc_c, 2, j_off, j_hi), True)]
+    entries = [(name, lambda fn=fn, args=args: fn(*args))
+               for name, fn, args, _ in calls]
+    # a tree whose entries take out=: each also into lanes [4, 4 + k) of a
+    # (W, 4 + k) field, the layout the render's in-place field gives them
+    strided = "out" in inspect.signature(march).parameters
+    if strided:
+        def into_field(fn, args, tex):
+            f = torch.empty((W, N_NEAR + k), device=dev)
+            kw = dict(out=f[:, N_NEAR:])
+            if tex:
+                kw["tex_out"] = torch.empty(
+                    (W, N_NEAR + k), dtype=torch.int32,
+                    device=dev)[:, N_NEAR:]
+            return fn(*args, **kw)
+        entries += [(f"{name} strided",
+                     lambda fn=fn, args=args, tex=tex: into_field(fn, args,
+                                                                  tex))
+                    for name, fn, args, tex in calls]
     times = {name: [graph_ms(fn, GRAPH_LAUNCHES) for _ in range(7)]
              for name, fn in entries}
     med = {name: statistics.median(t) for name, t in times.items()}
+
+    def band_means(suffix):
+        untex, tex = (statistics.mean(med[f"band {i}{kind}{suffix}"]
+                                      for i in range(r))
+                      for kind in ("", " textured"))
+        return f"mean a band {untex:.5f}, textured {tex:.5f}"
     log(f"{tag}: " + ", ".join(
         f"{name} {med[name]:.5f} ({min(t):.5f}-{max(t):.5f})"
         for name, t in times.items())
-        + f" ms at ({W}, {k}); mean a band "
-        + f"{statistics.mean(med[f'band {i}'] for i in range(r)):.5f}, "
-        + "textured "
-        + f"{statistics.mean(med[f'band {i} textured'] for i in range(r)):.5f}"
+        + f" ms at ({W}, {k}); {band_means('')}"
+        + (f"; strided {band_means(' strided')}" if strided else "")
         + f"; {card_line()}")
     for name, (regs, st, ld) in ptxas_table(nvcc_log).items():
         m = re.search(r"(window_march(?:_band)?(?:_tex)?_kernel)I(Lb\dE)+E",

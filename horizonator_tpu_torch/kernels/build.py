@@ -27,6 +27,13 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v"]
 
 
+class Scalars(ctypes.Structure):
+    """The near band's per-viewpoint scalars (csrc/near_band.cu): a
+    pointer to each and its stride in elements between viewpoints (0: one
+    value for the batch)."""
+    _fields_ = [("ptr", ctypes.c_void_p * 8), ("stride", ctypes.c_longlong * 8)]
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -91,17 +98,18 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     cll = ctypes.c_longlong
-    lib.hz_window_march.argtypes = [vp, ci, cll, vp, vp, ci, ci, ci, vp, vp]
+    lib.hz_window_march.argtypes = [vp, ci, cll, vp, vp, ci, ci, ci, vp, cll,
+                                    vp]
     lib.hz_window_march.restype = ci
     lib.hz_window_march_tex.argtypes = [vp, ci, cll, vp, ci, cll, vp, vp, ci,
-                                        ci, ci, vp, vp, vp]
+                                        ci, ci, vp, vp, cll, vp]
     lib.hz_window_march_tex.restype = ci
     lib.hz_window_march_band.argtypes = [vp, ci, ci, ci, cf, cll, vp, vp, ci,
-                                         ci, ci, vp, vp]
+                                         ci, ci, vp, cll, vp]
     lib.hz_window_march_band.restype = ci
     lib.hz_window_march_band_tex.argtypes = [vp, ci, ci, ci, cf, cll, vp, ci,
                                              cll, vp, vp, ci, ci, ci, vp, vp,
-                                             vp]
+                                             cll, vp]
     lib.hz_window_march_band_tex.restype = ci
     lib.hz_resolve.argtypes = [vp, ci, ci, ci, cf, cf, ci, vp, vp, vp, vp]
     lib.hz_resolve.restype = ci
@@ -123,5 +131,9 @@ def library() -> ctypes.CDLL:
                                       ci, ci, cf, ci, cf, cf, cf, ci, ci, vp,
                                       vp, vp, vp]
     lib.hz_viewshed_cells.restype = ci
+    lib.hz_near_band.argtypes = [vp, ci, ci, cll, ci, ci, ci, cf, ci, vp, vp,
+                                 vp, Scalars, ci, ci, ci, cf, vp, cll, vp, vp,
+                                 vp, vp, vp, vp]
+    lib.hz_near_band.restype = ci
     return lib
 

@@ -58,6 +58,20 @@
 // predicated: a thread outside W loads nothing and stores nothing but
 // reaches the barrier.
 //
+// Rows ld apart. Every entry takes the row stride of its outputs (ld >= K),
+// so that it can write lanes [n_near, n_near + K) of the render's whole
+// (W, n_near + K) field in place while near_band.cu writes lanes [0,
+// n_near): no copy assembles the field. With n_near 4 a row starts 16
+// bytes into a 32-byte sector, so a warp's 128 contiguous bytes touch five
+// sectors instead of four. The transpose keeps its order regardless: it
+// is still one store instruction a warp, the L2 merges the partial
+// sectors that adjacent rows share before they reach memory, and shifting
+// a warp's steps to sector boundaries would split every tile's edge into
+// a second store. A dead tile's 16-byte stores stay legal, since ld and
+// the 4-lane offset keep each row 16-byte aligned; other strides take its
+// 4-byte path. What the stride costs is measured (chip_smoke.py
+// --time-march).
+//
 // Batch. A launch marches B viewpoints: the viewpoint rides on gridDim.z,
 // and each block offsets its column constants (B, W, 8), its scalars (B, 4)
 // and its outputs (B, W, K) by its viewpoint, in 64-bit arithmetic (B*W*K
@@ -154,16 +168,19 @@ __device__ __forceinline__ void hats(float x, float& fl, float& h_lo,
 }
 
 // A dead tile's outputs: NEG_BIG, and 0 for the colors, written straight
-// from registers over the tile's (<= COLS, <= STEPS) block of (W, K), 16
-// bytes a thread where K and the outputs' alignment allow (a warp then
-// writes two columns' 256 contiguous bytes), else 4 (half a column's 128).
+// from registers over the tile's (<= COLS, <= STEPS) block of (W, K) (rows
+// ld apart), 16 bytes a thread where K, ld and the outputs' alignment
+// allow (a warp then writes two columns' 256 contiguous bytes), else 4
+// (half a column's 128).
 template <bool TEX>
 __device__ __forceinline__ void store_dead(float* __restrict__ out,
                                            int* __restrict__ tex_out,
-                                           int w0, int m0, int W, int K) {
+                                           int w0, int m0, int W, int K,
+                                           long long ld) {
   const int tid = threadIdx.y * 32 + threadIdx.x;
   const int nc = W - w0 < COLS ? W - w0 : COLS;
-  const bool vec = (K & 3) == 0 && ((uintptr_t)out & 15u) == 0 &&
+  const bool vec = (K & 3) == 0 && (ld & 3) == 0 &&
+                   ((uintptr_t)out & 15u) == 0 &&
                    (!TEX || ((uintptr_t)tex_out & 15u) == 0);
   if (vec) {
     constexpr int V = STEPS / 4;    // 16-byte vectors of a tile's column
@@ -172,7 +189,7 @@ __device__ __forceinline__ void store_dead(float* __restrict__ out,
     for (int i = tid; i < COLS * V; i += 32 * WARPS) {
       const int c = i / V, m = m0 + 4 * (i % V);
       if (c < nc && m < K) {
-        const long long o = (long long)(w0 + c) * K + m;
+        const long long o = (long long)(w0 + c) * ld + m;
         *reinterpret_cast<float4*>(out + o) = nb;
         if (TEX) *reinterpret_cast<int4*>(tex_out + o) = make_int4(0, 0, 0, 0);
       }
@@ -182,7 +199,7 @@ __device__ __forceinline__ void store_dead(float* __restrict__ out,
     for (int i = tid; i < COLS * STEPS; i += 32 * WARPS) {
       const int c = i / STEPS, m = m0 + i % STEPS;
       if (c < nc && m < K) {
-        const long long o = (long long)(w0 + c) * K + m;
+        const long long o = (long long)(w0 + c) * ld + m;
         out[o] = NEG_BIG;
         if (TEX) tex_out[o] = 0;
       }
@@ -193,14 +210,16 @@ __device__ __forceinline__ void store_dead(float* __restrict__ out,
 // pcol: (W, 8) float32 per column: a, t, e, scale, axis0, sign, j_dom, 0.
 // fscal: (4,) float32: viewer z, znear, zfar, curvature coefficient.
 // n: the grid's columns (its edge, square); BAND: nj rows from global row
-// j_off, valid up to j_off + j_hi.
+// j_off, valid up to j_off + j_hi. out and tex_out: rows of K samples ld
+// apart (ld >= K; K for a (W, K) array, n_near + K for lanes [n_near,
+// n_near + K) of the march's whole field).
 template <bool TEX, bool BATCH, bool BAND>
 __device__ __forceinline__ void march_tile(
     const float* __restrict__ dem, int n, int nj, int j_off, float j_hi,
     long long dem_bstride, const int* __restrict__ colors, int s,
     long long color_bstride, const float* __restrict__ pcol,
     const float* __restrict__ fscal, int W, int K, float* __restrict__ out,
-    int* __restrict__ tex_out) {
+    int* __restrict__ tex_out, long long ld) {
   __shared__ float s_out[STEPS][COLS + 1];
   __shared__ int s_tex[TEX ? STEPS : 1][COLS + 1];
   if (BATCH) {  // the block's viewpoint
@@ -208,10 +227,10 @@ __device__ __forceinline__ void march_tile(
     dem += b * dem_bstride;
     pcol += b * W * PCOL;
     fscal += b * 4;
-    out += b * W * K;
+    out += b * W * ld;
     if (TEX) {
       colors += b * color_bstride;
-      tex_out += b * W * K;
+      tex_out += b * W * ld;
     }
   }
   const int lane = threadIdx.x, warp = threadIdx.y;
@@ -273,7 +292,7 @@ __device__ __forceinline__ void march_tile(
               << i;
     }
     if (!__syncthreads_or(live != 0)) {
-      store_dead<TEX>(out, tex_out, w0, m0, W, K);
+      store_dead<TEX>(out, tex_out, w0, m0, W, K, ld);
       return;
     }
   }
@@ -363,7 +382,7 @@ __device__ __forceinline__ void march_tile(
 
   // the transpose: a warp writes 32 consecutive steps of one column
   for (int c = warp; c < COLS && w0 + c < W; c += WARPS) {
-    const long long row = (long long)(w0 + c) * K;
+    const long long row = (long long)(w0 + c) * ld;
 #pragma unroll
     for (int sb = 0; sb < STEPS; sb += 32) {
       const int m = m0 + sb + lane;
@@ -380,10 +399,10 @@ __device__ __forceinline__ void march_tile(
       long long dem_bstride, const int *__restrict__ colors, int s,         \
       long long color_bstride, const float *__restrict__ pcol,              \
       const float *__restrict__ fscal, int W, int K, float *__restrict__ out, \
-      int *__restrict__ tex_out
+      int *__restrict__ tex_out, long long ld
 #define MARCH_ARGS                                                          \
   dem, n, nj, j_off, j_hi, dem_bstride, colors, s, color_bstride, pcol,     \
-      fscal, W, K, out, tex_out
+      fscal, W, K, out, tex_out, ld
 
 template <bool TEX, bool BATCH>
 __global__ void __launch_bounds__(32 * WARPS)
@@ -410,8 +429,10 @@ template <bool TEX, bool BAND>
 int launch(const void* dem, int n, int nj, int j_off, float j_hi,
            long long dem_bstride, const void* colors, int s,
            long long color_bstride, const void* pcol, const void* fscal,
-           int B, int W, int K, void* out, void* tex, void* stream) {
+           int B, int W, int K, void* out, void* tex, long long ld,
+           void* stream) {
   if (B <= 0 || W <= 0 || K <= 0) return (int)cudaGetLastError();
+  if (ld < K) return (int)cudaErrorInvalidValue;
   const unsigned col_tiles = ((unsigned)W + COLS - 1) / COLS;
   const unsigned step_tiles = ((unsigned)K + STEPS - 1) / STEPS;
   // the step tiles ride on gridDim.y; the columns' constants are read as
@@ -427,7 +448,7 @@ int launch(const void* dem, int n, int nj, int j_off, float j_hi,
                                : window_march_band_kernel<false>);
   for (long long b0 = 0; b0 < B; b0 += MAX_Z) {
     const unsigned nb = (unsigned)(B - b0 < MAX_Z ? B - b0 : MAX_Z);
-    const long long wk = b0 * W * K;
+    const long long wk = b0 * W * ld;
     kernel<<<dim3(col_tiles, step_tiles, nb), dim3(32, WARPS), 0,
            (cudaStream_t)stream>>>(
             (const float*)dem + b0 * dem_bstride, n, nj, j_off, j_hi,
@@ -435,7 +456,7 @@ int launch(const void* dem, int n, int nj, int j_off, float j_hi,
             TEX ? (const int*)colors + b0 * color_bstride : nullptr, s,
             color_bstride, (const float*)pcol + b0 * W * PCOL,
             (const float*)fscal + b0 * 4, W, K, (float*)out + wk,
-            TEX ? (int*)tex + wk : nullptr);
+            TEX ? (int*)tex + wk : nullptr, ld);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -445,24 +466,27 @@ int launch(const void* dem, int n, int nj, int j_off, float j_hi,
 }  // namespace
 
 // dem: (n, n) float32 at dem + b * dem_bstride for viewpoint b (0: shared);
-// pcol (B, W, 8), fscal (B, 4), out (B, W, K)
+// pcol (B, W, 8), fscal (B, 4), out (B, W, K) with rows ld apart (ld >= K:
+// viewpoint b's rows start at out + b * W * ld)
 extern "C" int hz_window_march(const void* dem, int n, long long dem_bstride,
                                const void* pcol, const void* fscal, int B,
-                               int W, int K, void* out, void* stream) {
+                               int W, int K, void* out, long long ld,
+                               void* stream) {
   return launch<false, false>(dem, n, n, 0, 0.0f, dem_bstride, nullptr, 1, 0,
-                              pcol, fscal, B, W, K, out, nullptr, stream);
+                              pcol, fscal, B, W, K, out, nullptr, ld, stream);
 }
 
-// colors: (s*n, s*n) int32 at colors + b * color_bstride; tex (B, W, K)
+// colors: (s*n, s*n) int32 at colors + b * color_bstride; tex (B, W, K),
+// rows ld apart as out's
 extern "C" int hz_window_march_tex(const void* dem, int n,
                                    long long dem_bstride, const void* colors,
                                    int s, long long color_bstride,
                                    const void* pcol, const void* fscal, int B,
                                    int W, int K, void* out, void* tex,
-                                   void* stream) {
+                                   long long ld, void* stream) {
   return launch<true, false>(dem, n, n, 0, 0.0f, dem_bstride, colors, s,
                              color_bstride, pcol, fscal, B, W, K, out, tex,
-                             stream);
+                             ld, stream);
 }
 
 // a band: dem (nj, ni) float32, global rows j_off .. j_off + nj - 1, valid
@@ -471,9 +495,9 @@ extern "C" int hz_window_march_band(const void* dem, int nj, int ni,
                                     int j_off, float j_hi,
                                     long long dem_bstride, const void* pcol,
                                     const void* fscal, int B, int W, int K,
-                                    void* out, void* stream) {
+                                    void* out, long long ld, void* stream) {
   return launch<false, true>(dem, ni, nj, j_off, j_hi, dem_bstride, nullptr,
-                             1, 0, pcol, fscal, B, W, K, out, nullptr,
+                             1, 0, pcol, fscal, B, W, K, out, nullptr, ld,
                              stream);
 }
 
@@ -483,8 +507,8 @@ extern "C" int hz_window_march_band_tex(
     const void* dem, int nj, int ni, int j_off, float j_hi,
     long long dem_bstride, const void* colors, int s, long long color_bstride,
     const void* pcol, const void* fscal, int B, int W, int K, void* out,
-    void* tex, void* stream) {
+    void* tex, long long ld, void* stream) {
   return launch<true, true>(dem, ni, nj, j_off, j_hi, dem_bstride, colors, s,
-                            color_bstride, pcol, fscal, B, W, K, out, tex,
+                            color_bstride, pcol, fscal, B, W, K, out, tex, ld,
                             stream);
 }

@@ -46,6 +46,13 @@ and skips the loads, the arithmetic and the transpose, so a band beyond
 zfar costs about a write-only pass over its outputs while a band beside
 the viewer pays the march in its live tiles alone. The function, and so
 ``march_plain``, is the same.
+
+Every entry takes ``out=`` (and the textured ones ``tex_out=``): a (W, k)
+view, or (B, W, k) for a batch, of a wider buffer whose rows hold the
+samples contiguously and evenly apart, as lanes [n_near, n_near + k) of
+the render's whole field (render/window.py::march_from_geometry), which
+the kernel then writes in place at that row stride. CPU tensors copy the
+plain version's result into it.
 """
 
 from __future__ import annotations
@@ -172,6 +179,40 @@ def _plane_stride(fn: str, name: str, x: torch.Tensor, shape, b: int,
     return shape[0] * shape[1] if per_view else 0
 
 
+def _outputs(fn: str, shape, device, out, tex_out, textured: bool):
+    """(out, tex, row stride) of a launch: fresh (…, W, k) arrays, or the
+    caller's views of wider buffers, checked: float32 samples (int32
+    colors) on ``device``, each row's k lanes contiguous and the rows
+    evenly apart (a batch's viewpoints too), the colors at the samples'
+    stride."""
+    if out is None:
+        if tex_out is not None:
+            raise ValueError(f"{fn}: tex_out without out")
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        tex = (torch.empty(shape, dtype=torch.int32, device=device)
+               if textured else None)
+        return out, tex, shape[-1]
+    views = [("out", out, torch.float32)]
+    if textured:
+        views.append(("tex_out", tex_out, torch.int32))
+    elif tex_out is not None:
+        raise ValueError(f"{fn}: tex_out on an untextured march")
+    ld = out.stride(-2) if out.dim() >= 2 else 0
+    for name, x, dtype in views:
+        if x is None:
+            raise ValueError(f"{fn}: out without tex_out")
+        strided = (x.dim() == len(shape) and x.stride(-1) == 1
+                   and x.stride(-2) == ld >= shape[-1]
+                   and (len(shape) == 2 or x.stride(0) == shape[1] * ld))
+        if (tuple(x.shape) != tuple(shape) or x.dtype != dtype
+                or x.device != device or not strided):
+            raise ValueError(
+                f"{fn}: {name} must be a {dtype} {tuple(shape)} view on "
+                f"{device} with contiguous rows evenly apart, got {x.dtype} "
+                f"{tuple(x.shape)} strides {x.stride()} on {x.device}")
+    return out, tex_out, ld
+
+
 def _check_march(fn: str, dem, pcol, fscal, band: bool = False):
     """(B, W, n, DEM batch stride, batched) of a launch: pcol (W, 8) and
     fscal (4,) march one viewpoint of a 2-D DEM; pcol (B, W, 8) and fscal
@@ -194,22 +235,37 @@ def _check_march(fn: str, dem, pcol, fscal, band: bool = False):
     return b, w, n, stride, batched
 
 
+def _plain(fn: str, dem, out, tex_out, result):
+    """The CPU route: the plain version's result, copied into ``out`` (and
+    ``tex_out``) where given."""
+    if out is None and tex_out is None:
+        return result
+    textured = isinstance(result, tuple)
+    shape = (result[0] if textured else result).shape
+    _outputs(fn, shape, dem.device, out, tex_out, textured)
+    if textured:
+        return out.copy_(result[0]), tex_out.copy_(result[1])
+    return out.copy_(result)
+
+
 def march(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
-          k: int) -> torch.Tensor:
+          k: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """(W, k) float32 far-field samples of a square (n, n) float32 DEM.
 
     ``pcol``: (W, 8) float32 per-column geometry (see PCOL_WIDTH);
     ``fscal``: (4,) float32 [viewer z, znear, zfar, curvature]. A batch of
     B viewpoints is one launch: pcol (B, W, 8), fscal (B, 4) and a shared
-    (n, n) DEM or one (B, n, n) per viewpoint give (B, W, k)."""
+    (n, n) DEM or one (B, n, n) per viewpoint give (B, W, k). ``out``: a
+    view to write them into (the module docstring)."""
     if dem.device.type == "cpu":
-        return march_plain(dem, pcol, fscal, k)
+        return _plain("march", dem, out, None,
+                      march_plain(dem, pcol, fscal, k))
     b, w, n, stride, batched = _check_march("march", dem, pcol, fscal)
-    out = torch.empty((b, w, k) if batched else (w, k), dtype=torch.float32,
-                      device=dem.device)
+    out, _, ld = _outputs("march", (b, w, k) if batched else (w, k),
+                          dem.device, out, None, False)
     rc = build.library().hz_window_march(
         dem.data_ptr(), n, stride, pcol.data_ptr(), fscal.data_ptr(), b, w,
-        k, out.data_ptr(),
+        k, out.data_ptr(), ld,
         torch.cuda.current_stream(dem.device).cuda_stream)
     if rc:
         raise RuntimeError(f"window march launch failed: CUDA error {rc}")
@@ -222,13 +278,16 @@ march.launches = 0
 
 def march_textured(dem: torch.Tensor, pcol: torch.Tensor,
                    fscal: torch.Tensor, k: int, colors: torch.Tensor,
-                   scale: int):
+                   scale: int, out: torch.Tensor | None = None,
+                   tex_out: torch.Tensor | None = None):
     """(tanel (W, k) float32, tex (W, k) int32): ``march`` plus each
     sample's packed 0x00RRGGBB color from the (scale*n, scale*n) int32
     plane ``colors`` (scale 1: cell resolution, 2: half-cell). Batched as
-    ``march``; in a batch ``colors`` is shared or (B, scale*n, scale*n)."""
+    ``march``; in a batch ``colors`` is shared or (B, scale*n, scale*n).
+    ``out`` and ``tex_out``: views at one row stride to write into."""
     if dem.device.type == "cpu":
-        return march_plain(dem, pcol, fscal, k, colors, scale)
+        return _plain("march_textured", dem, out, tex_out,
+                      march_plain(dem, pcol, fscal, k, colors, scale))
     b, w, n, stride, batched = _check_march("march_textured", dem, pcol,
                                             fscal)
     if scale not in (1, 2):
@@ -236,13 +295,13 @@ def march_textured(dem: torch.Tensor, pcol: torch.Tensor,
     cstride = _plane_stride("march_textured", "colors", colors,
                             (scale * n, scale * n), b, batched, torch.int32,
                             dem.device)
-    shape = (b, w, k) if batched else (w, k)
-    out = torch.empty(shape, dtype=torch.float32, device=dem.device)
-    tex = torch.empty(shape, dtype=torch.int32, device=dem.device)
+    out, tex, ld = _outputs("march_textured",
+                            (b, w, k) if batched else (w, k), dem.device,
+                            out, tex_out, True)
     rc = build.library().hz_window_march_tex(
         dem.data_ptr(), n, stride, colors.data_ptr(), scale, cstride,
         pcol.data_ptr(), fscal.data_ptr(), b, w, k, out.data_ptr(),
-        tex.data_ptr(), torch.cuda.current_stream(dem.device).cuda_stream)
+        tex.data_ptr(), ld, torch.cuda.current_stream(dem.device).cuda_stream)
     if rc:
         raise RuntimeError(f"textured window march launch failed: CUDA "
                            f"error {rc}")
@@ -261,21 +320,24 @@ def _band_args(fn: str, dem, j_offset: int, j_hi: float):
 
 
 def march_band(dem: torch.Tensor, pcol: torch.Tensor, fscal: torch.Tensor,
-               k: int, j_offset: int, j_hi: float) -> torch.Tensor:
+               k: int, j_offset: int, j_hi: float,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """(W, k) far-field samples of a row band: a rectangular (nj, ni)
     float32 grid whose row 0 is global row ``j_offset``, rows valid up to
     global j_offset + j_hi (module docstring). Batched as ``march``: one
-    (nj, ni) band for every viewpoint or (B, nj, ni)."""
+    (nj, ni) band for every viewpoint or (B, nj, ni). ``out`` as
+    ``march``'s."""
     if dem.device.type == "cpu":
-        return march_plain(dem, pcol, fscal, k, j_offset=j_offset, j_hi=j_hi)
+        return _plain("march_band", dem, out, None, march_plain(
+            dem, pcol, fscal, k, j_offset=j_offset, j_hi=j_hi))
     b, w, _, stride, batched = _check_march("march_band", dem, pcol, fscal,
                                             band=True)
     nj, ni, off, jh = _band_args("march_band", dem, j_offset, j_hi)
-    out = torch.empty((b, w, k) if batched else (w, k), dtype=torch.float32,
-                      device=dem.device)
+    out, _, ld = _outputs("march_band", (b, w, k) if batched else (w, k),
+                          dem.device, out, None, False)
     rc = build.library().hz_window_march_band(
         dem.data_ptr(), nj, ni, off, jh, stride, pcol.data_ptr(),
-        fscal.data_ptr(), b, w, k, out.data_ptr(),
+        fscal.data_ptr(), b, w, k, out.data_ptr(), ld,
         torch.cuda.current_stream(dem.device).cuda_stream)
     if rc:
         raise RuntimeError(f"banded window march launch failed: CUDA error "
@@ -289,27 +351,29 @@ march_band.launches = 0
 
 def march_band_textured(dem: torch.Tensor, pcol: torch.Tensor,
                         fscal: torch.Tensor, k: int, colors: torch.Tensor,
-                        scale: int, j_offset: int, j_hi: float):
+                        scale: int, j_offset: int, j_hi: float,
+                        out: torch.Tensor | None = None,
+                        tex_out: torch.Tensor | None = None):
     """(tanel (W, k), tex (W, k) int32): ``march_band`` plus each sample's
     packed color from the band's (scale*nj, scale*ni) int32 plane, whose
-    row 0 is global 2x row scale*j_offset. Batched as ``march_band``."""
-    if dem.device.type == "cpu":
-        return march_plain(dem, pcol, fscal, k, colors, scale,
-                           j_offset=j_offset, j_hi=j_hi)
+    row 0 is global 2x row scale*j_offset. Batched as ``march_band``;
+    ``out`` and ``tex_out`` as ``march_textured``'s."""
     fn = "march_band_textured"
+    if dem.device.type == "cpu":
+        return _plain(fn, dem, out, tex_out, march_plain(
+            dem, pcol, fscal, k, colors, scale, j_offset=j_offset, j_hi=j_hi))
     b, w, _, stride, batched = _check_march(fn, dem, pcol, fscal, band=True)
     nj, ni, off, jh = _band_args(fn, dem, j_offset, j_hi)
     if scale not in (1, 2):
         raise ValueError(f"{fn}: scale must be 1 or 2, got {scale}")
     cstride = _plane_stride(fn, "colors", colors, (scale * nj, scale * ni),
                             b, batched, torch.int32, dem.device)
-    shape = (b, w, k) if batched else (w, k)
-    out = torch.empty(shape, dtype=torch.float32, device=dem.device)
-    tex = torch.empty(shape, dtype=torch.int32, device=dem.device)
+    out, tex, ld = _outputs(fn, (b, w, k) if batched else (w, k),
+                            dem.device, out, tex_out, True)
     rc = build.library().hz_window_march_band_tex(
         dem.data_ptr(), nj, ni, off, jh, stride, colors.data_ptr(), scale,
         cstride, pcol.data_ptr(), fscal.data_ptr(), b, w, k, out.data_ptr(),
-        tex.data_ptr(), torch.cuda.current_stream(dem.device).cuda_stream)
+        tex.data_ptr(), ld, torch.cuda.current_stream(dem.device).cuda_stream)
     if rc:
         raise RuntimeError(f"textured banded window march launch failed: "
                            f"CUDA error {rc}")

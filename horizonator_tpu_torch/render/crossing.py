@@ -28,6 +28,7 @@ import torch
 
 from .. import geometry
 from ..geometry import const, recip
+from ..kernels.near_band import _near_samples
 from ..kernels.window_march import fma32
 from .raymarch import (NEG_BIG, RenderParams, _unpack_pair,
                        broadcast_params_batch, cols, column_az, samples)
@@ -189,31 +190,6 @@ class CrossingDists(NamedTuple):
             (self.near_hi[..., None] - znear) * recip(q))
         d_crossing = (idxf - q + self.e[..., None]) * self.scale[..., None]
         return torch.where(idxf < q, d_near, d_crossing)
-
-
-def _near_samples(p: RenderParams, geo: CrossingGeom, n_near: int,
-                  near_hi: torch.Tensor):
-    """(dq, iq, jq) (W, n_near): the near band's uniform distances over
-    [znear, near_hi) and their grid positions (window.py:1027-1038)."""
-    q = torch.arange(n_near, dtype=torch.float32, device=near_hi.device)[
-        None, :]
-    znear = samples(p.znear)
-    # 1 mm floor: znear == 0 would put the first sample at d = 0
-    dq = torch.clamp(
-        znear + q * ((near_hi[..., None] - znear) * recip(n_near)),
-        min=1e-3)
-    return (dq,) + _grid_pos(p, geo, dq)
-
-
-def _grid_pos(p: RenderParams, geo: CrossingGeom, d: torch.Tensor):
-    """Grid coordinates (i, j) at horizontal distance d along each column."""
-    sin_az = torch.sin(geo.az)[..., None]
-    cos_az = torch.cos(geo.az)[..., None]
-    iq = samples(p.viewer_cell_i) + d * sin_az / samples(geo.cell_m_east)
-    # cell_m_north is a Python constant in the JAX package: XLA multiplies
-    # by its float32 reciprocal
-    jq = samples(p.viewer_cell_j) + d * cos_az * (1.0 / geo.cell_m_north)
-    return iq, jq
 
 
 def march_crossing(scene: CrossingScene, params: RenderParams, *, width: int,

@@ -7,11 +7,16 @@ textured, on a square grid or a rectangular row band (``j_hi``,
 
 - lanes [0, N_NEAR): the near band, N_NEAR bilinear samples over
   [znear, first surviving crossing), read through the viewer-centered DEM
-  patch at 0.5 m elevation resolution (window.py:1024-1095);
+  patch at 0.5 m elevation resolution (window.py:1024-1095), from
+  kernels/near_band.py;
 - lanes N_NEAR + m: grid crossing m, from the window-march kernel
   (kernels/window_march.py), which reads its two taps straight from the
   DEM: the TPU's crossing tables, aligned windows and per-tile origins
   exist for its DMA engine and have no counterpart here.
+
+Both write their lanes of one field: on a card the two kernels in
+place, on the CPU and under ``plain=True`` the plain versions' results
+copied in.
 
 The guards keep their contract: ``dists.truncated`` counts columns whose
 valid crossings run past the step budget, ``dists.dropped`` near-band
@@ -53,18 +58,17 @@ import torch
 
 from .. import geometry, profiling
 from ..geometry import const
-from ..kernels.window_march import (fma32, march, march_band,
-                                    march_band_textured, march_plain,
-                                    march_textured)
-from .crossing import (CrossingDists, CrossingGeom, N_NEAR, NEG_BIG,
-                       _grid_pos, _near_samples, crossing_geometry)
+from ..kernels.near_band import (ALIGN_MIN_N, _bilerp, _corners, _grid_pos,
+                                 _patch_origin, _take, near_band, near_top)
+from ..kernels.window_march import (march, march_band, march_band_textured,
+                                    march_plain, march_textured)
+from .crossing import CrossingDists, CrossingGeom, N_NEAR, crossing_geometry
 from .raymarch import RenderParams, cols, samples
 from .texture import (AtlasParams, ColorPlanes2x, atlas_px_from_grid,
                       pack_cell_colors, unpack_color_planes)
 
 DEG = math.pi / 180.0
 TILE_K = 128           # the JAX kernel's step tile: k budgets round to it
-ALIGN_MIN_N = TILE_K + 8   # grids below this are zero-padded (window.py:738)
 NEAR_PATCH_CAP = 64
 EXACT_PATCH_CAP = 256  # atlas-patch edge cap for the hybrid near field
 
@@ -136,32 +140,6 @@ def _truncated(geo: CrossingGeom, p: RenderParams, band: Band,
     return (torch.floor(m_hi) >= reach).sum(dim=-1).to(torch.int32)
 
 
-def _hat(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(1.0 - torch.abs(x - r), min=0.0)
-
-
-def _corners(ir: torch.Tensor, jr: torch.Tensor, size: int):
-    """(u0, v0, rows, cols): the floors of patch-relative positions and the
-    two row and column indices of their bilinear stencil, clamped into a
-    size x size patch (a clamped tap always carries zero weight)."""
-    u0 = torch.floor(ir)
-    v0 = torch.floor(jr)
-    rows = [(v0 + dv).clamp(0, size - 1).to(torch.int64) for dv in (0, 1)]
-    cols = [(u0 + du).clamp(0, size - 1).to(torch.int64) for du in (0, 1)]
-    return u0, v0, rows, cols
-
-
-def _bilerp(c, ir, jr, u0, v0) -> torch.Tensor:
-    """The JAX package's patch contraction sum_v hat(jr - v) * sum_u
-    hat(ir - u) * P[v, u] with its exact-zero terms dropped: four corners
-    c[dv][du], no matmul (so no TF32), in the order XLA evaluates it.
-    Corners may carry a leading channel axis over the (W, Q) positions."""
-    hx0, hx1 = _hat(ir, u0), _hat(ir, u0 + 1.0)
-    acc0 = hx0 * c[0][0] + hx1 * c[0][1]
-    acc1 = hx0 * c[1][0] + hx1 * c[1][1]
-    return fma32(_hat(jr, v0 + 1.0), acc1, _hat(jr, v0) * acc0)
-
-
 def _pack_u8(bgr: torch.Tensor) -> torch.Tensor:
     """(3, ...) float B, G, R -> 0x00RRGGBB, each rounded (half to even)
     and clipped to u8."""
@@ -176,80 +154,12 @@ def _bgr_of(src: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return unpack_color_planes(v) if src.dtype == torch.int32 else v
 
 
-def _take(plane: torch.Tensor, rows, columns, per_view: bool):
-    """plane[rows, columns] of a shared 2-D plane, or with ``per_view``
-    each viewpoint's own plane of a (B, m, m) stack at (B, ...) indices."""
-    if not per_view:
-        return plane[rows, columns]
-    b = torch.arange(plane.shape[0], device=plane.device)
-    return plane[b.view(-1, *([1] * (rows.dim() - 1))), rows, columns]
-
-
 def _gather(src: torch.Tensor, rows, columns, per_view: bool = False):
     """Values of a packed plane, or (3, ...) B/G/R of float planes, at
     (rows, columns); ``per_view``: src holds one plane per viewpoint."""
     if src.dtype == torch.int32:
         return _take(src, rows, columns, per_view)
     return torch.stack([_take(c, rows, columns, per_view) for c in src])
-
-
-def _patch_origin(p: RenderParams, patch_n: int, nj: int, ni: int,
-                  offset: int = 0):
-    """(oi, oj) int32: the viewer-centered near patch's corner in the
-    (nj, ni) march grid, per viewpoint; a band's patch row is band-local,
-    clipped into the band (window.py:1061-1065)."""
-    vj = p.viewer_cell_j - float(offset) if offset else p.viewer_cell_j
-    return tuple(
-        torch.clamp(torch.floor(v).to(torch.int32) - (patch_n // 2 - 1),
-                    0, edge - patch_n)
-        for v, edge in ((p.viewer_cell_i, ni), (vj, nj)))
-
-
-def _near_band(dem: torch.Tensor, p: RenderParams, dq, iq, jq, near_hi, *,
-               ni_real: int, nj_real: int, j_hi: float,
-               patch_n: int | None, origin=None):
-    """(tanel_q (W, n_near), dropped) -- window.py:1039-1114. ``dem`` is the
-    (zero-padded) march grid, or (B, nj, ni) one per viewpoint; ``ni_real``
-    and ``nj_real`` the loaded grid's (or band's) columns and rows, ``jq``
-    the band-local rows (valid in [0, j_hi]), ``origin`` the patch's
-    corner (_patch_origin)."""
-    per_view = dem.dim() == 3
-    vq = ((iq >= 0) & (iq <= float(ni_real - 1)) & (jq >= 0)
-          & (jq <= const(j_hi, jq)) & (dq >= samples(p.znear))
-          & (dq <= samples(p.zfar)) & (dq < near_hi[..., None]))
-    dropped = torch.zeros(p.znear.shape, dtype=torch.int32,
-                          device=dem.device)
-    if patch_n is not None:
-        # the viewer-centered patch at 0.5 m elevation resolution
-        oi, oj = (samples(o) for o in origin)
-        ir = iq - oi.to(torch.float32)
-        jr = jq - oj.to(torch.float32)
-        u0, v0, rows, columns = _corners(ir, jr, patch_n)
-        c = [[torch.round(_take(dem, oj + r, oi + cc, per_view) * 2.0) * 0.5
-              for cc in columns] for r in rows]
-        zq = _bilerp(c, ir, jr, u0, v0)
-        last = float(patch_n - 1)
-        in_patch = (ir >= 0.0) & (ir <= last) & (jr >= 0.0) & (jr <= last)
-        dropped = (vq & ~in_patch).sum(dim=(-2, -1)).to(torch.int32)
-        vq = vq & in_patch
-    else:
-        # patch too large for its cap (or the grid): bilinear from four
-        # gathered corners of the 0.5 m int16-class grid (window.py:1097-1111)
-        i0 = torch.clamp(torch.floor(iq), 0, ni_real - 2).to(torch.int32)
-        j0 = torch.clamp(torch.floor(jq), 0, nj_real - 2).to(torch.int32)
-        fi = torch.clamp(iq - i0, 0.0, 1.0)
-        fj = torch.clamp(jq - j0, 0.0, 1.0)
-        zq16 = torch.clamp(torch.round(dem * 2.0), -32768, 32767) * 0.5
-        i0, j0 = i0.long(), j0.long()
-        z00, z01, z10, z11 = (_take(zq16, j, i, per_view) for j, i in (
-            (j0, i0), (j0, i0 + 1), (j0 + 1, i0), (j0 + 1, i0 + 1)))
-        ztop = z00 + (z01 - z00) * fi
-        zbot = z10 + (z11 - z10) * fi
-        zq = ztop + (zbot - ztop) * fj
-    tanel_q = torch.where(vq, fma32(-dq, samples(p.curv).expand_as(dq),
-                                    (zq - samples(p.viewer_z)) / dq),
-                          const(NEG_BIG, zq))
-    return tanel_q, dropped
 
 
 def _near_colors(src: torch.Tensor, s: int, iq, jq, *, ni_real: int,
@@ -404,8 +314,10 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
     int32), ``atlas_params`` and ``exact_near_m`` add the hybrid near
     field. ``j_hi`` / ``j_offset``: a row band (the module docstring).
 
-    ``plain`` runs the march's plain PyTorch version on any device (for
-    comparisons with the kernel); otherwise the wrappers pick by device.
+    ``plain`` runs the march's and the near band's plain PyTorch versions
+    on any device (for comparisons with the kernels); otherwise the
+    wrappers pick by device. Either way the two write their lanes of one
+    field.
 
     Batched (B,) params give (B, W, ...) arrays, one kernel launch for the
     batch, and (B,) guards; ``dem`` is then a shared (nj, ni) grid or one
@@ -432,61 +344,72 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
     if textured:
         plane, s, near_src = _color_source(color_planes, nj, ni,
                                            dem.shape[:1] if per_view else ())
+    # one field: the march writes lanes [n_near, n_near + k_limit), the
+    # near band lanes [0, n_near) (on a card both kernels in place)
+    shape = tuple(geo.a.shape) + (n_near + k_limit,)
+    tanel = torch.empty(shape, dtype=torch.float32, device=dem.device)
+    okw = dict(out=tanel[..., n_near:])
+    tex = None
+    if textured:
+        tex = torch.empty(shape, dtype=torch.int32, device=dem.device)
+        okw["tex_out"] = tex[..., n_near:]
     with profiling.phase("hz.kernels.march"):
-        if textured and plain:
-            far, tex = march_plain(dem, pcol, fscal, k_limit, plane, s,
-                                   **bkw)
+        if plain:
+            far = march_plain(dem, pcol, fscal, k_limit,
+                              *((plane, s) if textured else ()), **bkw)
+            tanel[..., n_near:] = far[0] if textured else far
+            if textured:
+                tex[..., n_near:] = far[1]
         elif textured and banded:
-            far, tex = march_band_textured(dem, pcol, fscal, k_limit, plane,
-                                           s, **bkw)
+            march_band_textured(dem, pcol, fscal, k_limit, plane, s, **bkw,
+                                **okw)
         elif textured:
-            far, tex = march_textured(dem, pcol, fscal, k_limit, plane, s)
-        elif plain:
-            far = march_plain(dem, pcol, fscal, k_limit, **bkw)
+            march_textured(dem, pcol, fscal, k_limit, plane, s, **okw)
         elif banded:
-            far = march_band(dem, pcol, fscal, k_limit, **bkw)
+            march_band(dem, pcol, fscal, k_limit, **bkw, **okw)
         else:
-            far = march(dem, pcol, fscal, k_limit)
+            march(dem, pcol, fscal, k_limit, **okw)
     truncated = _truncated(geo, p, band, k_limit)
 
-    m_star = torch.clamp(torch.ceil(cols(p.znear) / geo.scale - geo.e),
-                         min=0.0)
-    near_hi = torch.maximum((m_star + geo.e) * geo.scale, cols(p.znear))
-    dropped = torch.zeros(p.znear.shape, dtype=torch.int32,
-                          device=dem.device)
     near = None
     if n_near > 0:
         with profiling.phase("hz.render.near_band"):
-            # tiny grids: zeros = ocean
+            # tiny grids: read as zero-padded (zeros = ocean)
             pad_i = max(ni, ALIGN_MIN_N) - ni
             pad_j = max(nj, ALIGN_MIN_N) - nj
-            grid = (torch.nn.functional.pad(dem, (0, pad_i, 0, pad_j))
-                    if pad_i or pad_j else dem)
             patch_n = (near_patch_size(znear_hint_m, cells_per_deg,
                                        lat_hint_deg)
                        if znear_hint_m is not None else None)
             if patch_n is not None and (patch_n > NEAR_PATCH_CAP or
                                         patch_n > min(ni + pad_i, nj + pad_j)):
                 patch_n = None  # would not fit: the gather form, never a drop
-            origin = (_patch_origin(p, patch_n, nj + pad_j, ni + pad_i,
-                                    band.offset)
-                      if patch_n is not None else None)
-            near = dq, iq, jq = _near_samples(p, geo, n_near, near_hi)
-            # band-local rows: in-band float32 x - k with integer k is exact
-            # (window.py:1039-1043)
-            jq_l = jq - float(band.offset) if band.offset else jq
-            nkw = dict(ni_real=ni, nj_real=nj, patch_n=patch_n, origin=origin)
-            tanel_q, dropped = _near_band(grid, p, dq, iq, jq_l, near_hi,
-                                          j_hi=band.j_hi, **nkw)
-            far = torch.cat([tanel_q, far], dim=-1)
+            launches = near_band.launches
+            nb = near_band(dem, p, geo, n_near=n_near, patch_n=patch_n, **bkw,
+                           out=tanel[..., :n_near], want_samples=textured,
+                           plain=plain)
+            if near_band.launches != launches:
+                profiling.count("hz.kernels.near_band",
+                                near_band.launches - launches)
+            near_hi, dropped = nb.near_hi, nb.dropped
             if textured:
+                near = dq, iq, jq = nb.samples
+                # band-local rows: in-band float32 x - k with integer k is
+                # exact (window.py:1039-1043)
+                jq_l = jq - float(band.offset) if band.offset else jq
+                origin = (_patch_origin(p, patch_n, nj + pad_j, ni + pad_i,
+                                        band.offset)
+                          if patch_n is not None else None)
                 with profiling.phase("hz.render.near_colors"):
                     if pad_i or pad_j:
                         near_src = torch.nn.functional.pad(
                             near_src, (0, s * pad_i, 0, s * pad_j))
-                    tex = torch.cat([_near_colors(near_src, s, iq, jq_l,
-                                                  per_view=per_view, **nkw),
-                                     tex], dim=-1)
+                    tex[..., :n_near] = _near_colors(
+                        near_src, s, iq, jq_l, ni_real=ni, nj_real=nj,
+                        patch_n=patch_n, origin=origin, per_view=per_view)
+    else:
+        near_hi = near_top(p, geo)
+        dropped = torch.zeros(p.znear.shape, dtype=torch.int32,
+                              device=dem.device)
     if (textured and exact_near_m is not None and atlas is not None
             and atlas_params is not None):
         # global positions: each band computes the same exact colors for
@@ -501,8 +424,8 @@ def march_from_geometry(dem: torch.Tensor, params: RenderParams,
                           near_hi=near_hi, n_near=n_near, dropped=dropped,
                           truncated=truncated)
     if textured:
-        return far, dists, tex
-    return far, dists
+        return tanel, dists, tex
+    return tanel, dists
 
 
 def _hybrid_near_field(tex, atlas, ap, geo, p, near, *, n_near,
