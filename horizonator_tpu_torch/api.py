@@ -419,10 +419,12 @@ class horizonator:
                             self._lat_plan_hint(), n)
         nlev = 1 + max(s.level for s in plan)
         if self._pyramid is None or len(self._pyramid) < nlev:
-            self._pyramid = lod.build_pyramid(self._dem, nlev)
+            with profiling.phase("hz.lod.pyramid"):
+                self._pyramid = lod.build_pyramid(self._dem, nlev)
         if cp is not None:
             if self._color_pyramid is None or len(self._color_pyramid) < nlev:
-                self._color_pyramid = lod.build_color_pyramid(cp, nlev, n)
+                with profiling.phase("hz.lod.pyramid"):
+                    self._color_pyramid = lod.build_color_pyramid(cp, nlev, n)
             cp = self._color_pyramid
         return self._pyramid, "lod", nsteps, plan, cp
 

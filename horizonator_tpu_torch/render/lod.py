@@ -37,7 +37,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .. import geometry
+from .. import geometry, profiling
 from ..geometry import const, recip
 from .crossing import N_NEAR, NEG_BIG, crossing_geometry
 from .raymarch import RenderParams, samples
@@ -192,7 +192,10 @@ def _crop_level(dem_l: torch.Tensor, p_l: RenderParams, colors_l,
 
     The origin is floor(viewer cell) - c//2, clipped into the grid; the
     crop is one gather. Rebasing by an integer is exact in float32, so
-    every crossing distance is bitwise the uncropped march's. A batch
+    every crossing distance is bitwise the uncropped march's. The samples
+    are not: a column's cross position ``a`` rounds at the crop's
+    magnitude, so a cropped level's tangents differ from the whole
+    grid's in their last bits. A batch
     crops each viewpoint at its own origin in the same gather: (B, c, c)
     grids, packed (B, c, c) and ColorPlanes2x (B, 2c, 2c) colours, (3, B,
     c, c) float planes, (B,) origins."""
@@ -275,10 +278,11 @@ def level_inputs(pyramid, params: RenderParams, spec: LevelSpec, *,
     p_l = _scaled_params(p, spec.level)._replace(
         znear=torch.maximum(p.znear, const(spec.d_lo, p.znear)),
         zfar=torch.minimum(p.zfar, const(spec.d_hi, p.zfar)))
-    dem_c, p_c, colors_c, _ = _crop_level(
-        pyramid[spec.level], p_l,
-        None if color_pyramid is None else color_pyramid[spec.level],
-        spec, cpd_l, lat_hint_deg)
+    with profiling.phase("hz.lod.crop"):
+        dem_c, p_c, colors_c, _ = _crop_level(
+            pyramid[spec.level], p_l,
+            None if color_pyramid is None else color_pyramid[spec.level],
+            spec, cpd_l, lat_hint_deg)
     geo = crossing_geometry(p_c, width=width, cells_per_deg=cpd_l)
     return dem_c, p_c, colors_c, geo
 
@@ -302,52 +306,57 @@ def march_lod(pyramid, params: RenderParams, *, width: int, plan,
     textured = color_pyramid is not None
     segs, tex_segs, es, scales = [], [], [], []
     near_hi = az = None
-    dropped = torch.zeros(p.znear.shape, dtype=torch.int32,
-                          device=p.znear.device)
-    truncated = torch.zeros_like(dropped)
-    for si, spec in enumerate(plan):
-        first = si == 0
-        nn = n_near if first else 0
-        dem_c, p_c, colors_c, geo = level_inputs(
-            pyramid, p, spec, width=width, cells_per_deg=cells_per_deg,
-            lat_hint_deg=lat_hint_deg, color_pyramid=color_pyramid)
-        k_cross = spec.k_lo + spec.k_len
-        out = march_from_geometry(
-            dem_c, p_c, geo, k_cross=k_cross,
-            cells_per_deg=cells_per_deg / (2 ** spec.level),
-            lat_hint_deg=lat_hint_deg, n_near=nn,
-            znear_hint_m=znear_hint_m if first else None,
-            color_planes=colors_c, plain=plain)
-        tanel_l, dists_l = out[0], out[1]
-        k_avail = tanel_l.shape[-1] - nn
-        hi = min(k_cross, k_avail)
-        pad_k = spec.k_len - (hi - spec.k_lo)   # the grid capped K (tiny DEM)
-        seg = tanel_l[..., nn + spec.k_lo: nn + hi]
-        if pad_k > 0:
-            seg = F.pad(seg, (0, pad_k), value=NEG_BIG)
-        if first:
-            segs.append(tanel_l[..., :nn])
-            near_hi, az = dists_l.near_hi, geo.az
-        segs.append(seg)
-        if textured:
-            tex_l = out[2]
-            tseg = tex_l[..., nn + spec.k_lo: nn + hi]
-            if pad_k > 0:       # padded lanes are NEG_BIG: never a pixel's
-                tseg = F.pad(tseg, (0, pad_k))
-            if first:
-                tex_segs.append(tex_l[..., :nn])
-            tex_segs.append(tseg)
-        es.append(dists_l.e)
-        scales.append(dists_l.scale)
-        dropped = dropped + dists_l.dropped
-        truncated = truncated + dists_l.truncated
+    with profiling.phase("hz.lod.march"):
+        profiling.count("hz.lod.renders", p.znear.numel())
+        dropped = torch.zeros(p.znear.shape, dtype=torch.int32,
+                              device=p.znear.device)
+        truncated = torch.zeros_like(dropped)
+        for si, spec in enumerate(plan):
+            with profiling.phase("hz.lod.level"):
+                first = si == 0
+                nn = n_near if first else 0
+                dem_c, p_c, colors_c, geo = level_inputs(
+                    pyramid, p, spec, width=width,
+                    cells_per_deg=cells_per_deg, lat_hint_deg=lat_hint_deg,
+                    color_pyramid=color_pyramid)
+                k_cross = spec.k_lo + spec.k_len
+                out = march_from_geometry(
+                    dem_c, p_c, geo, k_cross=k_cross,
+                    cells_per_deg=cells_per_deg / (2 ** spec.level),
+                    lat_hint_deg=lat_hint_deg, n_near=nn,
+                    znear_hint_m=znear_hint_m if first else None,
+                    color_planes=colors_c, plain=plain)
+                tanel_l, dists_l = out[0], out[1]
+                k_avail = tanel_l.shape[-1] - nn
+                hi = min(k_cross, k_avail)
+                # the grid capped K (tiny DEM)
+                pad_k = spec.k_len - (hi - spec.k_lo)
+                seg = tanel_l[..., nn + spec.k_lo: nn + hi]
+                if pad_k > 0:
+                    seg = F.pad(seg, (0, pad_k), value=NEG_BIG)
+                if first:
+                    segs.append(tanel_l[..., :nn])
+                    near_hi, az = dists_l.near_hi, geo.az
+                segs.append(seg)
+                if textured:
+                    tex_l = out[2]
+                    tseg = tex_l[..., nn + spec.k_lo: nn + hi]
+                    if pad_k > 0:   # padded lanes are NEG_BIG: never a pixel's
+                        tseg = F.pad(tseg, (0, pad_k))
+                    if first:
+                        tex_segs.append(tex_l[..., :nn])
+                    tex_segs.append(tseg)
+                es.append(dists_l.e)
+                scales.append(dists_l.scale)
+                dropped = dropped + dists_l.dropped
+                truncated = truncated + dists_l.truncated
 
-    dists = LodDists(e=torch.stack(es), scale=torch.stack(scales),
-                     znear=p.znear, near_hi=near_hi, n_near=n_near,
-                     k_lo=tuple(s.k_lo for s in plan),
-                     seg_len=tuple(s.k_len for s in plan),
-                     dropped=dropped, truncated=truncated)
-    tanel = torch.cat(segs, dim=-1)
-    if textured:
-        return tanel, dists, az, torch.cat(tex_segs, dim=-1)
-    return tanel, dists, az
+        dists = LodDists(e=torch.stack(es), scale=torch.stack(scales),
+                         znear=p.znear, near_hi=near_hi, n_near=n_near,
+                         k_lo=tuple(s.k_lo for s in plan),
+                         seg_len=tuple(s.k_len for s in plan),
+                         dropped=dropped, truncated=truncated)
+        tanel = torch.cat(segs, dim=-1)
+        if textured:
+            return tanel, dists, az, torch.cat(tex_segs, dim=-1)
+        return tanel, dists, az

@@ -279,11 +279,12 @@ def render_panorama(dem: torch.Tensor, params: RenderParams, *, width: int,
                     and not isinstance(color_planes, ColorPlanes2x) else
                     lod.build_color_pyramid(color_planes, len(pyramid),
                                             pyramid[0].shape[0]))
-        out = lod.march_lod(pyramid, params, width=width, plan=lod_plan,
-                            cells_per_deg=cells_per_deg,
-                            lat_hint_deg=lat_hint_deg,
-                            znear_hint_m=znear_hint_m, color_pyramid=cpyr,
-                            plain=plain)
+        with profiling.phase("hz.render.march"):
+            out = lod.march_lod(pyramid, params, width=width, plan=lod_plan,
+                                cells_per_deg=cells_per_deg,
+                                lat_hint_deg=lat_hint_deg,
+                                znear_hint_m=znear_hint_m, color_pyramid=cpyr,
+                                plain=plain)
         tanel, dists, az = out[:3]
         d_of = dists.d_of
         if cpyr is not None:
